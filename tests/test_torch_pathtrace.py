@@ -1,0 +1,213 @@
+"""PyTorch port's path tracer vs the JAX reference.
+
+jax.random and torch draw different numbers, so the bounce stage is held to
+the reference with the same ``u_frame`` injected into both, and the whole
+frame at ``num_bounces=0`` (primary + NEE, deterministic).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpu_raytracing.bvh.pairing import identity_pairs  # noqa: E402
+from tpu_raytracing.scene import camera as jcam  # noqa: E402
+from tpu_raytracing.scene.types import scene_to_device as jscene_to_device  # noqa: E402
+from tpu_raytracing.trace import pathtrace as jpt  # noqa: E402
+from tpu_raytracing.trace.brute import HitRecord as JHitRecord  # noqa: E402
+from tpu_raytracing.trace.brute import brute_force_trace as jbrute  # noqa: E402
+from tpu_raytracing.trace.ray import Rays as JRays  # noqa: E402
+from tpu_raytracing.trace.traverse import PackedPairs as JPackedPairs  # noqa: E402
+from tpu_raytracing.trace.traverse import TraceStats as JTraceStats  # noqa: E402
+from tpu_raytracing.trace.traverse import pack_pairs as jpack_pairs  # noqa: E402
+from tpu_raytracing_torch.bvh import bucket  # noqa: E402
+from tpu_raytracing_torch.scene import camera as tcam  # noqa: E402
+from tpu_raytracing_torch.scene import procedural as tproc  # noqa: E402
+from tpu_raytracing_torch.scene.types import scene_to_device  # noqa: E402
+from tpu_raytracing_torch.trace import pathtrace as tpt  # noqa: E402
+from tpu_raytracing_torch.trace import split_trace as st  # noqa: E402
+from tpu_raytracing_torch.trace.render import _shadow_rays  # noqa: E402
+from tpu_raytracing_torch.trace.ray import generate_primary_rays  # noqa: E402
+
+torch.set_num_threads(2)
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+W, H = 32, 32
+
+
+@pytest.fixture(scope="module")
+def cornell_state():
+    """Port-side cornell tree, scene, camera and a traced primary pass."""
+    scene = tproc.cornell_box()
+    views, packed, _ = bucket.emit_split_views(
+        bucket.split_front(torch.from_numpy(scene.triangles), True), leaf_width=st.LEAFW)
+    host_cam = tcam.update_camera(tcam.initialise_camera(scene.aabb_min, scene.aabb_max))
+    camera = tcam.camera_to_device(host_cam, "cpu")
+    tscene = scene_to_device(scene, "cpu")
+    rays = generate_primary_rays(camera, W, H)
+    rec, _ = st.trace_rays_split(views, packed, rays)
+    srec, _ = st.trace_rays_split(views, packed, _shadow_rays(tscene, rays, rec), any_hit=True)
+    return dict(scene=scene, views=views, packed=packed, camera=camera, host_cam=host_cam,
+                tscene=tscene, rays=rays, rec=rec, srec_hit=srec.hit)
+
+
+def _jax_rays(r):
+    return JRays(*(jnp.asarray(getattr(r, f).numpy()) for f in ("origin", "direction", "tmin",
+                                                                 "tmax")))
+
+
+def _jax_rec(rec):
+    return JHitRecord(*(jnp.asarray(getattr(rec, f).numpy()) for f in (
+        "hit", "t", "prim_id", "tri_id", "bary_u", "bary_v")))
+
+
+def _close(a, b, name):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("sort_kind,sample_next", [("leaf", True), ("cell", True),
+                                                   ("leaf", False)])
+def test_bounce_stage_matches_jax(cornell_state, rng, sort_kind, sample_next):
+    s = cornell_state
+    num = W * H
+    throughput = rng.uniform(0.2, 1.0, (num, 3)).astype(np.float32)
+    radiance = rng.uniform(0.0, 0.5, (num, 3)).astype(np.float32)
+    alive = rng.random(num) < 0.8
+    pixel = rng.permutation(num).astype(np.int32)
+    u_frame = rng.random((num, 2)).astype(np.float32)
+    max_t = np.float32(s["host_cam"].max_depth)
+    srec_hit = s["srec_hit"].numpy()
+
+    ref = jpt._bounce_stage(
+        jscene_to_device(s["scene"]), JPackedPairs(rows=jnp.asarray(s["packed"].rows.numpy())),
+        _jax_rays(s["rays"]), _jax_rec(s["rec"]), jnp.asarray(srec_hit),
+        jnp.asarray(throughput), jnp.asarray(radiance), jnp.asarray(alive),
+        jnp.asarray(pixel), jnp.asarray(u_frame), jnp.float32(max_t), None,
+        compaction=True, sort_cells=True, sample_next=sample_next, sort_kind=sort_kind)
+    out = tpt._bounce_stage(
+        s["tscene"], s["packed"], s["rays"], s["rec"], torch.from_numpy(srec_hit),
+        torch.from_numpy(throughput), torch.from_numpy(radiance), torch.from_numpy(alive),
+        torch.from_numpy(pixel).to(torch.int64), torch.from_numpy(u_frame),
+        torch.tensor(max_t), sort_cells=True, sample_next=sample_next, sort_kind=sort_kind)
+    j_rad, j_thr, j_alive, j_pix, j_rays = ref
+    t_rad, t_thr, t_alive, t_pix, t_rays = out
+    np.testing.assert_array_equal(np.asarray(j_alive), t_alive.numpy())
+    np.testing.assert_array_equal(np.asarray(j_pix), t_pix.numpy())
+    _close(j_rad, t_rad, "radiance")
+    _close(j_thr, t_thr, "throughput")
+    for f in ("origin", "direction", "tmin", "tmax"):
+        _close(getattr(j_rays, f), getattr(t_rays, f), f)
+
+
+def test_shadow_pair_matches_jax(cornell_state, rng):
+    s = cornell_state
+    alive = rng.random(W * H) < 0.7
+    jr, ja, jinv = jpt._jit_shadow_pair(jscene_to_device(s["scene"]), _jax_rays(s["rays"]),
+                                        _jax_rec(s["rec"]), jnp.asarray(alive))
+    tr, ta, tinv = tpt._shadow_pair(s["tscene"], s["rays"], s["rec"], torch.from_numpy(alive))
+    np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+    np.testing.assert_array_equal(np.asarray(jinv), tinv.numpy())
+    for f in ("origin", "direction", "tmin", "tmax"):
+        _close(getattr(jr, f), getattr(tr, f), f)
+
+
+def _psnr(a, b):
+    mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+
+def test_path_trace_zero_bounces_psnr(cornell_state):
+    """Primary + NEE frame against the reference renderer with its
+    brute-force oracle as tracer (identity pairs)."""
+    s = cornell_state
+    jtris = jnp.asarray(s["scene"].triangles)
+
+    def brute_tracer(trav, pairs, rays, active=None):
+        rec = jbrute(jtris, rays)
+        if active is not None:
+            rec = rec.replace(hit=rec.hit & active)
+        zeros = jnp.zeros_like(rec.prim_id)
+        return rec, JTraceStats(box_tests=zeros, tri_tests=zeros)
+
+    ref_img, ref_rays = jpt.path_trace(
+        None, jpack_pairs(identity_pairs(jtris)), jscene_to_device(s["scene"]),
+        jcam.camera_to_device(s["host_cam"]), W, H, num_bounces=0,
+        key=jax.random.PRNGKey(0), tracer=brute_tracer)
+    img, rays_traced = tpt.path_trace(s["views"], s["packed"], s["tscene"], s["camera"], W, H,
+                                      num_bounces=0, **st.make_frame_tracers(W, H))
+    assert int(rays_traced) == int(ref_rays)
+    assert _psnr(np.asarray(ref_img), img.numpy()) >= 40.0
+
+
+def test_path_trace_bounce_frame_and_overflow(cornell_state, monkeypatch):
+    s = cornell_state
+    args = (s["views"], s["packed"], s["tscene"], s["camera"], 24, 10)
+    img, rays_traced = tpt.path_trace(*args, num_bounces=1, **st.make_frame_tracers(24, 10))
+    assert img.shape == (10, 24, 3) and bool(torch.isfinite(img).all())
+    assert float(img.mean()) > 0.0 and int(rays_traced) > 240
+    cell, _ = tpt.path_trace(*args, num_bounces=1, sort_kind="cell",
+                             **st.make_frame_tracers(24, 10))
+    # the bounce order changes, the image (keyed by pixel) does not
+    np.testing.assert_allclose(cell.numpy(), img.numpy(), rtol=1e-5, atol=1e-6)
+    # the cornell tree is one row; the sphere's root row pushes several
+    sphere = tproc.sphere_scene(3)
+    sviews, spacked, _ = bucket.emit_split_views(
+        bucket.split_front(torch.from_numpy(sphere.triangles), True), leaf_width=st.LEAFW)
+    scam = tcam.camera_to_device(
+        tcam.update_camera(tcam.initialise_camera(sphere.aabb_min, sphere.aabb_max)), "cpu")
+    monkeypatch.setattr(st, "_stack_cap", lambda w, n: 1)
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        tpt.path_trace(sviews, spacked, scene_to_device(sphere, "cpu"), scam, 24, 10,
+                       num_bounces=1, tracer=st.make_split_tracer(24, 10))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tpt.path_trace(*args, num_bounces=1, sort_kind="tid", **st.make_frame_tracers(24, 10))
+
+
+def test_app_renders_and_refuses_unported_flags(tmp_path):
+    from tpu_raytracing_torch.app import main as app
+    from tpu_raytracing_torch.utils.png import read_png
+
+    app.main(["--scene", "cornell", "--type", "bottom-up", "--pairs", "--tracer", "split",
+              "--bounces", "1", "--width", "24", "--height", "10", "--device", "cpu",
+              "--debug-checks", "--output", str(tmp_path)])
+    img = read_png(str(tmp_path / "frame0000_pt.png"))
+    assert img.shape == (10, 24, 4) and img[..., :3].max() > 0
+    for extra in (["--type", "sah"], ["--tracer", "wide"], ["--animate"], ["--bounces", "0"],
+                  ["--render-mode", "3"], ["--refit-bound", "1.5"], ["--grid-scale", "2"]):
+        argv = ["--scene", "cornell", "--type", "bottom-up", "--tracer", "split", "--bounces",
+                "1", "--device", "cpu", "--output", str(tmp_path)] + extra
+        with pytest.raises(NotImplementedError, match=f"not yet ported: .*{extra[0]}"):
+            app.main(argv)
+
+
+def test_port_imports_and_renders_without_jax(tmp_path):
+    """In a process where jax and flax cannot be imported, every port
+    module imports and the app renders a tiny frame."""
+    script = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        import tpu_raytracing_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            tpu_raytracing_torch.__path__, "tpu_raytracing_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert not any(k.startswith("tpu_raytracing.") for k in sys.modules)
+        from tpu_raytracing_torch.app.main import main
+        main(["--scene", "cornell", "--type", "bottom-up", "--pairs", "--tracer", "split",
+              "--bounces", "1", "--width", "16", "--height", "16", "--device", "cpu",
+              "--output", {str(tmp_path)!r}])
+        print("modules", len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=str(tmp_path), env=env, timeout=300, check=False)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "modules" in proc.stdout
+    assert (tmp_path / "frame0000_pt.png").is_file()

@@ -1,0 +1,213 @@
+"""PyTorch port's split-BVH traversal (K1's plain version on the CPU) vs the
+JAX reference: brute force, the Pallas kernels in interpret mode, and a
+JAX-built tree traced by the port.
+
+As in tests/test_split_pallas.py, hits are held to brute force on ``hit``,
+``t`` (rtol 1e-5) and ``prim_id``: exact-t ties between neighbouring
+triangles may pick another ``tri_id`` than the TPU kernel's packet order.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpu_raytracing.bvh import bucket as jbucket  # noqa: E402
+from tpu_raytracing.scene import camera as jcam  # noqa: E402
+from tpu_raytracing.trace.brute import brute_force_trace as jbrute  # noqa: E402
+from tpu_raytracing.trace.ray import Rays as JRays  # noqa: E402
+from tpu_raytracing.trace.ray import generate_primary_rays as jprimary  # noqa: E402
+from tpu_raytracing_torch import convert  # noqa: E402
+from tpu_raytracing_torch.bvh import bucket as tbucket  # noqa: E402
+from tpu_raytracing_torch.trace import split_trace as st  # noqa: E402
+from tpu_raytracing_torch.trace.brute import brute_force_trace as tbrute  # noqa: E402
+from tpu_raytracing_torch.trace.ray import Rays  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def _np_rays(rays):
+    return tuple(np.asarray(a, np.float32) for a in (rays.origin, rays.direction, rays.tmin,
+                                                      rays.tmax))
+
+
+def _both(o, d, lo, hi):
+    """The same numpy rays as a JAX Rays and a port Rays."""
+    return (JRays(*(jnp.asarray(a) for a in (o, d, lo, hi))),
+            Rays(*(torch.from_numpy(np.array(a)) for a in (o, d, lo, hi))))
+
+
+def _camera_rays(scene, width, height):
+    c = jcam.camera_to_device(jcam.update_camera(
+        jcam.initialise_camera(scene.aabb_min, scene.aabb_max)))
+    return _np_rays(jprimary(c, width, height))
+
+
+def _port_tree(scene, pairs):
+    tris = torch.from_numpy(scene.triangles)
+    views, packed, _ = tbucket.emit_split_views(tbucket.split_front(tris, pairs),
+                                                leaf_width=st.LEAFW)
+    return views, packed
+
+
+def _assert_matches(rec, ref, live=None):
+    hit = rec.hit.numpy()
+    ref_hit = np.asarray(ref.hit)
+    if live is not None:
+        ref_hit = ref_hit & live
+    np.testing.assert_array_equal(hit, ref_hit)
+    np.testing.assert_allclose(np.where(hit, rec.t.numpy(), 0.0),
+                               np.where(hit, np.asarray(ref.t), 0.0), rtol=1e-5)
+    np.testing.assert_array_equal(np.where(hit, rec.prim_id.numpy(), 0),
+                                  np.where(hit, np.asarray(ref.prim_id), 0))
+
+
+@pytest.mark.parametrize("name,pairs", [("cornell", True), ("sphere", False),
+                                        ("sphere", True), ("soup", True)])
+def test_plain_matches_brute(name, pairs, request):
+    scene = request.getfixturevalue(name)
+    views, packed = _port_tree(scene, pairs)
+    o, d, lo, hi = _camera_rays(scene, 32, 32)
+    if name == "soup":
+        # The camera sees few soup triangles: shoot at triangles along their
+        # normals instead (grazing hits on these tiny triangles are
+        # ill-conditioned in t at the 1e-5 bar).
+        rng = np.random.default_rng(3)
+        pick = rng.integers(0, scene.num_triangles, 1024)
+        n = scene.normals[pick, 0]
+        target = scene.triangles[pick].mean(axis=1)
+        o = (target + n * rng.uniform(0.5, 3.0, (1024, 1))).astype(np.float32)
+        d = (-n + rng.normal(scale=0.05, size=(1024, 3))).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    jr, tr = _both(o, d, lo, hi)
+    ref = jbrute(jnp.asarray(scene.triangles), jr)
+    assert int(np.asarray(ref.hit).sum()) > 16
+    rec, stats = st.trace_rays_split(views, packed, tr)
+    _assert_matches(rec, ref)
+    w = views[0].shape[1]
+    assert (stats.box_tests % w == 0).all() and (stats.box_tests >= w).all()
+    assert (stats.tri_tests % (2 * st.LEAFW) == 0).all()
+    # any-hit finds the same occluded set and reports t = tmax
+    arec, _ = st.trace_rays_split(views, packed, tr, any_hit=True)
+    np.testing.assert_array_equal(arec.hit.numpy(), np.asarray(ref.hit))
+    np.testing.assert_array_equal(arec.t.numpy(), hi)
+    # the port's own oracle agrees with the reference's
+    _assert_matches(tbrute(torch.from_numpy(scene.triangles), tr), ref)
+
+
+def test_dead_and_axis_aligned_rays(sphere, rng):
+    views, packed = _port_tree(sphere, True)
+    lo, hi = sphere.aabb_min, sphere.aabb_max
+    n = 16
+    gx, gz = np.meshgrid(np.linspace(lo[0] + 1e-3, hi[0] - 1e-3, n),
+                         np.linspace(lo[2] + 1e-3, hi[2] - 1e-3, n))
+    o = np.stack([gx.ravel(), np.full(n * n, hi[1] + 1.0), gz.ravel()], 1).astype(np.float32)
+    d = np.tile(np.float32([0.0, -1.0, 0.0]), (n * n, 1))
+    d[::7] = [-0.0, -1.0, -0.0]  # negative zeros sanitise to +1e-30
+    tmin = np.zeros(n * n, np.float32)
+    tmax = np.full(n * n, 1e6, np.float32)
+    jr, tr = _both(o, d, tmin, tmax)
+    ref = jbrute(jnp.asarray(sphere.triangles), jr)
+    assert int(np.asarray(ref.hit).sum()) > 8
+    rec, _ = st.trace_rays_split(views, packed, tr)
+    _assert_matches(rec, ref)
+    live = rng.random(n * n) < 0.5
+    rec, stats = st.trace_rays_split(views, packed, tr, active=torch.from_numpy(live))
+    _assert_matches(rec, ref, live=live)
+    # a dead ray pops the root row only, and its record keeps its own tmax
+    assert (stats.box_tests[~torch.from_numpy(live)] == views[0].shape[1]).all()
+    np.testing.assert_array_equal(rec.t.numpy()[~live], tmax[~live])
+
+
+def test_non_tiling_frame(cornell):
+    """A 24x10 frame does not tile by 16x16: the tiled tracer edge-pads,
+    masks the pad dead and crops back."""
+    views, packed = _port_tree(cornell, True)
+    o, d, lo, hi = _camera_rays(cornell, 24, 10)
+    jr, tr = _both(o, d, lo, hi)
+    ref = jbrute(jnp.asarray(cornell.triangles), jr)
+    rec, stats = st.make_split_tracer(24, 10)(views, packed, tr)
+    assert rec.hit.shape == (240,) and stats.box_tests.shape == (240,)
+    _assert_matches(rec, ref)
+    presorted, _ = st.make_split_tracer(24, 10, sort_mode="presorted")(views, packed, tr)
+    for a, b in zip((rec.hit, rec.t, rec.tri_id), (presorted.hit, presorted.t, presorted.tri_id)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_jax_built_tree_traced_by_port(sphere):
+    fn = jax.jit(lambda t: jbucket.emit_split_views(
+        jbucket.split_front(t, enable_pairs=True), leaf_width=st.LEAFW))
+    (inner_i, inner_v, pairs_f), jpacked, _ = fn(jnp.asarray(sphere.triangles))
+    views = convert.split_views_from_numpy(np.asarray(inner_i), np.asarray(inner_v),
+                                           np.asarray(pairs_f), "cpu")
+    packed = convert.packed_from_numpy(np.asarray(jpacked.rows), "cpu")
+    o, d, lo, hi = _camera_rays(sphere, 32, 32)
+    jr, tr = _both(o, d, lo, hi)
+    ref = jbrute(jnp.asarray(sphere.triangles), jr)
+    rec, stats = st.trace_rays_split(views, packed, tr)
+    _assert_matches(rec, ref)
+    # the port's own tree is bit-equal, so the traversal is identical too
+    own, own_stats = st.trace_rays_split(*_port_tree(sphere, True), tr)
+    for a, b in ((rec.tri_id, own.tri_id), (rec.t, own.t),
+                 (stats.box_tests, own_stats.box_tests)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.fixture(scope="module")
+def pallas_sp():
+    """The reference split kernels in Pallas interpret mode, as
+    tests/test_split_pallas.py runs them off the TPU."""
+    from jax.experimental import pallas as pl
+
+    from tpu_raytracing.trace import split_pallas as sp_mod
+
+    orig = pl.pallas_call
+    pl.pallas_call = functools.partial(orig, interpret=True)
+    yield sp_mod
+    pl.pallas_call = orig
+
+
+@pytest.mark.parametrize("kernel_v", [3, 4])
+def test_plain_matches_pallas_kernel(sphere, pallas_sp, kernel_v):
+    fn = jax.jit(lambda t: jbucket.emit_split_views(
+        jbucket.split_front(t, enable_pairs=True), leaf_width=st.LEAFW))
+    jviews, jpacked, _ = fn(jnp.asarray(sphere.triangles))
+    o, d, lo, hi = _camera_rays(sphere, 16, 8)  # one 128-ray packet
+    jr, tr = _both(o, d, lo, hi)
+    ref, _ = pallas_sp.trace_rays_split_pallas(jviews, jpacked, jr, kernel_v=kernel_v)
+    rec, _ = st.trace_rays_split(*_port_tree(sphere, True), tr)
+    _assert_matches(rec, ref)
+    np.testing.assert_allclose(rec.bary_u.numpy(), np.asarray(ref.bary_u), rtol=1e-4, atol=1e-5)
+
+
+def test_stack_overflow_flag_raises(sphere, monkeypatch):
+    views, packed = _port_tree(sphere, True)
+    _, tr = _both(*_camera_rays(sphere, 16, 8))
+    rec, stats = st.trace_rays_split(views, packed, tr)
+    st.check_overflow(stats.overflow)  # the derived bound holds
+    monkeypatch.setattr(st, "_stack_cap", lambda w, n: 2)
+    _, stats = st.trace_rays_split(views, packed, tr)
+    assert int(stats.overflow) == 1
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        st.check_overflow(stats.overflow)
+
+
+def test_wrapper_routes_by_device(sphere):
+    """CPU tensors take the plain version and never count a launch; other
+    devices raise instead of falling back."""
+    views, packed = _port_tree(sphere, True)
+    _, tr = _both(*_camera_rays(sphere, 16, 8))
+    ops = st.kernel_operands(tr)
+    before = st.launch_count
+    out = st.split_traverse(*views, *ops, leafw=st.LEAFW, any_hit=False, stack_cap=64)
+    ref = st.trace_split_plain(*views, *ops, leafw=st.LEAFW, any_hit=False, stack_cap=64)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert st.launch_count == before
+    meta = [x.to("meta") for x in (*views, *ops)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        st.split_traverse(*meta, leafw=st.LEAFW, any_hit=False, stack_cap=64)

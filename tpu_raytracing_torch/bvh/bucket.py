@@ -1,0 +1,388 @@
+"""Morton-bucket split BVH: the per-frame rebuild and refit.
+
+Port of the split path of ``tpu_raytracing/bvh/bucket.py``: ``SplitBVH``,
+``_sorted_leaves``, ``split_front``, ``leaf_major_tables``,
+``classify_split``, ``_range_min_table``, ``_range_lookup``, ``_inner_cap``,
+``check_inner_capacity``, ``check_split_capacity``, ``emit_split_views``
+and ``refit_split``. Every pass is a dense tensor op over the sorted leaves,
+as in the reference; the outputs (``inner``, ``num_inner``, ``e_ranges``,
+``max_slot``, pair rows) are bit-equal to the reference's.
+
+XLA primitives without a direct torch counterpart: ``lax.clz`` becomes
+``torch.frexp`` on float64 (exact for every int32), reverse ``cummin`` a
+flip, ``nonzero(size=, fill_value=)`` a truncate-and-pad to ``ecap``, and
+``.at[].set(mode="drop")`` a masked index store.
+
+The kernel views use the port's own layout, with none of the reference's
+128-lane padding (a Mosaic DMA rule, ``split_pallas.py:120-126``):
+``inner`` [ICAP, 8, 8] int32 and ``pairs`` [P_pad, 16] int32 with
+P_pad >= max(P, leaf_width), so no leaf window reads past the end.
+
+``bvh/invariants.py``'s ``checkify`` checks become host checks behind
+``emit_split_views(..., debug=True)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from tpu_raytracing_torch.bvh.lbvh import fused_sorted_pairs, scene_aabb
+from tpu_raytracing_torch.bvh.types import CHILD_BOX, CHILD_TRI
+from tpu_raytracing_torch.trace.traverse import _META_CHILD_SHIFT, PackedPairs, f2i, i2f
+
+_F32_MAX = float(torch.finfo(torch.float32).max)
+# Fine-tier depth of the range-min table (the reference's _RANGE_K0).
+_RANGE_K0 = 10
+# Entries per inner row of the emitted views.
+_INNER_WIDTH = 8
+
+
+@dataclasses.dataclass
+class SplitBVH:
+    """Wide BVH split into homogeneous inner rows and leaf windows.
+
+    ``inner``: [ICAP, w*8] int32 — w entries x (min3, max3 bit-cast f32,
+    meta, pad). Meta is child << 5 | type: CHILD_BOX (child = inner row)
+    or CHILD_TRI (child = start of a ``leaf_width``-pair window in the
+    sorted pair array). Row 0 is the traversal root.
+    """
+
+    inner: torch.Tensor  # [ICAP, w*8] int32
+    num_inner: torch.Tensor  # [] int64
+    num_leaves: torch.Tensor  # [] int64 — live sorted pairs (rest zeroed)
+    leaf_width: int = 16
+    e_ranges: Optional[torch.Tensor] = None  # [ICAP, w, 2] int32 (start, count)
+    max_slot: Optional[torch.Tensor] = None  # [] int64
+
+
+def _ilog2(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) for x >= 1 (the reference's ``31 - clz(x)``)."""
+    return torch.frexp(x.to(torch.float64))[1].to(torch.int64) - 1
+
+
+def _reverse_cummin(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cummin(x.flip(dim), dim=dim).values.flip(dim)
+
+
+def _sorted_leaves(triangles: torch.Tensor, enable_pairs: bool):
+    """Morton sort + pair assembly + leaf AABBs.
+
+    Returns (sorted_codes, packed, lo, hi, ccount_leaf, num_leaves)."""
+    aabb_min, aabb_max = scene_aabb(triangles)
+    sorted_codes, rows, sorted_values, num_leaves = fused_sorted_pairs(
+        triangles, aabb_min, aabb_max, enable_pairs)
+    v = i2f(rows[:, :12]).reshape(-1, 4, 3)
+    ccount_leaf = (sorted_values >> 31).to(torch.int32)  # second tri valid
+    return (sorted_codes, PackedPairs(rows=rows), v.amin(dim=1), v.amax(dim=1),
+            ccount_leaf, num_leaves)
+
+
+def split_front(triangles: torch.Tensor, enable_pairs: bool = False):
+    """The build's sort-heavy front end as a standalone stage."""
+    return _sorted_leaves(triangles, enable_pairs)
+
+
+def leaf_major_tables(sorted_codes, num_leaves, n: int, width: int):
+    """Leaf-major per-level bucket tables: (heads [L, n] bool, starts,
+    nxts, counts — [L, n] int64), including the capped chunk ladder."""
+    bits = width.bit_length() - 1
+    iota = torch.arange(n, dtype=torch.int64, device=sorted_codes.device)
+    pad_boundary = iota == num_leaves
+    heads = [(iota == 0) | pad_boundary]
+    max_ml = max(math.ceil(math.log(max(n, 2), width)) + 1, 1)
+    sh = 30
+    ml = 0
+    while sh > 0 and ml < max_ml:
+        sh = max(sh - bits, 0)
+        ml += 1
+        pref = sorted_codes >> sh
+        prev = torch.cat([pref[:1] ^ 1, pref[:-1]])
+        heads.append((pref != prev) | (iota == 0) | pad_boundary)
+    num_chunk = min(max(math.ceil(math.log(max(n, 2), width)), 1), 3)
+    seg_start_deep = torch.cummax(torch.where(heads[-1], iota, -1), dim=0).values
+    idx_in_seg = iota - seg_start_deep
+    prev_heads = heads[-1]
+    for kk in range(num_chunk - 1, -1, -1):
+        s = prev_heads | (idx_in_seg % (width ** (kk + 1)) == 0)
+        heads.append(s)
+        prev_heads = s
+    heads = torch.stack(heads, dim=0)  # [L, n]
+    L = heads.shape[0]
+
+    iota_l = iota[None, :].expand(L, n)
+    starts = torch.cummax(torch.where(heads, iota_l, -1), dim=1).values
+    nxt_src = torch.cat(
+        [torch.where(heads[:, 1:], iota_l[:, 1:], n),
+         torch.full((L, 1), n, dtype=torch.int64, device=iota.device)], dim=1)
+    nxts = _reverse_cummin(nxt_src, dim=1)
+    counts = nxts - starts
+    return heads, starts, nxts, counts
+
+
+def classify_split(heads, starts, counts, live, num_leaves, n: int,
+                   leaf_width: int):
+    """Dense [L, n] classification + inner row ids + effective tags.
+
+    Returns (alive, branch, wid_dense, num_inner, effs)."""
+    L = heads.shape[0]
+    dev = heads.device
+    small = (counts >= 1) & (counts <= leaf_width)
+    chain = torch.cat(
+        [counts[:-1] == counts[1:], torch.ones((1, n), dtype=torch.bool, device=dev)], dim=0)
+    branch = (counts > leaf_width) & ~chain
+    alive = torch.cumprod(
+        torch.cat([torch.ones((1, n), dtype=torch.bool, device=dev), ~small[:-1]], dim=0)
+        .to(torch.int64), dim=0).to(torch.bool)
+    real = alive & branch
+
+    rmask = (heads & real & live[None, :]).to(torch.int64)
+    rows_per_level = rmask.sum(dim=1)
+    offsets = 1 + torch.cat(
+        [torch.zeros((1,), dtype=torch.int64, device=dev), torch.cumsum(rows_per_level, 0)[:-1]])
+    wid_dense = offsets[:, None] + torch.cumsum(rmask, dim=1) - 1
+    num_inner = offsets[-1] + rows_per_level[-1]
+
+    win_max = torch.clamp(num_leaves - leaf_width, min=0)
+    win = torch.minimum(torch.minimum(starts, win_max), torch.tensor(n - 1, device=dev))
+    leaf_tag = (win << 1) | 1
+    inner_tag = wid_dense << 1
+    eff = leaf_tag[L - 1]
+    effs = [None] * L
+    effs[L - 1] = eff
+    for l in range(L - 2, -1, -1):
+        eff = torch.where(small[l], leaf_tag[l], torch.where(branch[l], inner_tag[l], eff))
+        effs[l] = eff
+    return alive, branch, wid_dense, num_inner, torch.stack(effs, dim=0)
+
+
+def _range_min_table(lo: torch.Tensor, hi: torch.Tensor):
+    """Two-tier sparse range-min table over sorted leaf boxes.
+
+    Packed [8, n]: rows 0-2 lo.xyz, rows 3-5 -hi.xyz, rows 6-7 +max pad.
+    Returns (fine [K0, 8, n], coarse [Kc, 8, nb] or None, block size B)."""
+    n = lo.shape[0]
+    pad = torch.full((2, n), _F32_MAX, dtype=torch.float32, device=lo.device)
+    base = torch.cat([lo.T, -hi.T, pad], dim=0)
+    k_full = max(int(math.floor(math.log2(max(n, 1)))) + 1, 1)
+    k0 = min(k_full, _RANGE_K0)
+
+    def levels(cur, count, width):
+        out = [cur]
+        for kk in range(1, count):
+            d = 1 << (kk - 1)
+            if d < width:
+                shifted = torch.cat(
+                    [cur[:, d:], torch.full((8, d), _F32_MAX, dtype=torch.float32,
+                                            device=cur.device)], dim=1)
+                cur = torch.minimum(cur, shifted)
+            out.append(cur)
+        return torch.stack(out, dim=0)
+
+    fine = levels(base, k0, n)
+    if k_full <= _RANGE_K0:
+        return fine, None, 0
+    b = 1 << (k0 - 1)
+    blocks = fine[k0 - 1][:, ::b].contiguous()  # [8, nb]
+    nb = blocks.shape[1]
+    kc = max(int(math.floor(math.log2(max(nb, 1)))) + 1, 1)
+    return fine, levels(blocks, kc, nb), b
+
+
+def _range_lookup(tbl, e_start: torch.Tensor, e_count: torch.Tensor):
+    """AABB of sorted leaves [start, start+count) per entry, as
+    (e_lo [E, 3], e_hi [E, 3]); count-0 queries are the caller's to mask."""
+    fine, coarse, b = tbl
+    k0, _, n = fine.shape
+    ln = torch.clamp(e_count, min=1)
+    klev = _ilog2(ln)
+    fine_k = torch.clamp(klev, max=k0 - 1)
+    pa = e_start.clamp(0, n - 1)
+    pb = (e_start + ln - (1 << fine_k)).clamp(0, n - 1)
+    if coarse is not None:
+        kc, _, nb = coarse.shape
+        pe = (e_start + ln - b).clamp(0, n - 1)
+        ba = (e_start + b - 1) // b
+        bb = (e_start + ln) // b
+        lb = torch.clamp(bb - ba, min=1)
+        kb = torch.clamp(_ilog2(lb), max=kc - 1)
+        ca = ba.clamp(0, nb - 1)
+        cb = (bb - (1 << kb)).clamp(0, nb - 1)
+        use_fine = klev <= (k0 - 1)
+    chans = []
+    for r in range(6):
+        v = torch.minimum(fine[fine_k, r, pa], fine[fine_k, r, pb])
+        if coarse is not None:
+            edge = torch.minimum(fine[k0 - 1, r, pa], fine[k0 - 1, r, pe])
+            cmin = torch.minimum(coarse[kb, r, ca], coarse[kb, r, cb])
+            v = torch.where(use_fine, v, torch.minimum(edge, cmin))
+        chans.append(v)
+    return torch.stack(chans[0:3], dim=1), -torch.stack(chans[3:6], dim=1)
+
+
+def _inner_cap(n: int, leaf_width: int) -> int:
+    """Static inner-row bound (branching buckets each cover > leaf_width
+    leaves; 4x headroom + slack)."""
+    return max(n // (2 * leaf_width) * 4, 256) + 64
+
+
+def check_inner_capacity(num_inner: int, num_tris: int, leaf_width: int) -> None:
+    """Raise if a host-fetched inner-row count overflowed the static bound
+    (a silently truncated tree would drop geometry)."""
+    cap = _inner_cap(num_tris, leaf_width)
+    ni = int(num_inner)
+    if ni > cap:
+        raise RuntimeError(
+            f"SplitBVH inner overflow: {ni} rows > static bound {cap}; "
+            f"rebuild with a larger bound (bvh/bucket.py:_inner_cap)")
+
+
+def check_split_capacity(split: SplitBVH, num_tris: int) -> None:
+    """Host form of check_inner_capacity plus the chunk ladder's slot guard."""
+    check_inner_capacity(int(split.num_inner), num_tris, split.leaf_width)
+    if split.max_slot is not None:
+        w = split.inner.shape[1] // 8
+        ms = int(split.max_slot)
+        if ms >= w:
+            raise RuntimeError(
+                f"SplitBVH row-slot overflow: an entry wanted slot {ms} "
+                f">= width {w}; geometry was dropped — deepen the chunk "
+                f"ladder (bvh/bucket.py:leaf_major_tables num_chunk)")
+
+
+def _empty_entry(device) -> torch.Tensor:
+    """NONE entry: inverted box so the slab test never hits."""
+    box = torch.tensor([_F32_MAX] * 3 + [-_F32_MAX] * 3, dtype=torch.float32, device=device)
+    return torch.cat([f2i(box), torch.zeros((2,), dtype=torch.int32, device=device)])
+
+
+def _check_invariants(valid_e, e_j, wid_parent, num_inner, icap: int, width: int) -> None:
+    """Host form of the reference's debug-mode build invariants
+    (bvh/invariants.py): every live entry lands in a real slot of a real
+    row."""
+    if not bool(torch.all(~valid_e | ((e_j >= 0) & (e_j < width)))):
+        raise RuntimeError("bucket entry slot out of row range")
+    if not bool(torch.all(~valid_e | ((wid_parent >= 0) & (wid_parent < num_inner)))):
+        raise RuntimeError("bucket entry parent row out of range")
+    if int(num_inner) > icap:
+        raise RuntimeError("bucket inner rows overflow the static bound")
+
+
+def emit_split_views(front, leaf_width: int = 16, debug: bool = False):
+    """Emit the SplitBVH and the traversal kernel's views from a
+    ``split_front`` result.
+
+    Returns ((inner [ICAP, 8, 8] i32, pairs [P_pad, 16] i32), packed,
+    split). Inner rows are 8 wide, the width the tracer takes (the
+    reference's ``inner_width=16`` is not ported). ``debug`` runs the build
+    invariants on the host and raises on a violation.
+    """
+    width = _INNER_WIDTH
+    if leaf_width < width:
+        raise ValueError(f"leaf_width {leaf_width} < inner width {width}")
+    sorted_codes, packed, lo, hi, _ccount, num_leaves = front
+    n = sorted_codes.shape[0]
+    dev = sorted_codes.device
+
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    live = iota < num_leaves
+    # Zero sentinel pairs: leaf windows may overlap the padded tail, and
+    # zero vertices never intersect.
+    rows_live = torch.where(live[:, None], packed.rows, 0)
+
+    heads, starts, nxts, counts = leaf_major_tables(sorted_codes, num_leaves, n, width)
+    L = heads.shape[0]
+    alive, branch, wid_dense, num_inner, effs = classify_split(
+        heads, starts, counts, live, num_leaves, n, leaf_width)
+
+    # --- compacted entry list: (level >= 1, head, parent real) ---
+    emask = heads[1:] & (alive[:-1] & branch[:-1]) & live[None, :]
+    icap = _inner_cap(n, leaf_width)
+    ecap = min(icap * width, (L - 1) * n)
+    flat = emask.reshape(-1)
+    size = flat.shape[0]
+    fidx = torch.nonzero(flat).reshape(-1)[:ecap]
+    fidx = torch.cat([fidx, torch.full((ecap - fidx.shape[0],), size,
+                                       dtype=torch.int64, device=dev)])
+    valid_e = fidx < size
+    fidx = torch.clamp(fidx, max=size - 1)
+    gidx = fidx + n
+
+    e_start = starts.reshape(-1)[gidx]
+    e_count = counts.reshape(-1)[gidx]
+    e_eff = effs.reshape(-1)[gidx]
+    wid_parent = wid_dense.reshape(-1)[gidx - n]
+    # Slot within the parent row: rank within the run of equal parents.
+    eidx = torch.arange(ecap, dtype=torch.int64, device=dev)
+    prev_wp = torch.cat([torch.full((1,), -2, dtype=torch.int64, device=dev), wid_parent[:-1]])
+    run_start = torch.cummax(torch.where(wid_parent != prev_wp, eidx, -1), dim=0).values
+    e_j = eidx - run_start
+
+    e_lo, e_hi = _range_lookup(_range_min_table(lo, hi), e_start, e_count)
+
+    is_leaf_e = (e_eff & 1) == 1
+    child = e_eff >> 1
+    etype = torch.where(is_leaf_e, CHILD_TRI, CHILD_BOX)
+    meta = ((child << _META_CHILD_SHIFT) | etype).to(torch.int32)
+    words = torch.cat(
+        [f2i(e_lo), f2i(e_hi), meta[:, None],
+         torch.zeros((ecap, 1), dtype=torch.int32, device=dev)], dim=1)  # [E, 8]
+
+    ok = valid_e & (e_j >= 0) & (e_j < width)
+    max_slot = torch.where(valid_e, e_j, 0).max()
+    if debug:
+        _check_invariants(valid_e, e_j, wid_parent, num_inner, icap, width)
+    dest = (wid_parent * width + e_j)[ok]
+    inner = _empty_entry(dev).repeat(icap * width, 1)
+    inner[dest] = words[ok]
+    e_ranges = torch.zeros((icap * width, 2), dtype=torch.int32, device=dev)
+    e_ranges[dest] = torch.stack([e_start, e_count], dim=1)[ok].to(torch.int32)
+    inner = inner.reshape(icap, width * 8)
+    e_ranges = e_ranges.reshape(icap, width, 2)
+
+    # --- root: copy the effective root's row into slot 0, or synthesize a
+    # single-Tri row when the whole scene is one terminal bucket ---
+    root_tag = effs[0, 0]
+    root_is_leaf = (root_tag & 1) == 1
+    root_id = root_tag >> 1
+    root_row = root_id.clamp(0, icap - 1)
+    live_col = live[:, None]
+    smin = torch.where(live_col, lo, _F32_MAX).amin(dim=0).clamp(max=_F32_MAX)
+    smax = torch.where(live_col, hi, -_F32_MAX).amax(dim=0).clamp(min=-_F32_MAX)
+    leaf_meta = ((root_id << _META_CHILD_SHIFT) | CHILD_TRI).to(torch.int32)
+    leaf_row = torch.cat([
+        f2i(smin), f2i(smax), leaf_meta[None],
+        torch.zeros((width * 8 - 7,), dtype=torch.int32, device=dev)])
+    inner[0] = torch.where(root_is_leaf, leaf_row, inner[root_row])
+    leaf_rr = torch.zeros((width, 2), dtype=torch.int32, device=dev)
+    leaf_rr[0, 1] = num_leaves.to(torch.int32)
+    e_ranges[0] = torch.where(root_is_leaf, leaf_rr, e_ranges[root_row])
+
+    p_pad = max(n, leaf_width)
+    pairs = rows_live if p_pad == n else torch.cat(
+        [rows_live, torch.zeros((p_pad - n, 16), dtype=torch.int32, device=dev)])
+    split = SplitBVH(inner=inner, num_inner=num_inner, num_leaves=num_leaves,
+                     leaf_width=leaf_width, e_ranges=e_ranges, max_slot=max_slot)
+    return (inner.reshape(icap, width, 8), pairs), PackedPairs(rows=rows_live), split
+
+
+def refit_split(split: SplitBVH, packed: PackedPairs) -> SplitBVH:
+    """Topology-preserving refit: refresh every inner entry's AABB from the
+    current pair rows, keeping metas, windows and row ids. The caller
+    animates ``packed.rows`` in sorted-pair order (vertex words 0-11)."""
+    if split.e_ranges is None:
+        raise ValueError("refit_split needs e_ranges (build with emit_split_views)")
+    icap, row_words = split.inner.shape
+    w = row_words // 8
+    v = i2f(packed.rows[:, :12]).reshape(-1, 4, 3)
+    e_start = split.e_ranges[..., 0].reshape(-1).to(torch.int64)
+    e_count = split.e_ranges[..., 1].reshape(-1).to(torch.int64)
+    e_lo, e_hi = _range_lookup(_range_min_table(v.amin(dim=1), v.amax(dim=1)),
+                               e_start, e_count)
+    old = split.inner.reshape(icap * w, 8)
+    words = torch.cat([f2i(e_lo), f2i(e_hi), old[:, 6:8]], dim=1)
+    words = torch.where((e_count > 0)[:, None], words, old)
+    return dataclasses.replace(split, inner=words.reshape(icap, row_words))

@@ -1,0 +1,63 @@
+"""Carry the JAX package's structures, given as numpy arrays, into the port.
+
+With these, a structure built by ``tpu_raytracing`` can be consumed by the
+next stage of ``tpu_raytracing_torch`` — e.g. a JAX-built split BVH traced
+by the port's traversal — so a disagreement points at one slice. The
+module itself imports numpy and torch only; the caller converts JAX arrays
+with ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Tuple
+
+import numpy as np
+import torch
+
+from tpu_raytracing_torch.scene.types import DeviceMaterials, DeviceScene, TexturePool
+from tpu_raytracing_torch.trace.traverse import PackedPairs
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def scene_from_numpy(fields: Mapping, device) -> DeviceScene:
+    """``tpu_raytracing.scene.types.DeviceScene`` as a mapping of numpy
+    arrays (``materials`` and ``textures`` as nested mappings of their
+    fields) -> the port's ``DeviceScene`` on ``device``."""
+    mats = fields["materials"]
+    tex = fields["textures"]
+    return DeviceScene(
+        normals=_t(fields["normals"], device),
+        uvs=_t(fields["uvs"], device),
+        material_ids=_t(fields["material_ids"], device),
+        materials=DeviceMaterials(**{k: _t(mats[k], device) for k in (
+            "ambient", "diffuse", "specular", "specular_exp", "texture", "bump", "disp")}),
+        textures=TexturePool(**{k: _t(tex[k], device) for k in (
+            "texels", "offset", "width", "height", "max_lod")}),
+        light=_t(fields["light"], device),
+        num_materials=int(fields["num_materials"]),
+    )
+
+
+def packed_from_numpy(rows, device) -> PackedPairs:
+    """``PackedPairs.rows`` [P, 16] int32 -> the port's ``PackedPairs``."""
+    return PackedPairs(rows=_t(np.asarray(rows, np.int32), device))
+
+
+def split_views_from_numpy(inner_i, inner_v, pairs_f, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference kernel views (``split_pallas.prep_split_views`` or
+    ``bucket.emit_split_views``) -> the port's ``(inner, pairs)``.
+
+    Strips the 128-lane Mosaic padding: ``inner_i`` [ICAP, 128] keeps its
+    first w*8 words as [ICAP, w, 8] (w from ``inner_v`` [ICAP, w, 128]);
+    ``pairs_f`` [max(P, 128), 128] f32 keeps its first 16 words, as int32
+    bits. The reference pads pairs to at least 128 rows, so every leaf
+    window of width <= 128 stays in range.
+    """
+    inner_i = np.asarray(inner_i, np.int32)
+    w = np.asarray(inner_v).shape[1]
+    inner = inner_i[:, : w * 8].reshape(inner_i.shape[0], w, 8)
+    pairs = np.asarray(pairs_f, np.float32).view(np.int32)[:, :16]
+    return _t(inner, device), _t(pairs, device)

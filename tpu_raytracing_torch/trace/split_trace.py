@@ -1,0 +1,425 @@
+"""Split-BVH traversal: the K1 kernel's wrapper, its plain version, and the
+tracer front end.
+
+Port of ``tpu_raytracing/trace/split_pallas.py`` (``_stack_cap``, ``LEAFW``,
+``trace_rays_split_pallas`` -> ``trace_rays_split``,
+``make_split_pallas_tracer`` -> ``make_split_tracer`` with ``sort_mode``
+None and ``"presorted"``) and of ``tpu_raytracing/trace/wide_fat.py:
+_reconstruct``. The Pallas kernels ``_kernel_v3`` and ``_kernel_v4`` compute
+one function; on the card one CUDA kernel, ``csrc/split_trace.cu``, serves
+both (closest-hit and any-hit instantiations).
+
+``split_traverse`` is the kernel's wrapper. Given CPU tensors it runs
+``trace_split_plain``, the same per-ray algorithm vectorised over rays in
+PyTorch; given CUDA tensors it launches the kernel or raises. The two agree
+bit for bit (the kernel is built with ``-fmad=false`` and keeps the plain
+version's operation order).
+
+Statistics are per ray: ``box_tests = inner_pops * w`` and
+``tri_tests = leaf_pops * 2 * leafw``. The TPU kernels count pops per packet
+of k rays and give every ray of the packet the packet's count, so each of
+their per-ray values is at least the largest per-ray value of the packet's
+rays. The tests never compare the two.
+
+The per-packet start tags (``packet_tags``) and ``raw`` output of the
+reference serve the binned and instanced tracers and wait with them: every
+ray starts at the root.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+
+from tpu_raytracing_torch.bvh.types import CHILD_TRI
+from tpu_raytracing_torch.ops import _cuda_build
+from tpu_raytracing_torch.ops.intersect import cross, dot
+from tpu_raytracing_torch.trace.brute import HitRecord
+from tpu_raytracing_torch.trace.packet import (
+    crop_frame,
+    pad_frame,
+    pad_live_mask,
+    tile_reorder,
+    tile_restore,
+)
+from tpu_raytracing_torch.trace.ray import Rays
+from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, i2f
+
+# Rays per screen tile for the tiled tracers (16 x K/16 pixels).
+K = 256
+# Pairs per leaf window; emit_split_views(leaf_width=...) must match.
+LEAFW = 64
+_F32_MAX = float(torch.finfo(torch.float32).max)
+_TRI_EPS = 1e-9
+# Rays per chunk of the plain version: bounds its [chunk, leafw] temporaries.
+_PLAIN_CHUNK = 1 << 16
+
+# K1 launches since the count was last set to 0: split_traverse adds one
+# where it launches the kernel and nowhere else.
+launch_count = 0
+
+
+def _stack_cap(w: int, num_pair_rows: int) -> int:
+    """Stack bound: a pop pushes at most w-1 entries that outlive it, and
+    depth is bounded by the build's level count (1 root + ceil(30/bits)
+    Morton levels + ceil(log_w n) chunk levels, bvh/bucket.py)."""
+    bits = w.bit_length() - 1
+    max_levels = 2 + -(-30 // bits) + math.ceil(math.log(max(num_pair_rows, 2), w))
+    return (w - 1) * max_levels + 8
+
+
+def _mt(a, b, c, o, d, tmn, t_cur):
+    """Möller-Trumbore over [R, leafw] vertex components, in the kernel's
+    operation order; returns t where accepted, else F32_MAX."""
+    (a0, a1, a2), (b0, b1, b2), (c0, c1, c2) = a, b, c
+    ox, oy, oz = o
+    dx, dy, dz = d
+    e1x, e1y, e1z = b0 - a0, b1 - a1, b2 - a2
+    e2x, e2y, e2z = c0 - a0, c1 - a1, c2 - a2
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    det = e1x * hx + e1y * hy + e1z * hz
+    degen = (det > -_TRI_EPS) & (det < _TRI_EPS)
+    f = 1.0 / det
+    sx, sy, sz = ox - a0, oy - a1, oz - a2
+    uu = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    vv = f * (dx * qx + dy * qy + dz * qz)
+    tt = f * (e2x * qx + e2y * qy + e2z * qz)
+    acc = (~degen & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+           & (tt >= tmn) & (tt <= t_cur))
+    return torch.where(acc, tt, _F32_MAX)
+
+
+def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, leafw, any_hit,
+                 stack_cap, out):
+    """trace_split_plain on one chunk of rays; writes into ``out``."""
+    dev = origin.device
+    num, w = origin.shape[0], inner.shape[1]
+    inv = 1.0 / direction
+    t_cur = tmax.clone()
+    tri = torch.full((num,), -1, dtype=torch.int32, device=dev)
+    ipops = torch.zeros((num,), dtype=torch.int32, device=dev)
+    lpops = torch.zeros((num,), dtype=torch.int32, device=dev)
+    stack = torch.zeros((num, stack_cap), dtype=torch.int32, device=dev)
+    sp = torch.ones((num,), dtype=torch.int64, device=dev)  # root tag 0 at slot 0
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    slots = torch.arange(leafw, device=dev)
+    enc0 = (slots * 2)[None, :]
+
+    while True:
+        live = torch.nonzero(sp > 0).reshape(-1)
+        if live.numel() == 0:
+            break
+        sp[live] -= 1
+        tag = stack[live, sp[live]]
+        is_leaf = (tag & 1) == 1
+
+        ri = live[~is_leaf]
+        if ri.numel():
+            ipops[ri] += 1
+            ent = inner[(tag[~is_leaf] >> 1).to(torch.int64)]  # [Ri, w, 8]
+            box = i2f(ent[..., :6])
+            meta = ent[..., 6]
+            ntype = meta & 3
+            o, iv = origin[ri], inv[ri]
+            tx0 = (box[..., 0] - o[:, 0:1]) * iv[:, 0:1]
+            ty0 = (box[..., 1] - o[:, 1:2]) * iv[:, 1:2]
+            tz0 = (box[..., 2] - o[:, 2:3]) * iv[:, 2:3]
+            tx1 = (box[..., 3] - o[:, 0:1]) * iv[:, 0:1]
+            ty1 = (box[..., 4] - o[:, 1:2]) * iv[:, 1:2]
+            tz1 = (box[..., 5] - o[:, 2:3]) * iv[:, 2:3]
+            front = torch.maximum(torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
+                                  torch.minimum(tz0, tz1))
+            back = torch.minimum(torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
+                                 torch.maximum(tz0, tz1))
+            ok = ((ntype != 0) & (back >= front) & (front <= t_cur[ri, None])
+                  & (back >= tmin[ri, None]))
+            dist = torch.where(ok, torch.clamp(front, min=0.0), float("inf"))
+            # nearest: smallest distance, the higher entry id on a tie
+            best = dist.min(dim=1, keepdim=True).values
+            e_ids = torch.arange(w, device=dev)
+            nearest = torch.where(ok & (dist == best), e_ids, -1).max(dim=1).values
+            ctag = ((meta >> 5) << 1) | (ntype == CHILD_TRI).to(torch.int32)
+            pushes = [(ok[:, e] & (nearest != e), ctag[:, e]) for e in range(w)]
+            near_tag = ctag.gather(1, nearest.clamp(min=0)[:, None])[:, 0]
+            pushes.append((nearest >= 0, near_tag))
+            stopped = torch.zeros_like(ri, dtype=torch.bool)
+            for mask, vals in pushes:
+                m = mask & ~stopped
+                full = m & (sp[ri] >= stack_cap)
+                overflow |= full.any()
+                stopped |= full
+                m &= ~full
+                rows = ri[m]
+                stack[rows, sp[rows]] = vals[m]
+                sp[rows] += 1
+            sp[ri[stopped]] = 0
+
+        rl = live[is_leaf]
+        if rl.numel():
+            lpops[rl] += 1
+            start = (tag[is_leaf] >> 1).to(torch.int64)
+            win = pairs[start[:, None] + slots[None, :]]  # [Rl, leafw, 16]
+            v = i2f(win[..., :12])
+            v0 = (v[..., 0], v[..., 1], v[..., 2])
+            v1 = (v[..., 3], v[..., 4], v[..., 5])
+            v2 = (v[..., 6], v[..., 7], v[..., 8])
+            v3 = (v[..., 9], v[..., 10], v[..., 11])
+            o = tuple(origin[rl, i:i + 1] for i in range(3))
+            d = tuple(direction[rl, i:i + 1] for i in range(3))
+            tmn, tc = tmin[rl, None], t_cur[rl, None]
+            ca = _mt(v0, v1, v2, o, d, tmn, tc)
+            cb = _mt(v2, v1, v3, o, d, tmn, tc)
+            c = torch.minimum(ca, cb)
+            enc = enc0 + (cb <= ca).to(torch.int64)
+            tm = c.min(dim=1).values
+            wenc = torch.where(c == tm[:, None], enc, -1).max(dim=1).values
+            take = tm <= t_cur[rl]
+            hit_rays = rl[take]
+            tri[hit_rays] = (start[take] * 2 + wenc[take]).to(torch.int32)
+            if any_hit:
+                sp[hit_rays] = 0
+            else:
+                t_cur[hit_rays] = tm[take]
+
+    out_t, out_tri, out_ip, out_lp, out_ov = out
+    out_t.copy_(t_cur)
+    out_tri.copy_(tri)
+    out_ip.copy_(ipops)
+    out_lp.copy_(lpops)
+    out_ov |= overflow.to(torch.int32)
+
+
+def trace_split_plain(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
+                      any_hit: bool, stack_cap: int):
+    """K1's plain PyTorch version: the kernel's per-ray algorithm,
+    vectorised over rays. Each iteration pops one tag per live ray, runs the
+    slab test on rays at inner rows and Möller-Trumbore on rays at leaf
+    windows, with explicit [R, stack_cap] stacks. Rays run in chunks of
+    ``_PLAIN_CHUNK`` to bound memory.
+
+    Returns (t f32 [R], tri i32 [R] (-1 = miss), inner_pops i32 [R],
+    leaf_pops i32 [R], overflow i32 [1]).
+    """
+    num = origin.shape[0]
+    dev = origin.device
+    t = torch.empty((num,), dtype=torch.float32, device=dev)
+    tri = torch.empty((num,), dtype=torch.int32, device=dev)
+    ipops = torch.empty((num,), dtype=torch.int32, device=dev)
+    lpops = torch.empty((num,), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for s in range(0, num, _PLAIN_CHUNK):
+        e = min(s + _PLAIN_CHUNK, num)
+        _plain_chunk(inner, pairs, origin[s:e], direction[s:e], tmin[s:e], tmax[s:e],
+                     leafw, any_hit, stack_cap,
+                     (t[s:e], tri[s:e], ipops[s:e], lpops[s:e], overflow))
+    return t, tri, ipops, lpops, overflow
+
+
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _check_operands(inner, pairs, origin, direction, tmin, tmax, stack_cap: int) -> None:
+    dev = origin.device
+    specs = [("inner", inner, torch.int32, 3), ("pairs", pairs, torch.int32, 2),
+             ("origin", origin, torch.float32, 2), ("direction", direction, torch.float32, 2),
+             ("tmin", tmin, torch.float32, 1), ("tmax", tmax, torch.float32, 1)]
+    for name, x, dtype, ndim in specs:
+        if x.device != dev or x.dtype != dtype or x.dim() != ndim or not x.is_contiguous():
+            raise ValueError(
+                f"split_traverse: {name} must be a contiguous {ndim}-d {dtype} tensor "
+                f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"split_traverse: {name} is not 16-byte aligned")
+    num = origin.shape[0]
+    if inner.shape[1] != 8 or inner.shape[2] != 8 or pairs.shape[1] != 16:
+        raise ValueError(f"split_traverse: the kernel takes inner [ICAP, 8, 8] and pairs "
+                         f"[P_pad, 16], got {tuple(inner.shape)}, {tuple(pairs.shape)}")
+    if direction.shape != (num, 3) or origin.shape != (num, 3) or tmin.shape != (num,) \
+            or tmax.shape != (num,):
+        raise ValueError("split_traverse: ray arrays disagree in shape")
+    if not 0 < stack_cap <= 256:
+        raise ValueError(f"split_traverse: stack_cap {stack_cap} outside (0, 256]")
+
+
+def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
+                   any_hit: bool, stack_cap: int):
+    """K1: traverse a split BVH for every ray (see the module docstring).
+
+    inner [ICAP, 8, 8] i32 (8-wide rows only), pairs [P_pad, 16] i32 with P_pad >= every window
+    end, origin/direction [R, 3] f32 (direction already sanitised), tmin/
+    tmax [R] f32. Returns (t, tri, inner_pops, leaf_pops, overflow [1]).
+
+    CPU tensors run ``trace_split_plain``; CUDA tensors launch the kernel
+    or raise.
+    """
+    global launch_count
+    if origin.device.type == "cpu":
+        return trace_split_plain(inner, pairs, origin, direction, tmin, tmax,
+                                 leafw=leafw, any_hit=any_hit, stack_cap=stack_cap)
+    if origin.device.type != "cuda":
+        raise ValueError(f"split_traverse: unsupported device {origin.device}")
+    _check_operands(inner, pairs, origin, direction, tmin, tmax, stack_cap)
+    lib = _cuda_build.load_library("split_trace")
+    fn = lib.split_trace_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    num = origin.shape[0]
+    dev = origin.device
+    t = torch.empty((num,), dtype=torch.float32, device=dev)
+    tri = torch.empty((num,), dtype=torch.int32, device=dev)
+    ipops = torch.empty((num,), dtype=torch.int32, device=dev)
+    lpops = torch.empty((num,), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if num == 0:
+        return t, tri, ipops, lpops, overflow
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(inner.data_ptr(), pairs.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+             tmin.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
+             ipops.data_ptr(), lpops.data_ptr(), overflow.data_ptr(),
+             num, inner.shape[1], leafw, int(any_hit), stack_cap, stream)
+    if err != 0:
+        raise RuntimeError(f"split_trace kernel launch failed: cudaError {err}")
+    launch_count += 1
+    return t, tri, ipops, lpops, overflow
+
+
+def check_overflow(overflow: torch.Tensor) -> None:
+    """Host check of a traversal stack-overflow flag (``TraceStats.overflow``,
+    or a sum of them); raises if set."""
+    if int(overflow.sum()) != 0:
+        raise RuntimeError(
+            "split traversal stack overflow: a ray needed more than the stack "
+            "bound (trace/split_trace.py:_stack_cap) and was stopped")
+
+
+def _reconstruct(pairs: PackedPairs, rays: Rays, t_flat, tri_flat) -> HitRecord:
+    """Full hit record from the winning tri id: one pair gather and one
+    Möller-Trumbore per ray (wide_fat.py:_reconstruct)."""
+    hit = tri_flat >= 0
+    second = (tri_flat & 1).to(torch.bool)
+    num_pairs = pairs.rows.shape[0]
+    prow = pairs.rows[(tri_flat >> 1).clamp(0, num_pairs - 1).to(torch.int64)]
+    v = i2f(prow[:, :12]).reshape(-1, 4, 3)
+    v0, v1, v2, v3 = v[:, 0], v[:, 1], v[:, 2], v[:, 3]
+    a = torch.where(second[:, None], v2, v0)
+    c = torch.where(second[:, None], v3, v2)
+    e1 = v1 - a
+    e2 = c - a
+    h = cross(rays.direction, e2)
+    f = 1.0 / dot(e1, h)
+    sv = rays.origin - a
+    bu = f * dot(sv, h)
+    bv = f * dot(rays.direction, cross(sv, e1))
+    prim = torch.where(second, prow[:, 13], prow[:, 12])
+    return HitRecord(
+        hit=hit,
+        t=torch.where(hit, t_flat, rays.tmax),
+        prim_id=torch.where(hit, prim, 0),
+        tri_id=torch.where(hit, tri_flat, 0),
+        bary_u=torch.where(hit, bu, 0.0),
+        bary_v=torch.where(hit, bv, 0.0),
+    )
+
+
+def kernel_operands(rays: Rays, active=None):
+    """(origin, direction, tmin, tmax) as K1 takes them.
+
+    Dead rays (``active`` False) get an empty interval (tmin = +max,
+    tmax = -max) so no box or triangle accepts. Direction components with
+    |d| < 1e-30 become +-1e-30 (-0.0 -> +1e-30) here, outside the kernel,
+    so its 1/d stays finite and its slab test NaN-free.
+    """
+    tmin, tmax = rays.tmin, rays.tmax
+    if active is not None:
+        tmin = torch.where(active, tmin, _F32_MAX)
+        tmax = torch.where(active, tmax, -_F32_MAX)
+    d = rays.direction
+    d = torch.where(d.abs() < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d)
+    return (rays.origin.contiguous(), d.to(torch.float32).contiguous(),
+            tmin.contiguous(), tmax.contiguous())
+
+
+def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
+                     any_hit: bool = False):
+    """Trace against a SplitBVH (views from bucket.emit_split_views with
+    ``leaf_width=LEAFW``); see ``kernel_operands`` for dead rays and
+    direction sanitising. Any-hit records carry ``rays.tmax`` as t.
+    Returns (HitRecord, TraceStats).
+    """
+    inner, pairs = views
+    w = inner.shape[1]
+    t, tri, ipops, lpops, overflow = split_traverse(
+        inner, pairs, *kernel_operands(rays, active), leafw=LEAFW, any_hit=any_hit,
+        stack_cap=_stack_cap(w, pairs.shape[0]))
+    if any_hit:
+        t = rays.tmax
+    stats = TraceStats(box_tests=ipops * w, tri_tests=lpops * (2 * LEAFW), overflow=overflow)
+    return _reconstruct(packed, rays, t, tri), stats
+
+
+def _map(fn, obj):
+    """Apply ``fn`` to every tensor field of a dataclass."""
+    return dataclasses.replace(obj, **{
+        f.name: fn(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor) and f.name != "overflow"})
+
+
+def make_split_tracer(width: int, height: int, any_hit: bool = False,
+                      sort_mode: str = None):
+    """Tracer ``(views, packed, rays, active=None) -> (HitRecord,
+    TraceStats)`` over 16 x (K/16) screen tiles.
+
+    sort_mode None tile-orders a row-major frame (edge-padded to the tile
+    grid, pad rays dead, then cropped back); ``"presorted"`` feeds rays in
+    the caller's order. The reference's other sort modes wait.
+    """
+    if sort_mode not in (None, "presorted"):
+        raise NotImplementedError(f"split tracer sort_mode {sort_mode!r} is not yet ported")
+    tw, th = 16, K // 16
+
+    def tracer(views, packed, rays, active=None):
+        if sort_mode == "presorted":
+            return trace_rays_split(views, packed, rays, active=active, any_hit=any_hit)
+        dev = rays.origin.device
+        pw = -(-width // tw) * tw
+        ph = -(-height // th) * th
+        padded = (pw, ph) != (width, height)
+        if padded:
+            rays = _map(lambda a: pad_frame(a, width, height, pw, ph), rays)
+            live = pad_live_mask(width, height, pw, ph, device=dev)
+            active = live if active is None else (
+                pad_frame(active, width, height, pw, ph) & live)
+        tiled = _map(lambda a: tile_reorder(a, pw, ph, tw, th), rays)
+        act = None if active is None else tile_reorder(active, pw, ph, tw, th)
+        rec, stats = trace_rays_split(views, packed, tiled, active=act, any_hit=any_hit)
+        rec = _map(lambda a: tile_restore(a, pw, ph, tw, th), rec)
+        stats = _map(lambda a: tile_restore(a, pw, ph, tw, th), stats)
+        if padded:
+            rec = _map(lambda a: crop_frame(a, width, height, pw, ph), rec)
+            stats = _map(lambda a: crop_frame(a, width, height, pw, ph), stats)
+        return rec, stats
+
+    return tracer
+
+
+def make_frame_tracers(width: int, height: int) -> dict:
+    """The four tracers of the path-traced frame, as ``bench.py:251-271``
+    sets them up (its TPU-only ``kernel_v``/``c_slots`` choices dropped):
+    tiled closest-hit and any-hit tracers for the coherent primary and
+    primary-shadow passes, presorted ones for the bounce and bounce-shadow
+    passes. Returns ``path_trace`` keyword arguments."""
+    return dict(
+        tracer=make_split_tracer(width, height),
+        shadow_tracer=make_split_tracer(width, height, any_hit=True),
+        bounce_tracer=make_split_tracer(width, height, sort_mode="presorted"),
+        shadow_tracer_bounce=make_split_tracer(width, height, any_hit=True,
+                                               sort_mode="presorted"),
+    )
