@@ -27,7 +27,7 @@ from tpu_raytracing.trace.ray import Rays as JRays  # noqa: E402
 from tpu_raytracing.trace.traverse import PackedPairs as JPackedPairs  # noqa: E402
 from tpu_raytracing.trace.traverse import TraceStats as JTraceStats  # noqa: E402
 from tpu_raytracing.trace.traverse import pack_pairs as jpack_pairs  # noqa: E402
-from tpu_raytracing_torch.bvh import bucket  # noqa: E402
+from tpu_raytracing_torch.bvh import bucket, treelet  # noqa: E402
 from tpu_raytracing_torch.scene import camera as tcam  # noqa: E402
 from tpu_raytracing_torch.scene import procedural as tproc  # noqa: E402
 from tpu_raytracing_torch.scene.types import scene_to_device  # noqa: E402
@@ -72,10 +72,14 @@ def _close(a, b, name):
 
 
 @pytest.mark.parametrize("sort_kind,sample_next", [("leaf", True), ("cell", True),
-                                                   ("leaf", False)])
+                                                   ("leaf", False), ("tid", True),
+                                                   ("tid_cell", True)])
 def test_bounce_stage_matches_jax(cornell_state, rng, sort_kind, sample_next):
     s = cornell_state
     num = W * H
+    # the tid kinds read a treelet id per pair; ids above 0xFFF check that
+    # tid_cell keeps 12 bits of it
+    pair_loc = rng.integers(0, 5000, s["packed"].rows.shape[0]).astype(np.int32)
     throughput = rng.uniform(0.2, 1.0, (num, 3)).astype(np.float32)
     radiance = rng.uniform(0.0, 0.5, (num, 3)).astype(np.float32)
     alive = rng.random(num) < 0.8
@@ -88,13 +92,14 @@ def test_bounce_stage_matches_jax(cornell_state, rng, sort_kind, sample_next):
         jscene_to_device(s["scene"]), JPackedPairs(rows=jnp.asarray(s["packed"].rows.numpy())),
         _jax_rays(s["rays"]), _jax_rec(s["rec"]), jnp.asarray(srec_hit),
         jnp.asarray(throughput), jnp.asarray(radiance), jnp.asarray(alive),
-        jnp.asarray(pixel), jnp.asarray(u_frame), jnp.float32(max_t), None,
+        jnp.asarray(pixel), jnp.asarray(u_frame), jnp.float32(max_t), jnp.asarray(pair_loc),
         compaction=True, sort_cells=True, sample_next=sample_next, sort_kind=sort_kind)
     out = tpt._bounce_stage(
         s["tscene"], s["packed"], s["rays"], s["rec"], torch.from_numpy(srec_hit),
         torch.from_numpy(throughput), torch.from_numpy(radiance), torch.from_numpy(alive),
         torch.from_numpy(pixel).to(torch.int64), torch.from_numpy(u_frame),
-        torch.tensor(max_t), sort_cells=True, sample_next=sample_next, sort_kind=sort_kind)
+        torch.tensor(max_t), pair_loc=torch.from_numpy(pair_loc), sort_cells=True,
+        sample_next=sample_next, sort_kind=sort_kind)
     j_rad, j_thr, j_alive, j_pix, j_rays = ref
     t_rad, t_thr, t_alive, t_pix, t_rays = out
     np.testing.assert_array_equal(np.asarray(j_alive), t_alive.numpy())
@@ -165,8 +170,14 @@ def test_path_trace_bounce_frame_and_overflow(cornell_state, monkeypatch):
     with pytest.raises(RuntimeError, match="stack overflow"):
         tpt.path_trace(sviews, spacked, scene_to_device(sphere, "cpu"), scam, 24, 10,
                        num_bounces=1, tracer=st.make_split_tracer(24, 10))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the tid sort needs a treelet id per pair; with one, the image stands
+    with pytest.raises(ValueError, match="needs pair_loc"):
         tpt.path_trace(*args, num_bounces=1, sort_kind="tid", **st.make_frame_tracers(24, 10))
+    pair_loc = treelet.build_pair_tid(bucket.split_front(torch.from_numpy(s["scene"].triangles),
+                                                         True))
+    tid, _ = tpt.path_trace(*args, num_bounces=1, pair_loc=pair_loc,
+                            **st.make_frame_tracers(24, 10))
+    np.testing.assert_allclose(tid.numpy(), img.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_app_renders_and_refuses_unported_flags(tmp_path):
@@ -200,9 +211,10 @@ def test_port_imports_and_renders_without_jax(tmp_path):
             importlib.import_module(name)
         assert not any(k.startswith("tpu_raytracing.") for k in sys.modules)
         from tpu_raytracing_torch.app.main import main
-        main(["--scene", "cornell", "--type", "bottom-up", "--pairs", "--tracer", "split",
-              "--bounces", "1", "--width", "16", "--height", "16", "--device", "cpu",
-              "--output", {str(tmp_path)!r}])
+        for tracer in ("split", "lane"):
+            main(["--scene", "cornell", "--type", "bottom-up", "--pairs", "--tracer", tracer,
+                  "--bounces", "1", "--width", "16", "--height", "16", "--device", "cpu",
+                  "--output", {str(tmp_path)!r} + "/" + tracer])
         print("modules", len(names))
     """)
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
@@ -210,4 +222,9 @@ def test_port_imports_and_renders_without_jax(tmp_path):
                           cwd=str(tmp_path), env=env, timeout=300, check=False)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "modules" in proc.stdout
-    assert (tmp_path / "frame0000_pt.png").is_file()
+    from tpu_raytracing_torch.utils.png import read_png
+    split, lane = (read_png(str(tmp_path / t / "frame0000_pt.png")) for t in ("split", "lane"))
+    # both tracers find the same closest hits, and the bounce samples are
+    # drawn per pixel, so the frames agree
+    assert split.shape == (16, 16, 4) and split[..., :3].max() > 0
+    np.testing.assert_array_equal(lane, split)

@@ -14,6 +14,7 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from tpu_raytracing_torch.bvh.treelet import TreeletBVH
 from tpu_raytracing_torch.scene.types import DeviceMaterials, DeviceScene, TexturePool
 from tpu_raytracing_torch.trace.traverse import PackedPairs
 
@@ -61,3 +62,19 @@ def split_views_from_numpy(inner_i, inner_v, pairs_f, device) -> Tuple[torch.Ten
     inner = inner_i[:, : w * 8].reshape(inner_i.shape[0], w, 8)
     pairs = np.asarray(pairs_f, np.float32).view(np.int32)[:, :16]
     return _t(inner, device), _t(pairs, device)
+
+
+def treelet_from_numpy(fields: Mapping, device) -> TreeletBVH:
+    """``tpu_raytracing.bvh.treelet.TreeletBVH`` as a mapping of numpy arrays
+    (``tables``, ``num_treelets``, ``root_tid``, ``max_col``,
+    ``num_leaves``, ``pair_tid``) and its ``leaf_width`` -> the port's
+    ``TreeletBVH`` on ``device``. The layouts are the same."""
+    return TreeletBVH(
+        tables=_t(np.asarray(fields["tables"], np.float32), device),
+        num_treelets=_t(fields["num_treelets"], device),
+        root_tid=_t(np.asarray(fields["root_tid"], np.int32), device),
+        max_col=_t(fields["max_col"], device),
+        num_leaves=_t(fields["num_leaves"], device),
+        pair_tid=_t(np.asarray(fields["pair_tid"], np.int32), device),
+        leaf_width=int(fields["leaf_width"]),
+    )

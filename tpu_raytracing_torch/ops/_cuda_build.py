@@ -19,8 +19,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
@@ -74,3 +75,10 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
     return lib
+
+
+def load_libraries(names: Sequence[str]) -> None:
+    """``load_library`` for every name, with the nvcc builds run in
+    parallel (one process per source, all started together)."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        list(pool.map(load_library, names))

@@ -16,10 +16,12 @@ Differences from the reference, all deliberate:
 * ``generator`` (a ``torch.Generator``) replaces ``key``; jax.random and
   torch draw different numbers, so ``_bounce_stage`` takes ``u_frame``
   explicitly and the tests inject it.
-* Bounce sort kinds ``leaf`` and ``cell`` are ported; ``tid``/``tid_cell``
-  need ``bvh/treelet.py`` and raise. The TPURT_* environment knobs are not
-  ported; the port runs the reference's defaults (``leaf`` bounce sort,
-  hit-pair shadow sort).
+* The bounce sort is the ``sort_kind`` argument (``leaf``, ``cell``,
+  ``tid``, ``tid_cell``), with the reference's default: ``tid`` when
+  ``pair_loc`` is given, else ``leaf``. The reference reads
+  ``TPURT_BOUNCE_SORT`` and falls back from ``tid`` to ``leaf`` without a
+  ``pair_loc``; here that request raises. The other TPURT_* knobs are not
+  ported (the hit-pair shadow sort is always on).
 * ``_finalize`` scatters radiance to its pixel directly; the reference
   gathers by the inverse permutation because a random scatter is slow on
   the TPU.
@@ -49,7 +51,7 @@ from tpu_raytracing_torch.trace.split_trace import check_overflow
 
 SKY_HORIZON = (1.0, 1.0, 1.0)
 SKY_ZENITH = (0.5, 0.7, 1.0)
-SORT_KINDS = ("leaf", "cell")
+SORT_KINDS = ("leaf", "cell", "tid", "tid_cell")
 
 
 def _sky(direction):
@@ -83,6 +85,21 @@ def _octant(d):
             | ((d[:, 2] > 0).to(torch.int64) << 2))
 
 
+def _unit_cube(o):
+    """Points scaled into the unit cube of their own bounds."""
+    lo = o.amin(dim=0)
+    hi = o.amax(dim=0)
+    return (o - lo) / torch.clamp(hi - lo, min=1e-20)
+
+
+def _check_sort_kind(sort_kind: str, pair_loc) -> None:
+    if sort_kind not in SORT_KINDS:
+        raise ValueError(f"unknown bounce sort kind {sort_kind!r}; choose from {SORT_KINDS}")
+    if sort_kind in ("tid", "tid_cell") and pair_loc is None:
+        raise ValueError(f"bounce sort kind {sort_kind!r} needs pair_loc "
+                         "(bvh/treelet.py:build_pair_tid)")
+
+
 def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput,
                   radiance, alive, pixel, u_frame, max_t, pair_loc=None,
                   compaction: bool = True, sort_cells: bool = False,
@@ -94,9 +111,8 @@ def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughp
     ``sample_next=False`` (the final bounce) sampling and compaction are
     skipped.
     """
-    if sort_cells and sort_kind not in SORT_KINDS:
-        raise NotImplementedError(
-            f"bounce sort kind {sort_kind!r} is not yet ported (needs bvh/treelet.py)")
+    if sort_cells:
+        _check_sort_kind(sort_kind, pair_loc)
     miss = alive & ~rec.hit
     radiance = radiance + torch.where(miss[:, None], throughput * _sky(rays.direction), 0.0)
     alive = alive & rec.hit
@@ -131,17 +147,25 @@ def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughp
     if compaction:
         dead = (~alive).to(torch.int64)
         if sort_cells:
-            if sort_kind == "leaf":
-                # hit pair's sorted index: a space-filling-curve position at
-                # leaf granularity, aligned to the tree's windows
-                loc = torch.clamp(rec.tri_id.to(torch.int64) >> (1 + leaf_shift), min=0)
+            octant = _octant(new_rays.direction)
+            pair = torch.clamp(rec.tri_id.to(torch.int64) >> 1, min=0)
+            if sort_kind == "tid_cell":
+                # treelet major, then octant, then the coarse origin cell
+                tid = pair_loc[pair].to(torch.int64)
+                cellm = morton3d(_unit_cube(new_rays.origin))
+                key = ((dead << 30) | ((tid & 0xFFF) << 18) | (octant << 15)
+                       | ((cellm >> 15) & 0x7FFF))
             else:
-                o = new_rays.origin
-                lo = o.amin(dim=0)
-                hi = o.amax(dim=0)
-                norm = (o - lo) / torch.clamp(hi - lo, min=1e-20)
-                loc = morton3d(norm) >> cell_shift
-            key = (dead << 30) | (loc << 3) | _octant(new_rays.direction)
+                if sort_kind == "tid":
+                    # the origin hit pair's treelet: subtree-aligned groups
+                    loc = pair_loc[pair].to(torch.int64)
+                elif sort_kind == "leaf":
+                    # hit pair's sorted index: a space-filling-curve position
+                    # at leaf granularity, aligned to the tree's windows
+                    loc = pair >> leaf_shift
+                else:
+                    loc = morton3d(_unit_cube(new_rays.origin)) >> cell_shift
+                key = (dead << 30) | (loc << 3) | octant
         else:
             key = dead
         perm = torch.sort(key, stable=True).indices
@@ -198,15 +222,17 @@ def path_trace(
     Tracers have the signature ``(trav, pairs, rays, active=None) ->
     (HitRecord, TraceStats)``; ``shadow_tracer`` (any-hit, primary NEE),
     ``bounce_tracer`` and ``shadow_tracer_bounce`` default to ``tracer``.
-    ``sort_kind`` picks the bounce compaction key: ``"leaf"`` (the default,
-    as in the reference without ``pair_loc``) or ``"cell"``.
+    ``pair_loc`` is an optional [P] treelet id per sorted pair
+    (``bvh/treelet.py:build_pair_tid``); ``sort_kind`` picks the bounce
+    compaction key: ``"tid"`` (the default with ``pair_loc``), ``"leaf"``
+    (the default without), ``"tid_cell"`` or ``"cell"``.
     """
     if tracer is None:
         raise NotImplementedError(
-            "the scalar tracer (trace_rays) is not yet ported; pass a split tracer")
-    if pair_loc is not None:
-        raise NotImplementedError("pair_loc (the 'tid' bounce sort) is not yet ported")
-    sort_kind = "leaf" if sort_kind is None else sort_kind
+            "the scalar tracer (trace_rays) is not yet ported; pass a split or lane tracer")
+    if sort_kind is None:
+        sort_kind = "tid" if pair_loc is not None else "leaf"
+    _check_sort_kind(sort_kind, pair_loc)
     dev = camera["position"].device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -244,7 +270,7 @@ def path_trace(
         u_frame = torch.rand((num, 2), generator=generator, device=dev)
         radiance, throughput, alive, pixel, rays = _bounce_stage(
             scene, pairs, rays, rec, srec_hit, throughput, radiance, alive, pixel,
-            u_frame, max_t, compaction=compaction, sort_cells=True,
+            u_frame, max_t, pair_loc=pair_loc, compaction=compaction, sort_cells=True,
             sample_next=bounce < num_bounces, sort_kind=sort_kind)
 
     check_overflow(overflow)

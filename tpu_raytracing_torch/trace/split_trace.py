@@ -292,12 +292,13 @@ def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
 
 
 def check_overflow(overflow: torch.Tensor) -> None:
-    """Host check of a traversal stack-overflow flag (``TraceStats.overflow``,
-    or a sum of them); raises if set."""
+    """Host check of a traversal overflow flag (``TraceStats.overflow``, or
+    a sum of them); raises if set."""
     if int(overflow.sum()) != 0:
         raise RuntimeError(
-            "split traversal stack overflow: a ray needed more than the stack "
-            "bound (trace/split_trace.py:_stack_cap) and was stopped")
+            "traversal stack overflow: a split-BVH ray needed more than the stack "
+            "bound (trace/split_trace.py:_stack_cap) and was stopped, or a lane ray "
+            "was still unfinished after its recovery rounds (trace/lane_trace.py)")
 
 
 def _reconstruct(pairs: PackedPairs, rays: Rays, t_flat, tri_flat) -> HitRecord:
