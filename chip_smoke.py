@@ -8,9 +8,10 @@ exits non-zero if any phase fails:
 
 1. Device: requires CUDA; prints the card, the device count and
    ``nvidia-smi``'s name and power limit.
-2. Build: compiles ``csrc/split_trace.cu`` (K1) and ``csrc/lane_trace.cu``
-   (K5) with nvcc, in parallel, into ``tpu_raytracing_torch/build/`` and
-   prints the ptxas register and spill lines.
+2. Build: compiles ``csrc/split_trace.cu`` (K1), ``csrc/lane_trace.cu``
+   (K5) and ``csrc/fat_traverse.cu`` (K6) with nvcc, in parallel, into
+   ``tpu_raytracing_torch/build/`` and prints the ptxas register and spill
+   lines.
 3. Split path: the frame ``bench.py`` times — ``terrain(1_000_000)``,
    aerial camera, per-frame split-BVH rebuild + capacity check,
    fixed-topology refit, the ``tid`` bounce sort from ``build_pair_tid``,
@@ -43,9 +44,34 @@ exits non-zero if any phase fails:
    brute force over the 1M triangles. Then K5 and the plain version are
    timed as one unbudgeted launch on the 1M bounce pass (on the 65,536-ray
    sample instead if the plain version would take over 120 s).
+8. Binary path: the Karras build (``build_lbvh``, one warm build and 2
+   timed) of phase 3's scene with pairs; ``count_nodes``' leaf count must
+   equal the build's live leaf count and ``verify_hierarchy`` must find no
+   error. Then ``pack_pairs`` and ``build_wide_fat`` (timed) and a
+   1024x1024, 1-bounce frame with ``make_fat_tracer`` on all four passes and
+   the ``leaf`` bounce sort, with phase 3's camera and generator seeds: one
+   warm frame and 2 timed. K6 must launch on every pass, no ray may
+   overflow, and the image must be finite and within 40 dB PSNR of phase 3's
+   split frame. Phases 3 and 8 end with one frame under ``torch.profiler``:
+   the device's busy share of it and the kernels with the most device
+   time.
+9. K6 against its plain version on the card, bit for bit on all six
+   outputs: on the sphere and soup(2000) fixtures (pairs off and on;
+   camera, axis-aligned, random and half-dead ray sets) and on 65,536 live
+   rays sampled evenly from each pass of the phase-8 frame. K6's hits on
+   4,096 bounce rays are held to brute force and to the scalar
+   ``trace_rays`` on the same tree. Then both are timed on the 1M bounce
+   pass (or the sample, as in phase 7).
+10. ``kernel_v`` 5, 4 and 2 (the reference's K3, v4 and K4) on phase 3's
+   bounce pass: each launches K1, with t and tri bit-equal to
+   ``kernel_v=3``, and v2's statistics have v2's shape.
 
-The last two lines of standard output are a JSON summary of the kernels
-and ``{"ok": true, "device": {...}}``.
+For every kernel the script computes a bound: the larger of the float32
+operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
+must move (rays in, results out, each structure row it visits once) over
+3.35 TB/s, the H100 SXM's published peaks, counted from the 1M bounce
+pass's per-ray statistics. The last two lines of standard output are a
+JSON summary of the kernels and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -62,8 +88,9 @@ import torch  # noqa: E402
 
 from tpu_raytracing_torch.app.args import parse_cmd  # noqa: E402
 from tpu_raytracing_torch.app.main import build_trav  # noqa: E402
-from tpu_raytracing_torch.bvh import bucket, treelet  # noqa: E402
-from tpu_raytracing_torch.ops import _cuda_build  # noqa: E402
+from tpu_raytracing_torch.bvh import bucket, lbvh, treelet, wide  # noqa: E402
+from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
+from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
 from tpu_raytracing_torch.scene import camera as cam  # noqa: E402
 from tpu_raytracing_torch.scene import procedural  # noqa: E402
 from tpu_raytracing_torch.scene.types import scene_to_device  # noqa: E402
@@ -71,7 +98,15 @@ from tpu_raytracing_torch.trace import lane_trace, split_trace  # noqa: E402
 from tpu_raytracing_torch.trace.brute import brute_force_trace  # noqa: E402
 from tpu_raytracing_torch.trace.pathtrace import path_trace  # noqa: E402
 from tpu_raytracing_torch.trace.ray import Rays, generate_primary_rays  # noqa: E402
-from tpu_raytracing_torch.trace.traverse import PackedPairs, f2i, i2f  # noqa: E402
+from tpu_raytracing_torch.trace.packet import tile_reorder  # noqa: E402
+from tpu_raytracing_torch.trace.traverse import (  # noqa: E402
+    PackedPairs,
+    f2i,
+    i2f,
+    pack_bvh,
+    pack_pairs,
+    trace_rays,
+)
 
 NUM_TRIS = 1_000_000
 RES = 1024
@@ -88,6 +123,15 @@ BRUTE_AGREE = 0.995
 MIN_PSNR = 40.0
 PLAIN_LIMIT_S = 120.0
 PASSES = ("primary", "primary shadow", "bounce", "bounce shadow")
+# Published peaks of one H100 SXM: float32 outside the tensor cores, and
+# HBM3. Operations per slab test (6 sub, 6 mul, 10 min/max, 3 compares) and
+# per Möller-Trumbore test (12 sub/add and 14 mul of the edges and cross
+# products, 3 dot products of 5, 3 products by 1/det, 1 divide, 9 compares
+# and adds of the accept test), as the kernels compute them.
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+SLAB_OPS = 25
+MT_OPS = 61
 
 
 def require(cond: bool, msg: str) -> None:
@@ -129,19 +173,29 @@ class Capture:
 
 
 class PassRecorder:
-    """Wraps the lane tracer: for every call, the K5 launches it made, its
-    unfinished-ray flag and its (rays, active)."""
+    """Wraps a tracer: for every call, the launches of ``module``'s kernel
+    it made, its overflow flag and its (rays, active)."""
 
-    def __init__(self, tracer):
+    def __init__(self, tracer, module):
         self.tracer = tracer
+        self.module = module
         self.calls = []
 
     def __call__(self, trav, packed, rays, active=None):
-        before = lane_trace.launch_count
+        before = self.module.launch_count
         rec, stats = self.tracer(trav, packed, rays, active=active)
-        self.calls.append(dict(launches=lane_trace.launch_count - before,
+        self.calls.append(dict(launches=self.module.launch_count - before,
                                overflow=stats.overflow, rays=rays, active=active))
         return rec, stats
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of ``ops`` float32
+    operations at F32_OPS_PER_S and ``nbytes`` at HBM_BYTES_PER_S."""
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def frame_fn(trav, packed, dev_scene, camera, device, **tracers):
@@ -165,6 +219,35 @@ def timed_frames(frame, **kw):
         total_rays += int(rays_traced)
     elapsed_ms = sync_ms(t0)
     return img, elapsed_ms / ITERS, total_rays
+
+
+def profile_frame(label: str, frame, card: str, **kw) -> None:
+    """One more frame under torch.profiler: the device's busy time (the
+    union of its kernel intervals) against the frame's wall time, and the
+    kernels with the most device time. The profiler's own overhead
+    lengthens the wall time, so the busy share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frame(ITERS + 1, (ITERS + 1) * 1e-4, **kw)
+        wall_ms = sync_ms(t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1000.0, n + 1)
+    busy_ms = busy_us / 1000.0
+    print(f"  {label} profiled frame: {wall_ms!r} ms wall, {busy_ms!r} ms device busy "
+          f"({len(kernels)} device events, {100.0 * busy_ms / wall_ms:.1f}% busy)  [{card}]")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {ms:9.3f} ms {n:5d}x  {name[:100]}")
 
 
 def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
@@ -223,6 +306,8 @@ def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
     require(mean > 0.0, f"frame mean {mean} is not positive")
     _, leaf_ms, _ = timed_frames(frame_fn(views, packed, dev_scene, camera, device, **tracers),
                                  sort_kind="leaf")
+    profile_frame("bench", frame_fn(views, packed, dev_scene, camera, device, **tracers), card,
+                  pair_loc=pair_loc)
     out = dict(rebuild_ms=rebuild_ms, refit_ms=refit_ms, pair_tid_ms=pair_tid_ms,
                frame_ms=frame_ms, mrays_per_s=total_rays / (frame_ms * ITERS) / 1000.0,
                time_to_first_frame_s=ttff_s, peak_mem_mib=peak_mib,
@@ -233,7 +318,8 @@ def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
     for key, val in out.items():
         print(f"  {key} = {val!r}  [{card}]")
     print(f"  K1 launches in {ITERS + 1} main-path frames = {launches}")
-    return dict(front=front, views=views, captured=captured, launches=launches, img=img, **out)
+    return dict(front=front, views=views, packed=packed, captured=captured, launches=launches,
+                img=img, **out)
 
 
 class Agreement:
@@ -342,7 +428,20 @@ def time_bounce_pass(views, rays: Rays, active, card: str) -> dict:
     print(f"  1M bounce pass: {ops[0].shape[0]} rays ({int(active.sum())} live); "
           f"K1 {ms!r} ms, plain {plain_ms!r} ms, tri mismatches {tri_bad}  [{card}]")
     require(tri_bad <= (1.0 - MIN_AGREE) * ops[0].shape[0], "1M bounce pass: K1 != plain")
-    return dict(ms=ms, plain_ms=plain_ms)
+    # bound: every inner pop tests w boxes, every leaf pop 2 * LEAFW
+    # triangles; rays in (32 B), results out (16 B), each inner row (w * 32 B)
+    # and pair row (64 B) visited once
+    visited = {}
+    split_trace.trace_split_plain(inner, pairs, *ops, **kw, visited=visited)
+    num, w = ops[0].shape[0], inner.shape[1]
+    n_ops = (float(kout[2].sum()) * w * SLAB_OPS
+             + float(kout[3].sum()) * 2 * split_trace.LEAFW * MT_OPS)
+    nbytes = (num * (32 + 16) + int(visited["inner"].sum()) * w * 32
+              + int(visited["pairs"].sum()) * 64)
+    b = bound(n_ops, nbytes)
+    print(f"  K1 bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
+          f"{int(visited['inner'].sum())} inner rows, {int(visited['pairs'].sum())} pair rows)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
 
 
 def k1_checks(device, card: str, split: dict) -> dict:
@@ -403,7 +502,7 @@ def lane_path(device, card: str, dev_scene, camera, triangles, split_img) -> dic
                       "--height", str(RES)])
     torch.cuda.reset_peak_memory_stats()
     tb, packed, tracers = build_trav(args, triangles)
-    recorder = PassRecorder(tracers["tracer"])
+    recorder = PassRecorder(tracers["tracer"], lane_trace)
     lane_trace.launch_count = 0
     frame = frame_fn(tb, packed, dev_scene, camera, device, tracer=recorder)
     frame(0, 0.0)
@@ -548,7 +647,19 @@ def time_lane_bounce(tb, bounce_call, sample: Rays, card: str) -> dict:
     print(f"  {where}: {num} rays ({live} live); K5 {ms!r} ms, plain {plain_ms!r} ms, "
           f"out mismatches {bad}  [{card}]")
     require(bad == 0, f"{where}: K5 != plain")
-    return dict(ms=ms, plain_ms=plain_ms)
+    # bound: out rows 2-3 count each ray's box and triangle tests; rays8
+    # and the state in, out and the state written back, each inner column
+    # (56 words) and window column (12 lw + 1 words) visited once
+    visited = {}
+    lane_trace.trace_lane_plain(tb.tables, r8, st, root, **kw, visited=visited)
+    n_ops = float(kout[0][:, 2].sum()) * SLAB_OPS + float(kout[0][:, 3].sum()) * MT_OPS
+    n_rays = r8.shape[0] * 128
+    nbytes = (n_rays * 4 * (8 + 8 + 2 * st.shape[1]) + int(visited["inner"].sum()) * 56 * 4
+              + int(visited["window"].sum()) * (12 * tb.leaf_width + 1) * 4)
+    b = bound(n_ops, nbytes)
+    print(f"  K5 bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
+          f"{int(visited['inner'].sum())} inner, {int(visited['window'].sum())} window columns)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
 
 
 def time_drivers(tb, packed, bounce_call, card: str) -> None:
@@ -570,6 +681,223 @@ def time_drivers(tb, packed, bounce_call, card: str) -> None:
     print(f"  lane drivers on the 1M bounce pass: {', '.join(line)}  [{card}]")
 
 
+def binary_path(device, card: str, dev_scene, camera, triangles, split_img) -> dict:
+    """Phase 8: the Karras build, its checks, the fat collapse and the K6
+    frame at full size."""
+    torch.cuda.reset_peak_memory_stats()
+    lbvh.build_lbvh(triangles, True)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        bvh, pairs = lbvh.build_lbvh(triangles, True)
+    build_ms = sync_ms(t0) / ITERS
+    _, _, num_leaves = lbvh.generate_morton_codes_pairs(triangles, *lbvh.scene_aabb(triangles))
+    t0 = time.perf_counter()
+    stats = count_nodes(bvh)
+    errors = verify_hierarchy(bvh)
+    check_s = time.perf_counter() - t0
+    print(f"phase 8: Karras build of {triangles.shape[0]} tris: {bvh.num_slots} slots, tree height "
+          f"{int(lbvh.tree_height(bvh))}; count_nodes {stats}, live leaves {int(num_leaves)}, "
+          f"verify_hierarchy errors {len(errors)} (host checks {check_s:.2f} s)")
+    require(stats.num_leaf_nodes == int(num_leaves),
+            f"count_nodes finds {stats.num_leaf_nodes} leaves, the build made {int(num_leaves)}")
+    require(not errors, f"verify_hierarchy: {len(errors)} boxes fail, first {errors[:8]}")
+    packed = pack_pairs(pairs)
+    wide.build_wide_fat(bvh, packed.rows)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        fat = wide.build_wide_fat(bvh, packed.rows)
+    fat_ms = sync_ms(t0) / ITERS
+    rows256 = fat_traverse.pad_rows_256(fat.rows)
+    print(f"  fat rows {tuple(fat.rows.shape)}, num_nodes {int(fat.num_nodes)}")
+    del fat
+
+    recorder = PassRecorder(fat_traverse.make_fat_tracer(None, RES, RES), fat_traverse)
+    fat_traverse.launch_count = 0
+    frame = frame_fn(rows256, packed, dev_scene, camera, device, tracer=recorder)
+    frame(0, 0.0, sort_kind="leaf")
+    img, frame_ms, total_rays = timed_frames(frame, sort_kind="leaf")
+    launches = fat_traverse.launch_count
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    calls = recorder.calls
+    per_call = [c["launches"] for c in calls]
+    overflowed = int(sum(int(c["overflow"].sum()) for c in calls))
+    print(f"  binary frame: {RES}x{RES}, {BOUNCES} bounce, leaf bounce sort, K6 on every pass, "
+          f"{total_rays} rays in {ITERS} frames")
+    require(len(calls) == 4 * (ITERS + 1), f"{len(calls)} tracer calls in {ITERS + 1} frames")
+    require(all(n > 0 for n in per_call), f"a pass launched no K6: {per_call}")
+    require(overflowed == 0, f"{overflowed} passes overflowed a K6 stack")
+    require(bool(torch.isfinite(img).all()), "binary frame has non-finite pixels")
+    db = psnr(img, split_img)
+    out = dict(build_lbvh_ms=build_ms, build_wide_fat_ms=fat_ms, frame_ms=frame_ms,
+               mrays_per_s=total_rays / (frame_ms * ITERS) / 1000.0, peak_mem_mib=peak_mib,
+               psnr_vs_split_db=db)
+    for key, val in out.items():
+        print(f"  {key} = {val!r}  [{card}]")
+    print(f"  K6 launches per pass = {per_call} (total {launches})")
+    require(db >= MIN_PSNR, f"binary frame {db:.2f} dB against the split frame (< {MIN_PSNR})")
+    profile_frame("binary", frame_fn(rows256, packed, dev_scene, camera, device,
+                                     tracer=fat_traverse.make_fat_tracer(None, RES, RES)), card,
+                  sort_kind="leaf")
+    return dict(bvh=bvh, packed=packed, rows256=rows256, passes=calls[-4:], launches=launches,
+                **out)
+
+
+class FatAgreement:
+    """K6 against its plain version, bit for bit on all six outputs."""
+
+    def __init__(self):
+        self.max_abs_err = 0.0
+
+    def check(self, label, rows256, rays, active) -> int:
+        ops = fat_traverse.kernel_operands(rays, active)
+        kout = fat_traverse.fat_traverse(rows256, *ops)
+        pout = fat_traverse.trace_fat_plain(rows256, *ops)
+        torch.cuda.synchronize()
+        bad = [int((k.view(torch.int32) != p.view(torch.int32)).sum())
+               for k, p in zip(kout[:6], pout[:6])]
+        hit = kout[0] != 0
+        if bool(hit.any()):
+            self.max_abs_err = max(self.max_abs_err, float((kout[1] - pout[1])[hit].abs().max()))
+        hits = int(hit.sum())
+        print(f"  {label:<34} rays={hit.shape[0]:>7} hits={hits:>7} mismatches "
+              f"hit/t/prim/tri/u/v={bad} overflow={int(kout[6])}/{int(pout[6])}")
+        require(sum(bad) == 0, f"{label}: K6 != plain on {bad}")
+        require(int(kout[6]) == int(pout[6]) == 0, f"{label}: stack overflow")
+        return hits
+
+
+def fat_checks(device, card: str, binary: dict, triangles) -> dict:
+    """Phase 9."""
+    print("phase 9: K6 against its plain version on the card")
+    agree = FatAgreement()
+    rng = np.random.default_rng(0)
+    for name, scene in (("sphere", procedural.sphere_scene(3)),
+                        ("soup2000", procedural.random_triangle_soup(2000, seed=1))):
+        tris = torch.as_tensor(scene.triangles, device=device)
+        for pairs in (False, True):
+            bvh, tp = lbvh.build_lbvh(tris, pairs)
+            rows = fat_traverse.pad_rows_256(wide.build_wide_fat(bvh, pack_pairs(tp).rows).rows)
+            for set_name, (rays, active) in fixture_rays(scene, device, rng).items():
+                agree.check(f"{name} pairs={int(pairs)} {set_name}", rows, rays, active)
+    rows256 = binary["rows256"]
+    samples = {}
+    for name, call in zip(PASSES, binary["passes"]):
+        rays, n_live = live_sample(call["rays"], call["active"])
+        samples[name] = rays
+        print(f"  terrain1M {name}: {rays.origin.shape[0]} of {n_live} live rays")
+        hits = agree.check(f"terrain1M {name}", rows256, rays, None)
+        require(hits > 0, f"terrain1M {name}: no ray of the sample hits, so it checks nothing")
+
+    # K6's hits against brute force and the scalar tracer on the same tree
+    n_sample = samples["bounce"].origin.shape[0]
+    rays = samples["bounce"].take(
+        torch.linspace(0, n_sample - 1, min(BRUTE_RAYS, n_sample), device=device).round().long())
+    rec, stats = fat_traverse.trace_rays_fat(rows256, rays)
+    ref = brute_force_trace(triangles, rays, chunk=64)
+    srec, sstats = trace_rays(pack_bvh(binary["bvh"]), binary["packed"], rays)
+    num = rays.origin.shape[0]
+    both = rec.hit & ref.hit
+    bad_hit = int((rec.hit != ref.hit).sum())
+    bad_t = int((both & ((rec.t - ref.t).abs() > T_RTOL * ref.t.abs())).sum())
+    bad_prim = int((both & (rec.prim_id != ref.prim_id)).sum())
+    both_s = rec.hit & srec.hit
+    bad_hit_s = int((rec.hit != srec.hit).sum())
+    bad_t_s = int((both_s & ((rec.t - srec.t).abs() > T_RTOL * srec.t.abs())).sum())
+    print(f"  brute force, {num} bounce rays over {triangles.shape[0]} tris: "
+          f"{int(ref.hit.sum())} hits, mismatches hit={bad_hit} t={bad_t} prim={bad_prim}; "
+          f"scalar trace_rays: {int(srec.hit.sum())} hits, mismatches hit={bad_hit_s} "
+          f"t={bad_t_s}; overflow K6 {int(stats.overflow)} scalar {int(sstats.overflow)}")
+    for key, count in (("hit", bad_hit), ("t", bad_t), ("prim", bad_prim)):
+        require(count <= (1.0 - BRUTE_AGREE) * num,
+                f"K6 and brute force disagree on {key} for {count} rays")
+    require(bad_hit_s == 0 and bad_t_s == 0, "K6 and the scalar tracer disagree")
+    require(int(stats.overflow) == 0 and int(sstats.overflow) == 0, "stack overflow")
+    timing = time_fat_bounce(rows256, binary["passes"][2], samples["bounce"], card)
+    print(f"  K6 launch count after the comparisons = {fat_traverse.launch_count} "
+          f"(binary path: {binary['launches']})")
+    return dict(max_abs_err=agree.max_abs_err, **timing)
+
+
+def time_fat_bounce(rows256, bounce_call, sample: Rays, card: str) -> dict:
+    """K6 and its plain version on the 1M bounce pass, in the order the
+    tiled tracer hands them to K6, by CUDA events (K6: mean of 5 after a
+    warm-up; plain: one run), or on the sample if the plain version would
+    take over PLAIN_LIMIT_S; then the bound from the plain version's
+    counts."""
+    sops = fat_traverse.kernel_operands(sample)
+    sample_ms, _ = event_ms(lambda: fat_traverse.trace_fat_plain(rows256, *sops), 1, warm=False)
+    rays, active = bounce_call["rays"], bounce_call["active"]
+    num = rays.origin.shape[0]
+    estimate_s = sample_ms / 1000.0 * num / sample.origin.shape[0]
+    where = "1M bounce pass"
+    tiled = Rays(*(tile_reorder(getattr(rays, f), RES, RES, 16, 8)
+                   for f in ("origin", "direction", "tmin", "tmax")))
+    ops = fat_traverse.kernel_operands(tiled, tile_reorder(active, RES, RES, 16, 8))
+    live = int(active.sum())
+    if estimate_s > PLAIN_LIMIT_S:
+        where = f"{sample.origin.shape[0]}-ray bounce sample (plain estimated {estimate_s:.0f} s)"
+        ops, num, live = sops, sample.origin.shape[0], sample.origin.shape[0]
+    ms, kout = event_ms(lambda: fat_traverse.fat_traverse(rows256, *ops), 5)
+    plain_ms, pout = event_ms(lambda: fat_traverse.trace_fat_plain(rows256, *ops), 1, warm=False)
+    bad = sum(int((k.view(torch.int32) != p.view(torch.int32)).sum())
+              for k, p in zip(kout[:6], pout[:6]))
+    print(f"  {where}: {num} rays ({live} live); K6 {ms!r} ms, plain {plain_ms!r} ms, "
+          f"out mismatches {bad}  [{card}]")
+    require(bad == 0, f"{where}: K6 != plain")
+    # bound: box tests of non-empty entries and triangle tests run; rays in
+    # (32 B), results out (24 B), the node words (256 B) of each row visited
+    # and the pair words (64 B) of each Tri entry whose box a ray entered
+    counts = {}
+    fat_traverse.trace_fat_plain(rows256, *ops, counts=counts)
+    n_ops = (float(counts["box_tests"].sum()) * SLAB_OPS
+             + float(counts["tri_tests"].sum()) * MT_OPS)
+    n_rows, n_tri = int(counts["visited"].sum()), int(counts["visited_tri"].sum())
+    nbytes = num * (32 + 24) + n_rows * 256 + n_tri * 64
+    b = bound(n_ops, nbytes)
+    pops = counts["pops"].float()
+    print(f"  K6 bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
+          f"{n_rows} rows, {n_tri} Tri entries); pops per ray mean {float(pops.mean()):.2f} "
+          f"max {int(pops.max())}, box tests {int(counts['box_tests'].sum())}, "
+          f"triangle tests {int(counts['tri_tests'].sum())}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+
+
+def split_versions(split: dict) -> dict:
+    """Phase 10: kernel_v 5, 4 and 2 on phase 3's bounce pass; returns
+    {kernel_v: K1 launches}."""
+    print("phase 10: kernel_v 5, 4 and 2 (K3, v4, K4) on the bench frame's bounce pass")
+    cap = split["captured"]["bounce_tracer"]
+    views, packed = split["views"], split["packed"]
+    ref, ref_stats = split_trace.trace_rays_split(views, packed, cap.rays, cap.active,
+                                                  kernel_v=3)
+    launches = {}
+    for v in (5, 4, 2):
+        split_trace.launch_count = 0
+        rec, stats = split_trace.trace_rays_split(views, packed, cap.rays, cap.active,
+                                                  kernel_v=v)
+        torch.cuda.synchronize()
+        launches[v] = split_trace.launch_count
+        bad_t = int((rec.t.view(torch.int32) != ref.t.view(torch.int32)).sum())
+        bad_tri = int((rec.tri_id != ref.tri_id).sum())
+        print(f"  kernel_v={v}: {launches[v]} K1 launch(es), t mismatches {bad_t}, "
+              f"tri mismatches {bad_tri} against kernel_v=3")
+        require(launches[v] > 0, f"kernel_v={v} launched no K1")
+        require(bad_t == 0 and bad_tri == 0, f"kernel_v={v} differs from kernel_v=3")
+        if v == 2:
+            w = views[0].shape[1]
+            total = (int(ref_stats.box_tests.sum()) // w
+                     + int(ref_stats.tri_tests.sum()) // (2 * split_trace.LEAFW))
+            print(f"  kernel_v=2 stats: box_tests[0] = {int(stats.box_tests[0])} total pops "
+                  f"(kernel_v=3: {total}), other entries nonzero "
+                  f"{int((stats.box_tests[1:] != 0).sum())}, tri_tests nonzero "
+                  f"{int((stats.tri_tests != 0).sum())}")
+            require(int(stats.box_tests[0]) == total and not bool(stats.box_tests[1:].any())
+                    and not bool(stats.tri_tests.any()), "kernel_v=2 stats are not v2's shape")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -586,8 +914,8 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    _cuda_build.load_libraries(["split_trace", "lane_trace"])
-    print(f"phase 2: built split_trace.cu and lane_trace.cu in parallel in "
+    _cuda_build.load_libraries(["split_trace", "lane_trace", "fat_traverse"])
+    print(f"phase 2: built split_trace.cu, lane_trace.cu and fat_traverse.cu in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, (nvcc_s, log) in _cuda_build.BUILD_INFO.items():
         print(f"  {name}: nvcc {nvcc_s:.2f} s")
@@ -603,19 +931,32 @@ def main() -> int:
     k1 = k1_checks(device, card, split)
     treelet_build(card, split["front"])
     lane = lane_path(device, card, dev_scene, camera, triangles, split["img"])
+    lane_launches = lane["launches"]
     k5 = lane_checks(device, card, lane, triangles)
+    del lane
+    binary = binary_path(device, card, dev_scene, camera, triangles, split["img"])
+    k6 = fat_checks(device, card, binary, triangles)
+    versions = split_versions(split)
 
+    def entry(name, source, replaces, launches, res):
+        # no single PyTorch call traces rays through a BVH: library_ms is null
+        return {"name": name, "route": "cuda", "source": f"tpu_raytracing_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": res["max_abs_err"],
+                "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": None}
+
+    # kernel_v only changes what the wrapper reports, so K1's measurements
+    # on the bounce pass (phase 4) serve the versions it stands in for
+    sp = "tpu_raytracing/trace/split_pallas.py"
     print(json.dumps({"kernels": [
-        {"name": "split_trace", "route": "cuda",
-         "source": "tpu_raytracing_torch/csrc/split_trace.cu",
-         "replaces": "tpu_raytracing/trace/split_pallas.py:143",
-         "launches": split["launches"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "lane_trace", "route": "cuda",
-         "source": "tpu_raytracing_torch/csrc/lane_trace.cu",
-         "replaces": "tpu_raytracing/trace/lane_pallas.py:107",
-         "launches": lane["launches"], "max_abs_err": k5["max_abs_err"],
-         "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
+        entry("split_trace", "split_trace.cu", f"{sp}:143", split["launches"], k1),
+        entry("split_trace kernel_v=4", "split_trace.cu", f"{sp}:541", versions[4], k1),
+        entry("split_trace kernel_v=5", "split_trace.cu", f"{sp}:898", versions[5], k1),
+        entry("split_trace kernel_v=2", "split_trace.cu", f"{sp}:1250", versions[2], k1),
+        entry("lane_trace", "lane_trace.cu", "tpu_raytracing/trace/lane_pallas.py:107",
+              lane_launches, k5),
+        entry("fat_traverse", "fat_traverse.cu", "tpu_raytracing/ops/pallas_traverse.py:71",
+              binary["launches"], k6),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

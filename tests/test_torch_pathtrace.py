@@ -2,7 +2,8 @@
 
 jax.random and torch draw different numbers, so the bounce stage is held to
 the reference with the same ``u_frame`` injected into both, and the whole
-frame at ``num_bounces=0`` (primary + NEE, deterministic).
+frame at ``num_bounces=0`` (primary + NEE, deterministic), or at one bounce
+with the reference's uniforms fed to the port in place of ``torch.rand``.
 """
 
 import os
@@ -17,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tpu_raytracing.bvh import lbvh as jlbvh  # noqa: E402
 from tpu_raytracing.bvh.pairing import identity_pairs  # noqa: E402
 from tpu_raytracing.scene import camera as jcam  # noqa: E402
 from tpu_raytracing.scene.types import scene_to_device as jscene_to_device  # noqa: E402
@@ -26,14 +28,17 @@ from tpu_raytracing.trace.brute import brute_force_trace as jbrute  # noqa: E402
 from tpu_raytracing.trace.ray import Rays as JRays  # noqa: E402
 from tpu_raytracing.trace.traverse import PackedPairs as JPackedPairs  # noqa: E402
 from tpu_raytracing.trace.traverse import TraceStats as JTraceStats  # noqa: E402
+from tpu_raytracing.trace.traverse import pack_bvh as jpack_bvh  # noqa: E402
 from tpu_raytracing.trace.traverse import pack_pairs as jpack_pairs  # noqa: E402
-from tpu_raytracing_torch.bvh import bucket, treelet  # noqa: E402
+from tpu_raytracing_torch.bvh import bucket, lbvh, treelet, wide  # noqa: E402
+from tpu_raytracing_torch.ops import fat_traverse  # noqa: E402
 from tpu_raytracing_torch.scene import camera as tcam  # noqa: E402
 from tpu_raytracing_torch.scene import procedural as tproc  # noqa: E402
 from tpu_raytracing_torch.scene.types import scene_to_device  # noqa: E402
 from tpu_raytracing_torch.trace import pathtrace as tpt  # noqa: E402
 from tpu_raytracing_torch.trace import split_trace as st  # noqa: E402
 from tpu_raytracing_torch.trace.render import _shadow_rays  # noqa: E402
+from tpu_raytracing_torch.trace.traverse import pack_bvh, pack_pairs  # noqa: E402
 from tpu_raytracing_torch.trace.ray import generate_primary_rays  # noqa: E402
 
 torch.set_num_threads(2)
@@ -150,6 +155,48 @@ def test_path_trace_zero_bounces_psnr(cornell_state):
     assert _psnr(np.asarray(ref_img), img.numpy()) >= 40.0
 
 
+@pytest.fixture(scope="module")
+def binary_reference(cornell_state):
+    """The reference frame at one bounce with its default (scalar) tracer
+    over the JAX Karras tree, and the uniforms it drew per bounce."""
+    s = cornell_state
+    jb, jp = jax.jit(jlbvh.build_lbvh, static_argnames="enable_pairs")(
+        jnp.asarray(s["scene"].triangles), enable_pairs=True)
+    img, rays_traced = jpt.path_trace(jpack_bvh(jb), jpack_pairs(jp), jscene_to_device(s["scene"]),
+                                      jcam.camera_to_device(s["host_cam"]), W, H, num_bounces=1,
+                                      key=jax.random.PRNGKey(0))
+    key, uniforms = jax.random.PRNGKey(0), []
+    for _ in range(2):  # pathtrace.py: one split and one draw per bounce
+        key, k_dir = jax.random.split(key)
+        uniforms.append(np.asarray(jax.random.uniform(k_dir, (W * H, 2))))
+    return np.asarray(img), int(rays_traced), uniforms
+
+
+@pytest.mark.parametrize("tracer", ["default", "fat"])
+def test_path_trace_binary_tracers_match_jax(cornell_state, binary_reference, monkeypatch,
+                                             tracer):
+    """The port's Karras tree traced by the default tracer (trace_rays) or
+    by make_fat_tracer on every pass, against the reference's frame."""
+    s = cornell_state
+    ref_img, ref_rays, uniforms = binary_reference
+    bvh, tp = lbvh.build_lbvh(torch.from_numpy(s["scene"].triangles), True)
+    packed = pack_pairs(tp)
+    draws = iter(uniforms)
+    monkeypatch.setattr(torch, "rand", lambda *a, **k: torch.from_numpy(np.array(next(draws))))
+    if tracer == "default":
+        img, rays_traced = tpt.path_trace(pack_bvh(bvh), packed, s["tscene"], s["camera"], W, H,
+                                          num_bounces=1)
+    else:
+        rows = fat_traverse.pad_rows_256(wide.build_wide_fat(bvh, packed.rows).rows)
+        before = fat_traverse.launch_count
+        img, rays_traced = tpt.path_trace(rows, packed, s["tscene"], s["camera"], W, H,
+                                          num_bounces=1,
+                                          tracer=fat_traverse.make_fat_tracer(None, W, H))
+        assert fat_traverse.launch_count == before  # CPU: the plain version
+    assert int(rays_traced) == ref_rays
+    assert _psnr(ref_img, img.numpy()) >= 40.0
+
+
 def test_path_trace_bounce_frame_and_overflow(cornell_state, monkeypatch):
     s = cornell_state
     args = (s["views"], s["packed"], s["tscene"], s["camera"], 24, 10)
@@ -189,12 +236,32 @@ def test_app_renders_and_refuses_unported_flags(tmp_path):
               "--debug-checks", "--output", str(tmp_path)])
     img = read_png(str(tmp_path / "frame0000_pt.png"))
     assert img.shape == (10, 24, 4) and img[..., :3].max() > 0
-    for extra in (["--type", "sah"], ["--tracer", "wide"], ["--animate"], ["--bounces", "0"],
+    for extra in (["--type", "sah"], ["--tracer", "wide"], ["--tracer", "packet"],
+                  ["--animate"], ["--bounces", "0"],
                   ["--render-mode", "3"], ["--refit-bound", "1.5"], ["--grid-scale", "2"]):
         argv = ["--scene", "cornell", "--type", "bottom-up", "--tracer", "split", "--bounces",
                 "1", "--device", "cpu", "--output", str(tmp_path)] + extra
         with pytest.raises(NotImplementedError, match=f"not yet ported: .*{extra[0]}"):
             app.main(argv)
+
+
+@pytest.mark.parametrize("tracer", ["scalar", "split", "lane"])
+def test_app_prints_hierarchy_stats(tmp_path, capsys, tracer):
+    """Frame 0 builds the Karras tree for every tracer and prints the
+    reference app's block (tpu_raytracing/app/main.py:223-234)."""
+    from tpu_raytracing.bvh import verify as jverify
+    from tpu_raytracing_torch.app import main as app
+
+    app.main(["--scene", "cornell", "--type", "bottom-up", "--tracer", tracer, "--bounces", "1",
+              "--width", "16", "--height", "8", "--device", "cpu", "--output", str(tmp_path)])
+    out = capsys.readouterr()
+    jb, _ = jax.jit(jlbvh.build_lbvh)(jnp.asarray(tproc.cornell_box().triangles))
+    ref = jverify.count_nodes(jb)
+    assert (f"Hierarchy stats\n  num nodes:      {ref.num_nodes}\n"
+            f"  num tree nodes: {ref.num_tree_nodes}\n"
+            f"  num leaf nodes: {ref.num_leaf_nodes}\n") in out.out
+    assert "Error: Invalid hierarchy" not in out.err
+    assert (tmp_path / "frame0000_pt.png").is_file()
 
 
 def test_port_imports_and_renders_without_jax(tmp_path):

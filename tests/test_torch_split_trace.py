@@ -171,17 +171,49 @@ def pallas_sp():
     pl.pallas_call = orig
 
 
-@pytest.mark.parametrize("kernel_v", [3, 4])
+@pytest.mark.parametrize("kernel_v", [2, 3, 4, 5])
 def test_plain_matches_pallas_kernel(sphere, pallas_sp, kernel_v):
+    """Every kernel_v runs K1's plain version here. kernel_v=5 is held to
+    the v3 kernel and brute force, not to the Pallas v5 kernel, whose stack
+    can drop entries (ROADMAP Queue 3); 2, 3 and 4 to their own kernels."""
     fn = jax.jit(lambda t: jbucket.emit_split_views(
         jbucket.split_front(t, enable_pairs=True), leaf_width=st.LEAFW))
     jviews, jpacked, _ = fn(jnp.asarray(sphere.triangles))
     o, d, lo, hi = _camera_rays(sphere, 16, 8)  # one 128-ray packet
     jr, tr = _both(o, d, lo, hi)
-    ref, _ = pallas_sp.trace_rays_split_pallas(jviews, jpacked, jr, kernel_v=kernel_v)
-    rec, _ = st.trace_rays_split(*_port_tree(sphere, True), tr)
+    ref, _ = pallas_sp.trace_rays_split_pallas(jviews, jpacked, jr,
+                                               kernel_v=3 if kernel_v == 5 else kernel_v)
+    rec, _ = st.trace_rays_split(*_port_tree(sphere, True), tr, kernel_v=kernel_v)
     _assert_matches(rec, ref)
     np.testing.assert_allclose(rec.bary_u.numpy(), np.asarray(ref.bary_u), rtol=1e-4, atol=1e-5)
+    if kernel_v == 5:
+        _assert_matches(rec, jbrute(jnp.asarray(sphere.triangles), jr))
+
+
+def test_kernel_v2_stats_and_refusals(sphere):
+    """v2's statistics: the launch's total pops in box_tests[0], zeros
+    elsewhere, as split_pallas.py:1865-1869; v2 refuses packet_tags and raw
+    (:1816-1817), and the other versions do not take them yet."""
+    views, packed = _port_tree(sphere, True)
+    _, tr = _both(*_camera_rays(sphere, 16, 8))
+    rec3, st3 = st.trace_rays_split(views, packed, tr)
+    rec2, st2 = st.trace_rays_split(views, packed, tr, kernel_v=2)
+    for a, b in ((rec2.t, rec3.t), (rec2.tri_id, rec3.tri_id), (rec2.hit, rec3.hit)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    w = views[0].shape[1]
+    total = int(st3.box_tests.sum()) // w + int(st3.tri_tests.sum()) // (2 * st.LEAFW)
+    assert int(st2.box_tests[0]) == total > 0
+    assert not st2.box_tests[1:].any() and not st2.tri_tests.any()
+    _, tiled = st.make_split_tracer(24, 10, kernel_v=2)(views, packed, _both(
+        *_camera_rays(sphere, 24, 10))[1])
+    assert tiled.box_tests.shape == (240,) and int(tiled.box_tests[0]) > 0
+    assert not tiled.box_tests[1:].any()
+    with pytest.raises(ValueError, match="v3 kernel"):
+        st.trace_rays_split(views, packed, tr, kernel_v=2, raw=True)
+    with pytest.raises(ValueError, match="v3 kernel"):
+        st.trace_rays_split(views, packed, tr, kernel_v=1, packet_tags=torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        st.trace_rays_split(views, packed, tr, kernel_v=5, raw=True)
 
 
 def test_stack_overflow_flag_raises(sphere, monkeypatch):

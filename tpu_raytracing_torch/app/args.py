@@ -1,6 +1,6 @@
 """CLI argument parsing (reference: src/Arguments.cpp:42-63).
 
-Port of ``tpu_raytracing/app/args.py``: the flags of the split and lane paths, with
+Port of ``tpu_raytracing/app/args.py``: the flags of the scalar, split and lane paths, with
 the reference's defaults and confirmation printout, plus ``--device``. The
 reference's other flags are accepted only to be refused: each is recorded
 in ``args.unported``, and ``app/main.py`` raises "not yet ported" for them
@@ -50,7 +50,7 @@ def parse_cmd(argv=None) -> argparse.Namespace:
     p.add_argument("--output", default="out", help="PNG output directory")
     p.add_argument("--tracer", default="wide",
                    choices=["scalar", "packet", "wide", "split", "grid", "lane"],
-                   help="traversal kernel (the port has: split, lane)")
+                   help="traversal kernel (the port has: scalar, split, lane)")
     p.add_argument("--debug-checks", action="store_true",
                    help="run the build invariants on the host and raise on violation")
     p.add_argument("--device", default="cuda",

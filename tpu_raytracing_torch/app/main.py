@@ -1,35 +1,39 @@
 """App shell: scene -> BVH build -> path-traced frames -> PNG output.
 
-Port of the split and lane paths of ``tpu_raytracing/app/main.py``
-(``load_scene``, ``orbit_camera``, ``main`` with ``--tracer split`` or
-``--tracer lane``, ``--type bottom-up --bounces N``). Flags the port cannot
-honour yet raise "not yet ported"; nothing falls back to another path.
+Port of the scalar, split and lane paths of ``tpu_raytracing/app/main.py``
+(``load_scene``, ``orbit_camera``, ``main`` with ``--tracer scalar``,
+``split`` or ``lane``, ``--type bottom-up --bounces N``). Flags the port
+cannot honour yet raise "not yet ported"; nothing falls back to another
+path.
 
     python -m tpu_raytracing_torch.app.main --scene terrain:1000000 \\
         --type bottom-up --pairs --tracer split --bounces 1 \\
         --width 1024 --height 1024 --frames 2 --output out
 
-``--tracer lane`` builds a treelet BVH over the split front
-(``bvh/treelet.py:build_treelet_auto``) and traces every pass, the NEE
-passes included, with the per-ray treelet tracer (K5, wave driver).
-
-The reference's ``--type bottom-up`` builds a Karras tree only for frame-0
-validation and then traces its own bucket build; the port builds only the
-bucket tree (with ``--debug-checks`` its invariants run on the host).
+As in the reference, frame 0 builds the ``--type`` tree (the Karras
+LBVH) for every tracer and prints its "Hierarchy stats" and any
+``verify_hierarchy`` error (src/main.cu:248-259). ``--tracer scalar``
+traces that tree with ``trace_rays`` on every pass. ``--tracer split``
+traces its own bucket build (with ``--debug-checks`` its invariants run on
+the host), and ``--tracer lane`` a treelet BVH over the split front
+(``bvh/treelet.py:build_treelet_auto``) with the per-ray treelet tracer (K5,
+wave driver) on every pass, the NEE passes included.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 from tpu_raytracing_torch.app.args import parse_cmd
-from tpu_raytracing_torch.bvh import bucket
+from tpu_raytracing_torch.bvh import bucket, lbvh
 from tpu_raytracing_torch.bvh.treelet import build_treelet_auto
+from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy
 from tpu_raytracing_torch.scene import camera as cam
 from tpu_raytracing_torch.scene import procedural
 from tpu_raytracing_torch.scene.types import scene_to_device
@@ -37,6 +41,7 @@ from tpu_raytracing_torch.trace.lane_trace import make_lane_tracer
 from tpu_raytracing_torch.trace.modes import BuildType
 from tpu_raytracing_torch.trace.pathtrace import path_trace
 from tpu_raytracing_torch.trace.split_trace import LEAFW, make_frame_tracers
+from tpu_raytracing_torch.trace.traverse import pack_bvh, pack_pairs, trace_rays
 from tpu_raytracing_torch.utils.png import write_png
 
 
@@ -58,7 +63,7 @@ def load_scene(args):
     raise SystemExit(f"unknown scene '{spec}'")
 
 
-PORTED_TRACERS = ("split", "lane")
+PORTED_TRACERS = ("scalar", "split", "lane")
 
 
 def _require_ported(args) -> None:
@@ -79,13 +84,31 @@ def orbit_camera(camera, scene, frame, num_frames):
     return cam.update_camera(camera)
 
 
-def build_trav(args, triangles):
+def build_accel(triangles, args):
+    """The frame-0 ``--type`` build and its hierarchy validation
+    (src/main.cu:248-259). Returns (BVH, TrianglePairs)."""
+    bvh, pairs = lbvh.build_lbvh(triangles, args.pairs)
+    stats = count_nodes(bvh)
+    print("Hierarchy stats")
+    print(f"  num nodes:      {stats.num_nodes}")
+    print(f"  num tree nodes: {stats.num_tree_nodes}")
+    print(f"  num leaf nodes: {stats.num_leaf_nodes}")
+    for e in verify_hierarchy(bvh):
+        print(f"Error: Invalid hierarchy; aabb inclusion check failed on index {e}",
+              file=sys.stderr)
+    return bvh, pairs
+
+
+def build_trav(args, triangles, bvh=None, pairs=None):
     """The traversal structure for ``args.tracer`` and the tracers that
-    serve it: (trav, packed, ``path_trace`` keyword arguments)."""
+    serve it: (trav, packed, ``path_trace`` keyword arguments). The scalar
+    tracer takes the frame-0 tree (``bvh``, ``pairs``)."""
+    if args.tracer == "scalar":
+        return pack_bvh(bvh), pack_pairs(pairs), dict(tracer=trace_rays)
     front = bucket.split_front(triangles, args.pairs)
     if args.tracer == "lane":
         tb, packed = build_treelet_auto(front)
-        print("Hierarchy stats")
+        print("Treelet BVH")
         print(f"  treelets:       {int(tb.num_treelets)} (capacity {tb.tables.shape[0]})")
         print(f"  leaf pairs:     {int(tb.num_leaves)}")
         # as the reference app: one closest-hit tracer serves every pass
@@ -93,7 +116,7 @@ def build_trav(args, triangles):
     views, packed, split = bucket.emit_split_views(front, leaf_width=LEAFW,
                                                    debug=args.debug_checks)
     bucket.check_split_capacity(split, triangles.shape[0])
-    print("Hierarchy stats")
+    print("Split BVH")
     print(f"  inner rows:     {int(split.num_inner)}")
     print(f"  leaf pairs:     {int(split.num_leaves)}")
     if args.debug_checks:
@@ -114,7 +137,8 @@ def main(argv=None):
     os.makedirs(args.output, exist_ok=True)
     triangles = torch.as_tensor(scene.triangles, device=device)
 
-    trav, packed, tracers = build_trav(args, triangles)
+    bvh, pairs = build_accel(triangles, args)
+    trav, packed, tracers = build_trav(args, triangles, bvh, pairs)
     generator = torch.Generator(device=device).manual_seed(0)
     for frame in range(args.frames):
         if args.orbit:

@@ -15,8 +15,10 @@ import numpy as np
 import torch
 
 from tpu_raytracing_torch.bvh.treelet import TreeletBVH
+from tpu_raytracing_torch.bvh.types import BVH
+from tpu_raytracing_torch.bvh.wide import FatWideBVH, WideBVH
 from tpu_raytracing_torch.scene.types import DeviceMaterials, DeviceScene, TexturePool
-from tpu_raytracing_torch.trace.traverse import PackedPairs
+from tpu_raytracing_torch.trace.traverse import PackedPairs, TraversalBVH
 
 
 def _t(a, device) -> torch.Tensor:
@@ -78,3 +80,33 @@ def treelet_from_numpy(fields: Mapping, device) -> TreeletBVH:
         pair_tid=_t(np.asarray(fields["pair_tid"], np.int32), device),
         leaf_width=int(fields["leaf_width"]),
     )
+
+
+def bvh_from_numpy(fields: Mapping, device) -> BVH:
+    """``tpu_raytracing.bvh.types.BVH`` as a mapping of numpy arrays
+    (``node_min``, ``node_max``, ``child``, ``count``, ``type``,
+    ``parent``, ``root``, ``root_count``) -> the port's ``BVH``."""
+    f32 = {"node_min", "node_max"}
+    return BVH(**{k: _t(np.asarray(fields[k], np.float32 if k in f32 else np.int32), device)
+                  for k in ("node_min", "node_max", "child", "count", "type", "parent",
+                            "root", "root_count")})
+
+
+def traversal_from_numpy(rows, root, root_count, device) -> TraversalBVH:
+    """``TraversalBVH`` (``pack_bvh``) fields -> the port's."""
+    return TraversalBVH(rows=_t(np.asarray(rows, np.int32), device),
+                        root=_t(np.asarray(root, np.int32), device),
+                        root_count=_t(np.asarray(root_count, np.int32), device))
+
+
+def wide_from_numpy(rows, num_nodes, device) -> WideBVH:
+    """``WideBVH`` (``build_wide``) fields -> the port's."""
+    return WideBVH(rows=_t(np.asarray(rows, np.int32), device),
+                   num_nodes=_t(np.asarray(num_nodes, np.int64), device))
+
+
+def fat_from_numpy(rows, num_nodes, device) -> FatWideBVH:
+    """``FatWideBVH`` (``build_wide_fat``) fields -> the port's; pad its
+    rows with ``ops/fat_traverse.pad_rows_256`` for K6."""
+    return FatWideBVH(rows=_t(np.asarray(rows, np.int32), device),
+                      num_nodes=_t(np.asarray(num_nodes, np.int64), device))

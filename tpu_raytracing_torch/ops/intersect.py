@@ -1,8 +1,9 @@
 """Ray-triangle test and triangle box helpers.
 
-Port of ``tpu_raytracing/ops/intersect.py`` (``triangle_aabb``,
-``aabb_surface_area``, ``intersect_ray_triangle``); the slab test lives in
-the traversal kernel and its plain version (``trace/split_trace.py``).
+Port of ``tpu_raytracing/ops/intersect.py`` (``intersect_ray_aabb``,
+``triangle_aabb``, ``aabb_surface_area``, ``intersect_ray_triangle``). The
+traversal kernels' plain versions write their own slab tests in their
+kernels' operation order.
 Cross and dot products are written out term by term, so every float
 operation happens in a stated order.
 """
@@ -25,6 +26,30 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a.x*b.x + a.y*b.y) + a.z*b.z over the trailing axis."""
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def safe_inverse(direction: torch.Tensor) -> torch.Tensor:
+    """1 / d with components |d| < 1e-30 replaced by +-1e-30 (-0.0 ->
+    +1e-30), so the slab test never forms 0 * inf = NaN."""
+    d = torch.where(direction.abs() < 1e-30, torch.where(direction < 0, -1e-30, 1e-30),
+                    direction)
+    return 1.0 / d
+
+
+def intersect_ray_aabb(box_min, box_max, origin, direction, tmin, tmax):
+    """Slab test (reference: src/Tracer.cu:187-200).
+
+    Returns (hit, front); ``front`` is the entry distance that orders near
+    children. The direction goes through ``safe_inverse``: torch's
+    min/max propagate NaN, where the reference CUDA's fminf ignores it.
+    """
+    inv = safe_inverse(direction)
+    t1 = (box_min - origin) * inv
+    t2 = (box_max - origin) * inv
+    front = torch.minimum(t1, t2).amax(dim=-1)
+    back = torch.maximum(t1, t2).amin(dim=-1)
+    hit = (back >= front) & (front <= tmax) & (back >= tmin)
+    return hit, front
 
 
 def intersect_ray_triangle(v0, v1, v2, origin, direction, tmin, tmax):

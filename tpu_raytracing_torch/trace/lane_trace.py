@@ -59,6 +59,7 @@ import torch
 
 from tpu_raytracing_torch.bvh.treelet import TreeletBVH
 from tpu_raytracing_torch.ops import _cuda_build
+from tpu_raytracing_torch.ops.intersect import safe_inverse
 from tpu_raytracing_torch.trace.ray import Rays
 from tpu_raytracing_torch.trace.split_trace import _map, _reconstruct
 from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, f2i, i2f
@@ -225,11 +226,13 @@ def _inner_visit(flat, base, col_stride, etid, o, inv, tmn, tbest):
 
 
 def trace_lane_plain(tables, rays8, state, root_tid: int, *, lw: int, any_hit: bool,
-                     budget: int = 0, no_switch: bool = False):
+                     budget: int = 0, no_switch: bool = False, visited=None):
     """K5's plain PyTorch version: every running ray advances one element
     per iteration, with table gathers indexed by (tid, row, col), and a
     bottom-first [R, stack] stack per ray. Returns (out [num_p, 8, 128] f32,
-    state_out [num_p, 5 + stack, 128] i32); see the module docstring."""
+    state_out [num_p, 5 + stack, 128] i32); see the module docstring. With
+    ``visited`` (a dict), also marks the ``inner`` and ``window`` columns
+    [T * ecap] (tid * ecap + col) that any ray read."""
     num_p, srows, _ = state.shape
     stack = srows - 5
     num = num_p * 128
@@ -238,8 +241,7 @@ def trace_lane_plain(tables, rays8, state, root_tid: int, *, lw: int, any_hit: b
     flat = tables.reshape(-1)
     r = _per_ray(rays8)
     o, d, tmn = r[:, 0:3], r[:, 3:6], r[:, 6]
-    safe = torch.where(d.abs() < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d)
-    inv = 1.0 / safe
+    inv = safe_inverse(d)
     s = _per_ray(state)
     cur = s[:, 0].clone()
     tbest = i2f(s[:, 1].clone())
@@ -257,6 +259,9 @@ def trace_lane_plain(tables, rays8, state, root_tid: int, *, lw: int, any_hit: b
     start_tid = cur >> 9
     res = start_tid.clone()
     limit = budget if budget > 0 else _MAX_ITERS
+    if visited is not None:
+        for key in ("inner", "window"):
+            visited[key] = torch.zeros((tables.shape[0] * ecap,), dtype=torch.bool, device=dev)
 
     while True:
         run = (cur != _NONE) & (iters < limit)
@@ -276,6 +281,10 @@ def trace_lane_plain(tables, rays8, state, root_tid: int, *, lw: int, any_hit: b
         k1 = torch.zeros_like(ids)
         pv = torch.zeros((ids.shape[0], 8), dtype=torch.int32, device=dev)
 
+        if visited is not None:
+            col_ids = etid.to(torch.int64) * ecap + col.to(torch.int64)
+            visited["window"][col_ids[typ == 2]] = True
+            visited["inner"][col_ids[typ == 1]] = True
         wsel = typ == 2
         if bool(wsel.any()):
             wi = ids[wsel]

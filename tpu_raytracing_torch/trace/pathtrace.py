@@ -48,6 +48,7 @@ from tpu_raytracing_torch.trace.render import (
     _shadow_rays_from,
 )
 from tpu_raytracing_torch.trace.split_trace import check_overflow
+from tpu_raytracing_torch.trace.traverse import trace_rays
 
 SKY_HORIZON = (1.0, 1.0, 1.0)
 SKY_ZENITH = (0.5, 0.7, 1.0)
@@ -220,16 +221,17 @@ def path_trace(
     int64 tensor).
 
     Tracers have the signature ``(trav, pairs, rays, active=None) ->
-    (HitRecord, TraceStats)``; ``shadow_tracer`` (any-hit, primary NEE),
-    ``bounce_tracer`` and ``shadow_tracer_bounce`` default to ``tracer``.
+    (HitRecord, TraceStats)``; ``tracer`` defaults to the scalar
+    ``trace_rays`` (``trav`` a ``TraversalBVH``), and ``shadow_tracer``
+    (any-hit, primary NEE), ``bounce_tracer`` and ``shadow_tracer_bounce``
+    default to ``tracer``.
     ``pair_loc`` is an optional [P] treelet id per sorted pair
     (``bvh/treelet.py:build_pair_tid``); ``sort_kind`` picks the bounce
     compaction key: ``"tid"`` (the default with ``pair_loc``), ``"leaf"``
     (the default without), ``"tid_cell"`` or ``"cell"``.
     """
     if tracer is None:
-        raise NotImplementedError(
-            "the scalar tracer (trace_rays) is not yet ported; pass a split or lane tracer")
+        tracer = trace_rays
     if sort_kind is None:
         sort_kind = "tid" if pair_loc is not None else "leaf"
     _check_sort_kind(sort_kind, pair_loc)

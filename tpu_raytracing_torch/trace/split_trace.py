@@ -5,9 +5,15 @@ Port of ``tpu_raytracing/trace/split_pallas.py`` (``_stack_cap``, ``LEAFW``,
 ``trace_rays_split_pallas`` -> ``trace_rays_split``,
 ``make_split_pallas_tracer`` -> ``make_split_tracer`` with ``sort_mode``
 None and ``"presorted"``) and of ``tpu_raytracing/trace/wide_fat.py:
-_reconstruct``. The Pallas kernels ``_kernel_v3`` and ``_kernel_v4`` compute
-one function; on the card one CUDA kernel, ``csrc/split_trace.cu``, serves
-both (closest-hit and any-hit instantiations).
+_reconstruct``. The Pallas kernels ``_kernel_v3``, ``_kernel_v4``,
+``_kernel_v5`` and ``_kernel`` (v2) compute one function and differ only in
+how they schedule DMAs and scalar work on the TPU; on the card one CUDA
+kernel, ``csrc/split_trace.cu``, serves all four (closest-hit and any-hit
+instantiations). ``kernel_v`` picks the reference's version as
+``split_pallas.py:1635-1818`` maps it (5, >= 4, 3, < 3; default 3, the
+reference's ``KERNEL_V``): every value launches that kernel on the card and
+its plain version on the CPU, and ``kernel_v < 3`` returns v2's statistics
+(below). The reference's ``TPURT_SPLIT_V`` variable is not read.
 
 ``split_traverse`` is the kernel's wrapper. Given CPU tensors it runs
 ``trace_split_plain``, the same per-ray algorithm vectorised over rays in
@@ -19,7 +25,10 @@ Statistics are per ray: ``box_tests = inner_pops * w`` and
 ``tri_tests = leaf_pops * 2 * leafw``. The TPU kernels count pops per packet
 of k rays and give every ray of the packet the packet's count, so each of
 their per-ray values is at least the largest per-ray value of the packet's
-rays. The tests never compare the two.
+rays. The tests never compare the two. With ``kernel_v < 3`` the statistics
+take v2's shape: ``box_tests[0]`` holds the launch's total pops (here the
+sum of every ray's inner and leaf pops, which is not comparable with the
+TPU's packet pops), every other entry is 0, and ``tri_tests`` is 0.
 
 The per-packet start tags (``packet_tags``) and ``raw`` output of the
 reference serve the binned and instanced tracers and wait with them: every
@@ -98,7 +107,7 @@ def _mt(a, b, c, o, d, tmn, t_cur):
 
 
 def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, leafw, any_hit,
-                 stack_cap, out):
+                 stack_cap, out, visited):
     """trace_split_plain on one chunk of rays; writes into ``out``."""
     dev = origin.device
     num, w = origin.shape[0], inner.shape[1]
@@ -124,6 +133,8 @@ def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, leafw, any_hit,
         ri = live[~is_leaf]
         if ri.numel():
             ipops[ri] += 1
+            if visited is not None:
+                visited["inner"][(tag[~is_leaf] >> 1).to(torch.int64)] = True
             ent = inner[(tag[~is_leaf] >> 1).to(torch.int64)]  # [Ri, w, 8]
             box = i2f(ent[..., :6])
             meta = ent[..., 6]
@@ -167,6 +178,8 @@ def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, leafw, any_hit,
             lpops[rl] += 1
             start = (tag[is_leaf] >> 1).to(torch.int64)
             win = pairs[start[:, None] + slots[None, :]]  # [Rl, leafw, 16]
+            if visited is not None:
+                visited["pairs"][start[:, None] + slots[None, :]] = True
             v = i2f(win[..., :12])
             v0 = (v[..., 0], v[..., 1], v[..., 2])
             v1 = (v[..., 3], v[..., 4], v[..., 5])
@@ -198,7 +211,7 @@ def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, leafw, any_hit,
 
 
 def trace_split_plain(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
-                      any_hit: bool, stack_cap: int):
+                      any_hit: bool, stack_cap: int, visited=None):
     """K1's plain PyTorch version: the kernel's per-ray algorithm,
     vectorised over rays. Each iteration pops one tag per live ray, runs the
     slab test on rays at inner rows and Möller-Trumbore on rays at leaf
@@ -206,8 +219,13 @@ def trace_split_plain(inner, pairs, origin, direction, tmin, tmax, *, leafw: int
     ``_PLAIN_CHUNK`` to bound memory.
 
     Returns (t f32 [R], tri i32 [R] (-1 = miss), inner_pops i32 [R],
-    leaf_pops i32 [R], overflow i32 [1]).
+    leaf_pops i32 [R], overflow i32 [1]). With ``visited`` (a dict), also
+    marks the ``inner`` rows [ICAP] and ``pairs`` rows [P_pad] that any ray
+    read.
     """
+    if visited is not None:
+        visited["inner"] = torch.zeros((inner.shape[0],), dtype=torch.bool, device=inner.device)
+        visited["pairs"] = torch.zeros((pairs.shape[0],), dtype=torch.bool, device=inner.device)
     num = origin.shape[0]
     dev = origin.device
     t = torch.empty((num,), dtype=torch.float32, device=dev)
@@ -219,7 +237,7 @@ def trace_split_plain(inner, pairs, origin, direction, tmin, tmax, *, leafw: int
         e = min(s + _PLAIN_CHUNK, num)
         _plain_chunk(inner, pairs, origin[s:e], direction[s:e], tmin[s:e], tmax[s:e],
                      leafw, any_hit, stack_cap,
-                     (t[s:e], tri[s:e], ipops[s:e], lpops[s:e], overflow))
+                     (t[s:e], tri[s:e], ipops[s:e], lpops[s:e], overflow), visited)
     return t, tri, ipops, lpops, overflow
 
 
@@ -297,8 +315,10 @@ def check_overflow(overflow: torch.Tensor) -> None:
     if int(overflow.sum()) != 0:
         raise RuntimeError(
             "traversal stack overflow: a split-BVH ray needed more than the stack "
-            "bound (trace/split_trace.py:_stack_cap) and was stopped, or a lane ray "
-            "was still unfinished after its recovery rounds (trace/lane_trace.py)")
+            "bound (trace/split_trace.py:_stack_cap), a scalar or fat wide-BVH ray more "
+            "than its stack (trace/traverse.py, ops/fat_traverse.py), and was stopped, or "
+            "a lane ray was still unfinished after its recovery rounds "
+            "(trace/lane_trace.py)")
 
 
 def _reconstruct(pairs: PackedPairs, rays: Rays, t_flat, tri_flat) -> HitRecord:
@@ -348,13 +368,23 @@ def kernel_operands(rays: Rays, active=None):
             tmin.contiguous(), tmax.contiguous())
 
 
+KERNEL_V = 3
+
+
 def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
-                     any_hit: bool = False):
+                     any_hit: bool = False, kernel_v: int = KERNEL_V, packet_tags=None,
+                     raw: bool = False):
     """Trace against a SplitBVH (views from bucket.emit_split_views with
     ``leaf_width=LEAFW``); see ``kernel_operands`` for dead rays and
     direction sanitising. Any-hit records carry ``rays.tmax`` as t.
+    ``kernel_v`` names the reference kernel (see the module docstring).
     Returns (HitRecord, TraceStats).
     """
+    if kernel_v < 3 and (packet_tags is not None or raw):
+        raise ValueError("packet_tags/raw need the v3 kernel (kernel_v >= 3)")
+    if packet_tags is not None or raw:
+        raise NotImplementedError("packet_tags and raw (the binned and instanced tracers' "
+                                  "inputs) are not yet ported")
     inner, pairs = views
     w = inner.shape[1]
     t, tri, ipops, lpops, overflow = split_traverse(
@@ -362,7 +392,13 @@ def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
         stack_cap=_stack_cap(w, pairs.shape[0]))
     if any_hit:
         t = rays.tmax
-    stats = TraceStats(box_tests=ipops * w, tri_tests=lpops * (2 * LEAFW), overflow=overflow)
+    if kernel_v < 3:
+        box = torch.zeros_like(ipops)
+        box[:1] = (ipops.sum() + lpops.sum()).to(torch.int32)
+        stats = TraceStats(box_tests=box, tri_tests=torch.zeros_like(lpops), overflow=overflow)
+    else:
+        stats = TraceStats(box_tests=ipops * w, tri_tests=lpops * (2 * LEAFW),
+                           overflow=overflow)
     return _reconstruct(packed, rays, t, tri), stats
 
 
@@ -374,13 +410,15 @@ def _map(fn, obj):
 
 
 def make_split_tracer(width: int, height: int, any_hit: bool = False,
-                      sort_mode: str = None):
+                      sort_mode: str = None, kernel_v: int = KERNEL_V):
     """Tracer ``(views, packed, rays, active=None) -> (HitRecord,
     TraceStats)`` over 16 x (K/16) screen tiles.
 
     sort_mode None tile-orders a row-major frame (edge-padded to the tile
     grid, pad rays dead, then cropped back); ``"presorted"`` feeds rays in
-    the caller's order. The reference's other sort modes wait.
+    the caller's order. The reference's other sort modes wait. With
+    ``kernel_v < 3`` the statistics are v2's (the module docstring), which
+    a tile order does not permute.
     """
     if sort_mode not in (None, "presorted"):
         raise NotImplementedError(f"split tracer sort_mode {sort_mode!r} is not yet ported")
@@ -388,7 +426,8 @@ def make_split_tracer(width: int, height: int, any_hit: bool = False,
 
     def tracer(views, packed, rays, active=None):
         if sort_mode == "presorted":
-            return trace_rays_split(views, packed, rays, active=active, any_hit=any_hit)
+            return trace_rays_split(views, packed, rays, active=active, any_hit=any_hit,
+                                    kernel_v=kernel_v)
         dev = rays.origin.device
         pw = -(-width // tw) * tw
         ph = -(-height // th) * th
@@ -400,12 +439,17 @@ def make_split_tracer(width: int, height: int, any_hit: bool = False,
                 pad_frame(active, width, height, pw, ph) & live)
         tiled = _map(lambda a: tile_reorder(a, pw, ph, tw, th), rays)
         act = None if active is None else tile_reorder(active, pw, ph, tw, th)
-        rec, stats = trace_rays_split(views, packed, tiled, active=act, any_hit=any_hit)
+        rec, stats = trace_rays_split(views, packed, tiled, active=act, any_hit=any_hit,
+                                      kernel_v=kernel_v)
         rec = _map(lambda a: tile_restore(a, pw, ph, tw, th), rec)
-        stats = _map(lambda a: tile_restore(a, pw, ph, tw, th), stats)
+        if kernel_v >= 3:
+            stats = _map(lambda a: tile_restore(a, pw, ph, tw, th), stats)
         if padded:
             rec = _map(lambda a: crop_frame(a, width, height, pw, ph), rec)
-            stats = _map(lambda a: crop_frame(a, width, height, pw, ph), stats)
+            if kernel_v >= 3:
+                stats = _map(lambda a: crop_frame(a, width, height, pw, ph), stats)
+            else:
+                stats = _map(lambda a: a[:width * height], stats)
         return rec, stats
 
     return tracer
@@ -413,7 +457,8 @@ def make_split_tracer(width: int, height: int, any_hit: bool = False,
 
 def make_frame_tracers(width: int, height: int) -> dict:
     """The four tracers of the path-traced frame, as ``bench.py:251-271``
-    sets them up (its TPU-only ``kernel_v``/``c_slots`` choices dropped):
+    sets them up, each with the default ``kernel_v`` (bench.py's
+    ``c_slots`` schedule TPU packets and have no counterpart here):
     tiled closest-hit and any-hit tracers for the coherent primary and
     primary-shadow passes, presorted ones for the bounce and bounce-shadow
     passes. Returns ``path_trace`` keyword arguments."""

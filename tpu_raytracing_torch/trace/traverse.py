@@ -1,27 +1,60 @@
-"""Packed pair rows, trace statistics and node meta-word layout.
+"""Wavefront BVH traversal (reference: TraceRay, src/Tracer.cu:308-374),
+packed node and pair rows, and trace statistics.
 
-Port of the parts of ``tpu_raytracing/trace/traverse.py`` that the split
-path uses: the ``_META_*`` constants, ``PackedPairs``, ``TraceStats`` and
-``pack_pairs``. The scalar wavefront tracer (``trace_rays``, ``pack_bvh``)
-waits for the binary builders.
+Port of ``tpu_raytracing/trace/traverse.py`` (the ``_META_*`` and entry
+constants, ``TraversalBVH``, ``PackedPairs``, ``TraceStats``, ``pack_bvh``,
+``pack_pairs``, ``trace_rays``). ``trace_rays`` is the scalar tracer, the
+reference-exact oracle: every ray pops one (index, count) stack entry per
+step, with near-child buffering and ties to the higher child id, triangle
+A then B, and per-ray box-test and triangle-test counts. Each step runs
+over the rays that still have work, not over all of them.
+
+The reference clamps a push past ``STACK_DEPTH`` onto the top slot without
+a word. Here such a ray sets ``TraceStats.overflow`` and stops, and
+``path_trace`` raises on the flag.
 
 Rows are int32 with float fields bit-cast in, exactly as in the
-reference, so pair rows compare bit for bit.
+reference, so node and pair rows compare bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
-from tpu_raytracing_torch.bvh.types import TrianglePairs
+from tpu_raytracing_torch.bvh.types import (
+    BVH,
+    CHILD_BOX,
+    CHILD_NONE,
+    CHILD_TRI,
+    STACK_DEPTH,
+    TrianglePairs,
+)
+from tpu_raytracing_torch.ops.intersect import intersect_ray_aabb, intersect_ray_triangle
+from tpu_raytracing_torch.trace.brute import HitRecord
+from tpu_raytracing_torch.trace.ray import Rays
+
+# Stack entries pack (index << 3) | count, as the reference's 29/3-bit Node
+# bitfields (src/Common.cuh:152-159).
+_ENTRY_SHIFT = 3
+_COUNT_MASK = 7
 
 # Node meta word: child << 5 | count << 2 | type.
 _META_TYPE_MASK = 3
 _META_COUNT_SHIFT = 2
 _META_COUNT_MASK = 7
 _META_CHILD_SHIFT = 5
+
+
+@dataclasses.dataclass
+class TraversalBVH:
+    """Packed traversal view: one 32-byte row per node slot."""
+
+    rows: torch.Tensor  # [N, 8] int32: min xyz, max xyz (bitcast f32), meta, pad
+    root: torch.Tensor  # [] int32
+    root_count: torch.Tensor  # [] int32
 
 
 @dataclasses.dataclass
@@ -33,7 +66,7 @@ class PackedPairs:
 class TraceStats:
     box_tests: torch.Tensor  # [R] int32
     tri_tests: torch.Tensor  # [R] int32
-    # [1] int32, nonzero when a ray's traversal stack overflowed: the split
+    # [1] int32, nonzero when a ray's traversal stack overflowed: the
     # traversal stops that ray, and trace/split_trace.py:check_overflow
     # raises on the host.
     overflow: torch.Tensor
@@ -64,3 +97,121 @@ def pack_pairs(pairs: TrianglePairs) -> PackedPairs:
         dim=1,
     )
     return PackedPairs(rows=rows)
+
+
+def pack_bvh(bvh: BVH) -> TraversalBVH:
+    meta = ((bvh.child.to(torch.int64) << _META_CHILD_SHIFT)
+            | (bvh.count.clamp(0, _META_COUNT_MASK).to(torch.int64) << _META_COUNT_SHIFT)
+            | bvh.type.clamp(0, _META_TYPE_MASK).to(torch.int64)).to(torch.int32)
+    rows = torch.cat([f2i(bvh.node_min), f2i(bvh.node_max), meta[:, None],
+                      torch.zeros_like(meta)[:, None]], dim=1)
+    return TraversalBVH(rows=rows, root=bvh.root, root_count=bvh.root_count)
+
+
+def trace_rays(trav: TraversalBVH, pairs: PackedPairs, rays: Rays, max_width: int = 2,
+               active=None) -> Tuple[HitRecord, TraceStats]:
+    """Closest-hit trace of a ray batch against the binary BVH.
+
+    ``max_width`` bounds a node group's child count (2 for binary trees);
+    ``active`` ([R] bool) starts dead rays with an empty stack.
+    """
+    dev = rays.origin.device
+    num = rays.origin.shape[0]
+    num_slots = trav.rows.shape[0]
+    num_pairs = pairs.rows.shape[0]
+    stack_depth = STACK_DEPTH
+    stack = torch.zeros((num, stack_depth), dtype=torch.int32, device=dev)
+    stack[:, 0] = (trav.root.to(torch.int32) << _ENTRY_SHIFT) | trav.root_count.to(torch.int32)
+    size = (torch.ones((num,), dtype=torch.int64, device=dev) if active is None
+            else active.to(torch.int64))
+    tmax = rays.tmax.clone()
+    hit = torch.zeros((num,), dtype=torch.bool, device=dev)
+    prim_id = torch.zeros((num,), dtype=torch.int32, device=dev)
+    tri_id = torch.zeros((num,), dtype=torch.int32, device=dev)
+    bary_u = torch.zeros((num,), dtype=torch.float32, device=dev)
+    bary_v = torch.zeros((num,), dtype=torch.float32, device=dev)
+    box_tests = torch.zeros((num,), dtype=torch.int32, device=dev)
+    tri_tests = torch.zeros((num,), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    while True:
+        r = torch.nonzero(size > 0).reshape(-1)
+        if r.numel() == 0:
+            break
+        sz = size[r] - 1
+        entry = stack[r, sz]
+        index = (entry >> _ENTRY_SHIFT).to(torch.int64)
+        count = entry & _COUNT_MASK
+        o, d, tmn = rays.origin[r], rays.direction[r], rays.tmin[r]
+        tm, ht, pid, tid = tmax[r], hit[r], prim_id[r], tri_id[r]
+        bu, bv, bt, tt = bary_u[r], bary_v[r], box_tests[r], tri_tests[r]
+        have_buf = torch.zeros_like(ht)
+        buf_entry = torch.zeros_like(entry)
+        buf_dist = torch.zeros_like(tm)
+        full = torch.zeros_like(ht)
+
+        def push(mask, value, sz):
+            nonlocal full
+            over = mask & (sz >= stack_depth)
+            full = full | over
+            ok = mask & ~over
+            stack[r[ok], sz[ok]] = value[ok]
+            return sz + mask.to(torch.int64)
+
+        for i in range(max_width):
+            slot = (index + i).clamp(0, num_slots - 1)
+            row = trav.rows[slot]
+            meta = row[:, 6]
+            child = meta >> _META_CHILD_SHIFT
+            ccount = (meta >> _META_COUNT_SHIFT) & _META_COUNT_MASK
+            ntype = meta & _META_TYPE_MASK
+            valid = (i < count) & (ntype != CHILD_NONE)
+            box_hit, dist = intersect_ray_aabb(i2f(row[:, 0:3]), i2f(row[:, 3:6]), o, d, tmn, tm)
+            bt = bt + valid.to(torch.int32)
+
+            # leaf: TrianglePair intersection (src/Tracer.cu:293-306)
+            do_leaf = valid & box_hit & (ntype == CHILD_TRI)
+            prow = pairs.rows[child.clamp(0, num_pairs - 1).to(torch.int64)]
+            v0, v1, v2, v3 = (i2f(prow[:, 3 * k:3 * k + 3]) for k in range(4))
+            tt = tt + do_leaf.to(torch.int32)
+            acc, t_a, u_a, v_a = intersect_ray_triangle(v0, v1, v2, o, d, tmn, tm)
+            take = do_leaf & acc
+            tm = torch.where(take, t_a, tm)
+            ht = ht | take
+            pid = torch.where(take, prow[:, 12], pid)
+            tid = torch.where(take, child << 1, tid)
+            bu = torch.where(take, u_a, bu)
+            bv = torch.where(take, v_a, bv)
+            # the second triangle is tested when node.count > 0
+            acc, t_b, u_b, v_b = intersect_ray_triangle(v2, v1, v3, o, d, tmn, tm)
+            take = do_leaf & (ccount > 0) & acc
+            tm = torch.where(take, t_b, tm)
+            ht = ht | take
+            pid = torch.where(take, prow[:, 13], pid)
+            tid = torch.where(take, (child << 1) + 1, tid)
+            bu = torch.where(take, u_b, bu)
+            bv = torch.where(take, v_b, bv)
+
+            # interior: near-child buffering (src/Tracer.cu:341-362)
+            do_box = valid & box_hit & (ntype == CHILD_BOX)
+            new_entry = (child << _ENTRY_SHIFT) | ccount
+            first = do_box & ~have_buf
+            buf_entry = torch.where(first, new_entry, buf_entry)
+            buf_dist = torch.where(first, dist, buf_dist)
+            second = do_box & have_buf
+            closer = (dist < buf_dist) | ((dist == buf_dist)
+                                          & (child > (buf_entry >> _ENTRY_SHIFT)))
+            sz = push(second, torch.where(closer, buf_entry, new_entry), sz)
+            buf_entry = torch.where(second & closer, new_entry, buf_entry)
+            buf_dist = torch.where(second & closer, dist, buf_dist)
+            have_buf = have_buf | do_box
+        sz = push(have_buf, buf_entry, sz)
+
+        size[r] = torch.where(full, 0, sz)
+        overflow |= full.any().to(torch.int32)
+        tmax[r], hit[r], prim_id[r], tri_id[r] = tm, ht, pid, tid
+        bary_u[r], bary_v[r], box_tests[r], tri_tests[r] = bu, bv, bt, tt
+
+    rec = HitRecord(hit=hit, t=tmax, prim_id=prim_id, tri_id=tri_id, bary_u=bary_u,
+                    bary_v=bary_v)
+    return rec, TraceStats(box_tests=box_tests, tri_tests=tri_tests, overflow=overflow)
