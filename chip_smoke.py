@@ -65,18 +65,41 @@ exits non-zero if any phase fails:
 10. ``kernel_v`` 5, 4 and 2 (the reference's K3, v4 and K4) on phase 3's
    bounce pass: each launches K1, with t and tri bit-equal to
    ``kernel_v=3``, and v2's statistics have v2's shape.
+11. The ``benchmarks/`` micro-probes (``tpu_raytracing_torch/benchmarks/``,
+   kernels ``csrc/micro_probe.cu`` and ``csrc/lane_probe.cu``): every
+   module's entry point at the reference's size (N = 200,000 loop
+   iterations, ITERS = 4,096 lane iterations; each probe the median of 5
+   runs with inputs varied per run, each in CUDA events queued behind a
+   spin kernel so that the wrapper's host work is left out), with the
+   launch counts set to 0 before and read after; every one of the 33
+   probes must launch, and the one-shot gathers, the
+   one shift and E2's chain must equal PyTorch's own calls
+   (``take_along_dim``; ITERS ``torch.matmul`` steps). Then each kernel
+   against its plain version at N = 4,096 / ITERS = 64, bit for bit on
+   every output (the final stacks and comp's tile included; the scalar
+   probes from seeded scratch and from interpret mode's NaN / INT32_MIN
+   fill); the plain versions timed there, the library calls at the
+   reference's size; the sanity orderings (dma1 > loop, pipe4 < dma1,
+   fetch2 >= fetch, V3 <= V2 per packet-iter) printed; and ``fetch`` timed
+   with the lanes on one column, on 128 conflict-free columns and on 128
+   columns 4 to a bank, beside how the reference's chains fall on the
+   banks.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
 must move (rays in, results out, each structure row it visits once) over
 3.35 TB/s, the H100 SXM's published peaks, counted from the 1M bounce
-pass's per-ray statistics. The last two lines of standard output are a
-JSON summary of the kernels and ``{"ok": true, "device": {...}}``.
+pass's per-ray statistics (for a probe: from its inputs, outputs and loop
+length at the reference's size, E2's bf16 products over the tensor cores'
+989 TFLOP/s; see each module's ``work``). The last two lines of standard
+output are a JSON summary of the kernels and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -88,6 +111,16 @@ import torch  # noqa: E402
 
 from tpu_raytracing_torch.app.args import parse_cmd  # noqa: E402
 from tpu_raytracing_torch.app.main import build_trav  # noqa: E402
+from tpu_raytracing_torch.benchmarks import (  # noqa: E402
+    _common,
+    _lane,
+    _micro,
+    micro_control,
+    micro_pallas,
+    probe_lane_machine,
+    probe_lane_machine2,
+    probe_lane_machine3,
+)
 from tpu_raytracing_torch.bvh import bucket, lbvh, treelet, wide  # noqa: E402
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
 from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
@@ -123,12 +156,20 @@ BRUTE_AGREE = 0.995
 MIN_PSNR = 40.0
 PLAIN_LIMIT_S = 120.0
 PASSES = ("primary", "primary shadow", "bounce", "bounce shadow")
+LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe"]
+PROBE_MODULES = (micro_pallas, micro_control, probe_lane_machine, probe_lane_machine2,
+                 probe_lane_machine3)
+PROBE_N_CHECK = 4096
+PROBE_ITERS_CHECK = 64
 # Published peaks of one H100 SXM: float32 outside the tensor cores, and
 # HBM3. Operations per slab test (6 sub, 6 mul, 10 min/max, 3 compares) and
 # per Möller-Trumbore test (12 sub/add and 14 mul of the edges and cross
 # products, 3 dot products of 5, 3 products by 1/det, 1 divide, 9 compares
-# and adds of the accept test), as the kernels compute them.
+# and adds of the accept test), as the kernels compute them. bf16 products
+# with float32 sums (the one probe that does them) bound at the tensor
+# cores' dense bf16 peak.
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 SLAB_OPS = 25
 MT_OPS = 61
@@ -189,10 +230,12 @@ class PassRecorder:
         return rec, stats
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of ``ops`` float32
-    operations at F32_OPS_PER_S and ``nbytes`` at HBM_BYTES_PER_S."""
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+def bound(ops: float, nbytes: float, bf16_ops: float = 0.0) -> dict:
+    """The least time the card could take: the largest of ``ops`` float32
+    operations at F32_OPS_PER_S, ``bf16_ops`` tensor-core operations at
+    BF16_OPS_PER_S (the two units run side by side) and ``nbytes`` at
+    HBM_BYTES_PER_S."""
+    ops_ms = max(ops / F32_OPS_PER_S, bf16_ops / BF16_OPS_PER_S) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
@@ -898,6 +941,153 @@ def split_versions(split: dict) -> dict:
     return launches
 
 
+def differing_words(a, b) -> int:
+    """Words of a and b that differ bit for bit (NaN against NaN counts as
+    equal: both sides carry interpret mode's NaN fill through)."""
+    if a.dtype.is_floating_point:
+        return int(((a.view(torch.int32) != b.view(torch.int32))
+                    & ~(torch.isnan(a) & torch.isnan(b))).sum())
+    return int((a != b).sum())
+
+
+def abs_err(a, b) -> float:
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    d = d[~torch.isnan(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def outputs(res) -> tuple:
+    return tuple(x for x in (res if isinstance(res, tuple) else (res,)) if x is not None)
+
+
+def check_probe(mod, kind: str, device, rows) -> dict:
+    """One probe's kernel against its plain version at the check size, bit
+    for bit on every output; returns max_abs_err, plain_ms and the kernel's
+    check-size outputs."""
+    if mod in (micro_pallas, micro_control):
+        seed = torch.tensor([7], dtype=torch.int32, device=device)
+        runs = (("seeded scratch", _micro.make_fill(7, device)),
+                ("interpret fill", _micro.interpret_fills(device)))
+        call = lambda fill, f: f(kind, rows, seed, PROBE_N_CHECK, fill)  # noqa: E731
+    else:
+        tab, idx = mod.inputs(kind, 3, device)
+        runs = (("seeded inputs", None),)
+        call = lambda fill, f: f(kind, tab, idx, PROBE_ITERS_CHECK)  # noqa: E731
+    worst, plain_ms, kout = 0.0, None, None
+    for label, fill in runs:
+        kout = outputs(call(fill, mod.probe))
+        ms, pout = event_ms(lambda: call(fill, mod.probe_plain), 1, warm=False)
+        plain_ms = ms if plain_ms is None else plain_ms
+        pout = outputs(pout)
+        bad = [differing_words(k, p) for k, p in zip(kout, pout)]
+        require(len(kout) == len(pout) and sum(bad) == 0,
+                f"{mod.__name__}.{kind} ({label}): kernel != plain on {bad} words")
+        worst = max([worst] + [abs_err(k, p) for k, p in zip(kout, pout)])
+    return dict(max_abs_err=worst, plain_ms=plain_ms, outputs=kout)
+
+
+def probe_library_ms(mod, kind: str, device, iters: int):
+    """PyTorch's own calls for the same function at the reference's size,
+    median of 5 runs: take_along_dim for the one-shot gathers and the one
+    shift (its kernels' device time, as the probes' kernels are timed); for
+    e2 the whole chain of ITERS torch.matmul and remainder steps in one
+    CUDA-event window. None where there is no such call."""
+    if not hasattr(mod, "library"):
+        return None
+    tab, idx = mod.inputs(kind, 0, device)
+    if mod.library(kind, tab, idx, 1) is None:
+        return None
+    runs = _common.time_runs(lambda t, i, n: mod.library(kind, t, i, n),
+                             _lane.arg_sets((tab, idx), iters), device, window=kind == "e2")
+    return statistics.median(runs)
+
+
+def lane_spread(device, card: str, iters: int) -> None:
+    """What bank conflicts cost a lane gather: ``fetch`` (96 rows gathered
+    per lane and iteration) with every lane on one column, on 128 distinct
+    conflict-free columns, and on 128 distinct columns 4 to a bank, each
+    checked against its plain version; and how the reference's own chains
+    fall on the banks (they converge onto a few columns)."""
+    tab, idx = probe_lane_machine2.inputs("fetch", 0, device)
+    tab3, idx3 = probe_lane_machine3.inputs("V2", 0, device)
+    for name, walk in (("fetch/full", _lane.pointer_walk(tab, idx[0], iters)),
+                       ("V0-V4", _lane.pointer_walk(tab3, idx3[0], iters, relative=True))):
+        cols, degree = _lane.bank_profile(walk)
+        print(f"  {name} on the reference's inputs: {cols!r} distinct columns per warp read, "
+              f"mean bank-conflict degree {degree!r}")
+    for spread in probe_lane_machine2.SPREADS:
+        tab, idx = probe_lane_machine2.spread_inputs(spread, 0, device)
+        kout, _ = probe_lane_machine2.probe("fetch", tab, idx, PROBE_ITERS_CHECK)
+        pout, _ = probe_lane_machine2.probe_plain("fetch", tab, idx, PROBE_ITERS_CHECK)
+        require(differing_words(kout, pout) == 0, f"fetch ({spread} lanes): kernel != plain")
+        cols, degree = _lane.bank_profile(_lane.pointer_walk(tab, idx[0], iters))
+        runs = _common.time_runs(lambda *a: probe_lane_machine2.probe("fetch", *a),
+                                 _lane.arg_sets((tab, idx), iters), device)
+        ms = statistics.median(runs)
+        print(f"  fetch, lanes {spread:<9}: {cols!r} columns per warp read, conflict degree "
+              f"{degree!r}: {ms * 1e6 / iters:.1f} ns/iter ({ms!r} ms, bit-equal)  [{card}]")
+
+
+def probe_phase(device, card: str) -> list:
+    """Phase 11: the micro-probes' entry points, then each kernel against
+    its plain version; returns the probes' entries of the kernels line."""
+    print("phase 11: the benchmarks/ micro-probes")
+    for mod in PROBE_MODULES:
+        for kind in mod.KINDS:
+            mod.launch_count[kind] = 0
+    timing = {mod: mod.main([]) for mod in PROBE_MODULES}
+    launches = {mod: dict(mod.launch_count) for mod in PROBE_MODULES}
+    for mod in PROBE_MODULES:
+        idle = [k for k, n in launches[mod].items() if n == 0]
+        require(not idle, f"{mod.__name__}: no launch of {idle} on the probes' path")
+        wrong = [k for k, res in timing[mod].items() if res["ok"] is False]
+        require(not wrong, f"{mod.__name__}: {wrong} differ from PyTorch's own calls")
+    iters_ref = int(timing[probe_lane_machine]["e1c"]["iters"])
+    rows = _micro.make_rows(device)
+    entries = []
+    print(f"  kernel vs plain at N = {PROBE_N_CHECK} / ITERS = {PROBE_ITERS_CHECK}, bit for bit; "
+          f"kernel ms at the reference's size  [{card}]")
+    for mod in PROBE_MODULES:
+        short = mod.__name__.rsplit(".", 1)[1]
+        for kind in mod.KINDS:
+            res = timing[mod][kind]
+            chk = check_probe(mod, kind, device, rows)
+            if mod in (micro_pallas, micro_control):
+                ops, nbytes = mod.work(kind, 1, res["iters"])
+                bf16_ops, lib_ms = 0.0, None
+            else:
+                tab, idx = mod.inputs(kind, 0, device)
+                outs = chk["outputs"]
+                lane_kind = "wide" if kind.startswith("wide") else kind
+                ops, bf16_ops, nbytes = _lane.work(
+                    lane_kind, tab, idx, outs[0].shape[0],
+                    outs[1].shape[0] if len(outs) > 1 else 0, iters_ref)
+                lib_ms = probe_library_ms(mod, kind, device, iters_ref)
+            b = bound(ops, nbytes, bf16_ops)
+            rate = (f"{res['ns_per_iter']:10.1f} ns/iter" if res["iters"] > 1
+                    else "  one shot     ")
+            print(f"  {short}.{kind:<8} {rate}  kernel "
+                  f"{res['ms']!r} ms, plain {chk['plain_ms']!r} ms (check size), bound "
+                  f"{b['bound_ms']!r} ms ({b['bound_by']}), library {lib_ms!r} ms, "
+                  f"launches {launches[mod][kind]}: bit-equal")
+            entries.append({
+                "name": f"{short}.{kind}", "route": "cuda", "source": mod.SOURCE,
+                "replaces": f"{mod.REFERENCE}:{mod.REPLACES[kind]}",
+                "launches": launches[mod][kind], "max_abs_err": chk["max_abs_err"],
+                "ms": res["ms"], "plain_ms": chk["plain_ms"], "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": lib_ms})
+    ns = {(mod, k): timing[mod][k]["ns_per_iter"] for mod in PROBE_MODULES for k in mod.KINDS}
+    for label, holds in (
+            ("dma1 > loop", ns[micro_pallas, "dma1"] > ns[micro_pallas, "loop"]),
+            ("pipe4 < dma1", ns[micro_pallas, "pipe4"] < ns[micro_pallas, "dma1"]),
+            ("fetch2 >= fetch", ns[probe_lane_machine2, "fetch2"] >= ns[probe_lane_machine2, "fetch"]),
+            ("V3 <= V2 per packet-iter",
+             ns[probe_lane_machine3, "V3"] <= ns[probe_lane_machine3, "V2"])):
+        print(f"  sanity ordering {label}: {'holds' if holds else 'DOES NOT HOLD'}")
+    lane_spread(device, card, iters_ref)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -914,8 +1104,8 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    _cuda_build.load_libraries(["split_trace", "lane_trace", "fat_traverse"])
-    print(f"phase 2: built split_trace.cu, lane_trace.cu and fat_traverse.cu in parallel in "
+    _cuda_build.load_libraries(LIBRARIES)
+    print(f"phase 2: built {', '.join(n + '.cu' for n in LIBRARIES)} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, (nvcc_s, log) in _cuda_build.BUILD_INFO.items():
         print(f"  {name}: nvcc {nvcc_s:.2f} s")
@@ -937,6 +1127,7 @@ def main() -> int:
     binary = binary_path(device, card, dev_scene, camera, triangles, split["img"])
     k6 = fat_checks(device, card, binary, triangles)
     versions = split_versions(split)
+    probes = probe_phase(device, card)
 
     def entry(name, source, replaces, launches, res):
         # no single PyTorch call traces rays through a BVH: library_ms is null
@@ -957,7 +1148,7 @@ def main() -> int:
               lane_launches, k5),
         entry("fat_traverse", "fat_traverse.cu", "tpu_raytracing/ops/pallas_traverse.py:71",
               binary["launches"], k6),
-    ]}))
+    ] + probes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 
