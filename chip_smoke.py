@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check, render.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --k1-only    # phases 1-4
 
 Drives ``tpu_raytracing_torch`` only (no JAX, no ``tpu_raytracing``) and
 exits non-zero if any phase fails:
@@ -9,9 +10,10 @@ exits non-zero if any phase fails:
 1. Device: requires CUDA; prints the card, the device count and
    ``nvidia-smi``'s name and power limit.
 2. Build: compiles ``csrc/split_trace.cu`` (K1), ``csrc/lane_trace.cu``
-   (K5) and ``csrc/fat_traverse.cu`` (K6) with nvcc, in parallel, into
-   ``tpu_raytracing_torch/build/`` and prints the ptxas register and spill
-   lines.
+   (K5), ``csrc/fat_traverse.cu`` (K6) and the probes'
+   ``csrc/micro_probe.cu`` and ``csrc/lane_probe.cu`` with nvcc, in
+   parallel, into ``tpu_raytracing_torch/build/`` and prints each
+   kernel's ptxas register and spill lines under its name.
 3. Split path: the frame ``bench.py`` times — ``terrain(1_000_000)``,
    aerial camera, per-frame split-BVH rebuild + capacity check,
    fixed-topology refit, the ``tid`` bounce sort from ``build_pair_tid``,
@@ -20,12 +22,18 @@ exits non-zero if any phase fails:
    after them; every frame must launch K1 at least 4 times, no ray may
    overflow its stack, and the image must be finite with a nonzero mean.
    Two frames with the ``leaf`` sort are timed after, for comparison.
-4. K1 against its plain PyTorch version on the card: hit, tri and per-ray
-   pop counts must agree on >= 99.99% of rays and t within rtol 1e-5, in
+4. K1 against its plain PyTorch version on the card, bit for bit: t, tri,
+   inner and leaf pops and the overflow flag must agree on every ray, in
    closest-hit and any-hit, on the sphere and soup(2000) fixtures (camera,
-   axis-aligned, random and half-dead ray sets) and on 65,536 live rays
-   sampled evenly from each of the 1M frame's four passes, each sample
-   with at least one hit. Then both are timed on the 1M bounce pass.
+   axis-aligned, random and half-dead ray sets), on 65,536 live rays
+   sampled evenly from each of the 1M frame's four passes (each sample with
+   at least one hit), and on the tie fixtures: every triangle of
+   terrain(32) and soup(2000) twice, pairs off and on, leaf widths 8, 40,
+   64 and 128, with rays of tmax = F32_MAX for the all-miss window. Then K1
+   is timed on each of the frame's four passes as the frame launches it,
+   held to the plain version on every ray of each, with each pass's bound
+   and mean pops per live ray; the plain version is timed on the bounce
+   pass. ``--k1-only`` stops here.
 5. Treelet build at 1M: ``build_treelet_auto`` on the phase-3 front (one
    warm build, 2 timed), its capacity check, and ``pair_tid`` equal to
    ``build_pair_tid`` on every pair.
@@ -98,11 +106,14 @@ output are a JSON summary of the kernels and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 T_PROCESS0 = time.perf_counter()
 
@@ -148,7 +159,6 @@ ITERS = 2
 SLICE = 65_536
 BRUTE_RAYS = 4096
 T_RTOL = 1e-5
-MIN_AGREE = 0.9999
 # Brute force tests each source triangle; the tracers test a pair's second
 # triangle as (v2, v1, v3), so a ray at an edge may hit or miss by float32
 # rounding, and neighbours sharing an edge tie on t.
@@ -156,6 +166,12 @@ BRUTE_AGREE = 0.995
 MIN_PSNR = 40.0
 PLAIN_LIMIT_S = 120.0
 PASSES = ("primary", "primary shadow", "bounce", "bounce shadow")
+# The bench frame's tracers (make_frame_tracers' keys) in PASSES' order,
+# each with its hit kind.
+FRAME_TRACERS = (("tracer", False), ("shadow_tracer", True), ("bounce_tracer", False),
+                 ("shadow_tracer_bounce", True))
+TIE_LEAF_WIDTHS = (8, 40, split_trace.LEAFW, 128)
+F32_MAX = float(torch.finfo(torch.float32).max)
 LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe"]
 PROBE_MODULES = (micro_pallas, micro_control, probe_lane_machine, probe_lane_machine2,
                  probe_lane_machine3)
@@ -173,6 +189,17 @@ BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 SLAB_OPS = 25
 MT_OPS = 61
+
+
+def demangled(log: str) -> str:
+    """ptxas' log with its kernel names demangled by the toolkit's
+    cu++filt (beside nvcc), or as it is where that fails."""
+    filt = Path(_cuda_build.nvcc_path()).with_name("cu++filt")
+    if not filt.is_file():
+        return log
+    proc = subprocess.run([str(filt)], input=log, capture_output=True, text=True, check=False,
+                          timeout=60)
+    return proc.stdout if proc.returncode == 0 and proc.stdout.strip() else log
 
 
 def require(cond: bool, msg: str) -> None:
@@ -365,37 +392,45 @@ def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
                 img=img, **out)
 
 
+def k1_mismatches(kout, pout) -> dict:
+    """Rays on which K1 and its plain version differ, per output (t bit for
+    bit), and whether their overflow flags differ."""
+    kt, ktri, kip, klp, kov = kout
+    pt, ptri, pip, plp, pov = pout
+    return {
+        "hit": int(((ktri >= 0) != (ptri >= 0)).sum()),
+        "tri": int((ktri != ptri).sum()),
+        "inner_pops": int((kip != pip).sum()),
+        "leaf_pops": int((klp != plp).sum()),
+        "t": int((kt.view(torch.int32) != pt.view(torch.int32)).sum()),
+        "overflow": int(int(kov) != int(pov)),
+    }
+
+
 class Agreement:
-    """Running K1-vs-plain comparison totals."""
+    """Running K1-vs-plain comparison totals: every check must agree on
+    every output of every ray."""
 
     def __init__(self):
         self.max_abs_err = 0.0
 
-    def check(self, label, views, rays, active, any_hit) -> int:
+    def check(self, label, views, rays, active, any_hit, leafw=split_trace.LEAFW) -> int:
         inner, pairs = views
         ops = split_trace.kernel_operands(rays, active)
-        kw = dict(leafw=split_trace.LEAFW, any_hit=any_hit,
+        kw = dict(leafw=leafw, any_hit=any_hit,
                   stack_cap=split_trace._stack_cap(inner.shape[1], pairs.shape[0]))
-        kt, ktri, kip, klp, kov = split_trace.split_traverse(inner, pairs, *ops, **kw)
-        pt, ptri, pip, plp, pov = split_trace.trace_split_plain(inner, pairs, *ops, **kw)
+        kout = split_trace.split_traverse(inner, pairs, *ops, **kw)
+        pout = split_trace.trace_split_plain(inner, pairs, *ops, **kw)
         torch.cuda.synchronize()
-        num = kt.shape[0]
-        bad = {
-            "hit": int(((ktri >= 0) != (ptri >= 0)).sum()),
-            "tri": int((ktri != ptri).sum()),
-            "inner_pops": int((kip != pip).sum()),
-            "leaf_pops": int((klp != plp).sum()),
-        }
-        err = (kt - pt).abs()
-        bad["t"] = int((err > T_RTOL * pt.abs()).sum())
-        self.max_abs_err = max(self.max_abs_err, float(err.max()) if num else 0.0)
-        hits = int((ktri >= 0).sum())
+        num = kout[0].shape[0]
+        bad = k1_mismatches(kout, pout)
+        if num:
+            self.max_abs_err = max(self.max_abs_err, float((kout[0] - pout[0]).abs().max()))
+        hits = int((kout[1] >= 0).sum())
         print(f"  {label:<34} any_hit={int(any_hit)} rays={num:>7} hits={hits:>7} "
-              f"mismatches={bad} overflow={int(kov)}/{int(pov)}")
-        for key, count in bad.items():
-            require(count <= (1.0 - MIN_AGREE) * num,
-                    f"{label}: K1 and plain disagree on {key} for {count} of {num} rays")
-        require(int(kov) == int(pov) == 0, f"{label}: stack overflow")
+              f"mismatches={bad} overflow={int(kout[4])}/{int(pout[4])}")
+        require(sum(bad.values()) == 0, f"{label}: K1 and plain disagree: {bad}")
+        require(int(kout[4]) == int(pout[4]) == 0, f"{label}: stack overflow")
         return hits
 
 
@@ -457,34 +492,94 @@ def event_ms(fn, reps, warm: bool = True):
     return start.elapsed_time(end) / reps, out
 
 
-def time_bounce_pass(views, rays: Rays, active, card: str) -> dict:
-    """K1 against the plain version on the 1M frame's bounce closest-hit
-    pass, timed with CUDA events (K1: mean of 5 launches after a warm-up;
-    plain: one run)."""
+def pass_operands(key: str, cap: Capture):
+    """K1's operands for one pass of the bench frame, in the order the
+    frame's tracer hands them over (16 x K/16 screen tiles for the primary
+    passes, the caller's sorted order for the bounce passes), and the live
+    mask in that order."""
+    rays, active = cap.rays, cap.active
+    if key in ("tracer", "shadow_tracer"):
+        tw, th = 16, split_trace.K // 16
+        rays = Rays(*(tile_reorder(getattr(rays, f), RES, RES, tw, th)
+                      for f in ("origin", "direction", "tmin", "tmax")))
+        active = None if active is None else tile_reorder(active, RES, RES, tw, th)
+    if active is None:
+        active = torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
+    return split_trace.kernel_operands(rays, active), active
+
+
+def time_passes(views, captured: dict, card: str) -> dict:
+    """K1 on each of the bench frame's four passes, as the frame launches
+    it: CUDA-event ms (mean of 5 launches after a warm one), bit-equal to
+    the plain version on every ray, the bound from the plain version's
+    counts and the mean inner and leaf pops per live ray. Then the plain
+    version is timed on the bounce pass (one run). Returns the bounce
+    pass's numbers, which stand for K1 in the kernels line."""
     inner, pairs = views
-    ops = split_trace.kernel_operands(rays, active)
-    kw = dict(leafw=split_trace.LEAFW, any_hit=False,
-              stack_cap=split_trace._stack_cap(inner.shape[1], pairs.shape[0]))
-    ms, kout = event_ms(lambda: split_trace.split_traverse(inner, pairs, *ops, **kw), 5)
-    plain_ms, pout = event_ms(lambda: split_trace.trace_split_plain(inner, pairs, *ops, **kw), 1)
-    tri_bad = int((kout[1] != pout[1]).sum())
-    print(f"  1M bounce pass: {ops[0].shape[0]} rays ({int(active.sum())} live); "
-          f"K1 {ms!r} ms, plain {plain_ms!r} ms, tri mismatches {tri_bad}  [{card}]")
-    require(tri_bad <= (1.0 - MIN_AGREE) * ops[0].shape[0], "1M bounce pass: K1 != plain")
-    # bound: every inner pop tests w boxes, every leaf pop 2 * LEAFW
-    # triangles; rays in (32 B), results out (16 B), each inner row (w * 32 B)
-    # and pair row (64 B) visited once
-    visited = {}
-    split_trace.trace_split_plain(inner, pairs, *ops, **kw, visited=visited)
-    num, w = ops[0].shape[0], inner.shape[1]
-    n_ops = (float(kout[2].sum()) * w * SLAB_OPS
-             + float(kout[3].sum()) * 2 * split_trace.LEAFW * MT_OPS)
-    nbytes = (num * (32 + 16) + int(visited["inner"].sum()) * w * 32
-              + int(visited["pairs"].sum()) * 64)
-    b = bound(n_ops, nbytes)
-    print(f"  K1 bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
-          f"{int(visited['inner'].sum())} inner rows, {int(visited['pairs'].sum())} pair rows)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+    w = inner.shape[1]
+    kw = dict(leafw=split_trace.LEAFW, stack_cap=split_trace._stack_cap(w, pairs.shape[0]))
+    out, total_ms = {}, 0.0
+    for (key, any_hit), name in zip(FRAME_TRACERS, PASSES):
+        ops, live = pass_operands(key, captured[key])
+        ms, kout = event_ms(
+            lambda: split_trace.split_traverse(inner, pairs, *ops, any_hit=any_hit, **kw), 5)
+        visited = {}
+        pout = split_trace.trace_split_plain(inner, pairs, *ops, any_hit=any_hit, **kw,
+                                             visited=visited)
+        bad = k1_mismatches(kout, pout)
+        require(sum(bad.values()) == 0 and int(kout[4]) == 0,
+                f"1M {name} pass: K1 and plain disagree ({bad}) or overflow {int(kout[4])}")
+        # bound: every inner pop tests w boxes, every leaf pop 2 * LEAFW
+        # triangles; rays in (32 B), results out (16 B), each inner row
+        # (w * 32 B) and pair row (64 B) visited once
+        num = ops[0].shape[0]
+        n_inner, n_pairs = int(visited["inner"].sum()), int(visited["pairs"].sum())
+        n_ops = (float(kout[2].sum()) * w * SLAB_OPS
+                 + float(kout[3].sum()) * 2 * split_trace.LEAFW * MT_OPS)
+        nbytes = num * (32 + 16) + n_inner * w * 32 + n_pairs * 64
+        b = bound(n_ops, nbytes)
+        ipops = float(kout[2][live].float().mean())
+        lpops = float(kout[3][live].float().mean())
+        total_ms += ms
+        print(f"  1M {name} pass: {num} rays ({int(live.sum())} live), any_hit={int(any_hit)}: "
+              f"K1 {ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, "
+              f"{nbytes} bytes: {n_inner} inner rows, {n_pairs} pair rows); pops per live ray "
+              f"inner {ipops!r} leaf {lpops!r}; bit-equal to plain  [{card}]")
+        out[name] = dict(ms=ms, **b)
+    print(f"  K1 on the four passes: {total_ms!r} ms a frame  [{card}]")
+    ops, _ = pass_operands("bounce_tracer", captured["bounce_tracer"])
+    plain_ms, _ = event_ms(
+        lambda: split_trace.trace_split_plain(inner, pairs, *ops, any_hit=False, **kw), 1,
+        warm=False)
+    print(f"  plain version on the 1M bounce pass: {plain_ms!r} ms  [{card}]")
+    return dict(plain_ms=plain_ms, **out["bounce"])
+
+
+def tie_fixtures(device, agree: Agreement, rng) -> None:
+    """K1 against its plain version where windows hold exact t ties: every
+    triangle of terrain(32) (one 64-pair window) and of soup(2000) twice,
+    pairs off and on, closest-hit and any-hit, at LEAFW and at the leaf
+    widths 8, 40 and 128 (lanes past the window, four slots a lane). The
+    "unbounded" rays have tmax = F32_MAX, so a window they enter and miss
+    still names its all-miss slot, 2 * leafw - 1."""
+    for name, base in (("terrain32x2", procedural.terrain(32)),
+                       ("soup2000x2", procedural.random_triangle_soup(2000, seed=1))):
+        scene = dataclasses.replace(base, triangles=np.repeat(base.triangles, 2, axis=0))
+        tris = torch.as_tensor(scene.triangles, device=device)
+        sets = fixture_rays(scene, device, rng)
+        rays = sets["random"][0]
+        sets["unbounded"] = (Rays(rays.origin, rays.direction, rays.tmin,
+                                  torch.full_like(rays.tmax, F32_MAX)), None)
+        for pairs in (False, True):
+            front = bucket.split_front(tris, pairs)
+            for leafw in TIE_LEAF_WIDTHS:
+                views, _, _ = bucket.emit_split_views(front, leaf_width=leafw)
+                for set_name, (rays, active) in sets.items():
+                    if leafw != split_trace.LEAFW and set_name not in ("random", "unbounded"):
+                        continue
+                    for any_hit in (False, True):
+                        agree.check(f"{name} pairs={int(pairs)} leafw={leafw} {set_name}",
+                                    views, rays, active, any_hit, leafw=leafw)
 
 
 def k1_checks(device, card: str, split: dict) -> dict:
@@ -503,14 +598,13 @@ def k1_checks(device, card: str, split: dict) -> dict:
                     agree.check(f"{name} pairs={int(pairs)} {set_name}", views, rays, active,
                                 any_hit)
     cap = split["captured"]
-    for key, any_hit in (("tracer", False), ("shadow_tracer", True),
-                         ("bounce_tracer", False), ("shadow_tracer_bounce", True)):
+    for key, any_hit in FRAME_TRACERS:
         rays, n_live = live_sample(cap[key].rays, cap[key].active)
         print(f"  terrain1M {key}: {rays.origin.shape[0]} of {n_live} live rays")
         hits = agree.check(f"terrain1M {key}", split["views"], rays, None, any_hit)
         require(hits > 0, f"terrain1M {key}: no ray of the sample hits, so it checks nothing")
-    timing = time_bounce_pass(split["views"], cap["bounce_tracer"].rays,
-                              cap["bounce_tracer"].active, card)
+    tie_fixtures(device, agree, rng)
+    timing = time_passes(split["views"], cap, card)
     print(f"  K1 launch count after the comparisons = {split_trace.launch_count} "
           f"(main path: {split['launches']})")
     return dict(max_abs_err=agree.max_abs_err, **timing)
@@ -1088,7 +1182,12 @@ def probe_phase(device, card: str) -> list:
     return entries
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    parser.add_argument("--k1-only", action="store_true",
+                        help="stop after phase 4 (build, bench frame, K1's checks and timings); "
+                             "prints no summary lines")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -1109,9 +1208,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     for name, (nvcc_s, log) in _cuda_build.BUILD_INFO.items():
         print(f"  {name}: nvcc {nvcc_s:.2f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("    " + line.strip())
+        for line in demangled(log).splitlines():
+            if "Compiling entry function" in line:
+                print("    " + line.split("'")[1][:110])
+            elif "registers" in line or "spill" in line:
+                print("      " + line.strip())
 
     scene = procedural.terrain(NUM_TRIS)
     dev_scene = scene_to_device(scene, device)
@@ -1119,6 +1220,9 @@ def main() -> int:
     triangles = torch.as_tensor(scene.triangles, device=device)
     split = split_path(device, card, scene, dev_scene, camera, triangles)
     k1 = k1_checks(device, card, split)
+    if args.k1_only:
+        print("chip_smoke: stopped after phase 4 (--k1-only)")
+        return 0
     treelet_build(card, split["front"])
     lane = lane_path(device, card, dev_scene, camera, triangles, split["img"])
     lane_launches = lane["launches"]

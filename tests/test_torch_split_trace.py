@@ -243,3 +243,74 @@ def test_wrapper_routes_by_device(sphere):
     meta = [x.to("meta") for x in (*views, *ops)]
     with pytest.raises(ValueError, match="unsupported device"):
         st.split_traverse(*meta, leafw=st.LEAFW, any_hit=False, stack_cap=64)
+
+
+def _tie_scene():
+    """terrain(32) with every triangle twice: the same vertices in the same
+    order, so the two copies tie exactly on t. Its 64 pair rows make one
+    64-pair leaf window under the root row."""
+    from tpu_raytracing.scene import procedural as jprocedural
+
+    scene = jprocedural.terrain(32)
+    return scene, np.repeat(scene.triangles, 2, axis=0)
+
+
+def test_plain_matches_pallas_on_exact_ties(pallas_sp):
+    """The window winner's tie rule against the Pallas v3 kernel: the
+    smallest t and, on an equal t, the larger 2 * slot + second (the later
+    copy), which the warp reduction of K1 reproduces. The scene is one leaf
+    window, so the TPU's packet order cannot matter. 96 camera rays hit
+    copies; 32 rays start on the box's top face, point up and have tmax =
+    F32_MAX, so they enter the window, miss every triangle and still take
+    its all-miss slot, 2 * LEAFW - 1, as the reference does. The copies do
+    not pair, so pairs on builds the tree that pairs off would. One packet
+    needs one of the kernel's slots (``c_slots=1`` keeps interpret mode
+    short)."""
+    scene, tris = _tie_scene()
+    fn = jax.jit(lambda t: jbucket.emit_split_views(
+        jbucket.split_front(t, enable_pairs=True), leaf_width=st.LEAFW))
+    jviews, jpacked, _ = fn(jnp.asarray(tris))
+    front = tbucket.split_front(torch.from_numpy(tris), True)
+    views, packed, split = tbucket.emit_split_views(front, leaf_width=st.LEAFW)
+    assert int(split.num_inner) == 1 and packed.rows.shape[0] == st.LEAFW
+    o, d, lo, hi = _camera_rays(scene, 16, 6)
+    rng = np.random.default_rng(5)
+    bmin, bmax = scene.aabb_min, scene.aabb_max
+    up_o = np.stack([rng.uniform(bmin[0], bmax[0], 32), np.full(32, bmax[1]),
+                     rng.uniform(bmin[2], bmax[2], 32)], 1)
+    up_d = np.tile([0.0, 1.0, 0.0], (32, 1)) + rng.normal(scale=0.05, size=(32, 3))
+    up_d /= np.linalg.norm(up_d, axis=1, keepdims=True)
+    f32_max = np.finfo(np.float32).max
+    o, d = (np.concatenate(a).astype(np.float32) for a in ((o, up_o), (d, up_d)))
+    lo = np.concatenate([lo, np.zeros(32)]).astype(np.float32)
+    hi = np.concatenate([hi, np.full(32, f32_max)]).astype(np.float32)
+    jr, tr = _both(o, d, lo, hi)
+    for any_hit in (False, True):
+        ref, _ = pallas_sp.trace_rays_split_pallas(jviews, jpacked, jr, any_hit=any_hit,
+                                                   c_slots=1)
+        rec, _ = st.trace_rays_split(views, packed, tr, any_hit=any_hit)
+        ref_tri = np.asarray(ref.tri_id)
+        np.testing.assert_array_equal(rec.hit.numpy(), np.asarray(ref.hit))
+        np.testing.assert_array_equal(rec.tri_id.numpy(), ref_tri)
+        # XLA's CPU compiler contracts Möller-Trumbore differently: t only
+        # agrees to a few ulps here (bit for bit on the card, K1 to plain)
+        np.testing.assert_allclose(rec.t.numpy(), np.asarray(ref.t), rtol=1e-5)
+        # every camera hit lands on a copy and ties with it: the later copy
+        # (an odd pair row) wins
+        cam_hit = np.asarray(ref.hit)[:96]
+        assert cam_hit.sum() > 16
+        assert (ref_tri[:96][cam_hit] >> 1 & 1 == 1).all()
+        assert (ref_tri[96:] == 2 * st.LEAFW - 1).all()
+
+
+@pytest.mark.parametrize("leafw", [0, -1, st.MAX_LEAFW + 1, 256])
+def test_check_operands_refuses_leafw(sphere, leafw):
+    """The kernel takes 1 <= leafw <= 128 (four pair slots a lane); the
+    wrapper refuses any other width before a launch."""
+    views, _ = _port_tree(sphere, True)
+    ops = st.kernel_operands(_both(*_camera_rays(sphere, 16, 8))[1])
+    stack_cap = st._stack_cap(views[0].shape[1], views[1].shape[0])
+    for ok in (1, st.LEAFW, st.MAX_LEAFW):
+        st._check_operands(*views, *ops, ok, stack_cap)
+    with pytest.raises(ValueError, match="leafw"):
+        st._check_operands(*views, *ops, leafw, stack_cap)

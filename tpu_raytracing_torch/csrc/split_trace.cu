@@ -1,9 +1,11 @@
-// K1: split-BVH traversal, one thread per ray, for Hopper (sm_90a).
+// K1: split-BVH traversal for Hopper (sm_90a), with leaf windows tested by
+// the whole warp.
 //
 // Replaces the TPU kernels tpu_raytracing/trace/split_pallas.py:_kernel_v3
-// (line 143) and _kernel_v4 (line 541). Both compute one function and differ
-// only in how they schedule DMAs and scalar work on the TPU; this kernel
-// serves both, in a closest-hit and an any-hit instantiation.
+// (line 143) and _kernel_v4 (line 541), and through kernel_v also _kernel_v5
+// (line 898) and _kernel (v2, line 1250). They compute one function and
+// differ only in how they schedule DMAs and scalar work on the TPU; this
+// kernel serves them all, in a closest-hit and an any-hit instantiation.
 //
 // What it computes (per ray, rays in the order given):
 //   * depth-first traversal of SplitBVH inner rows from the root (row 0);
@@ -15,30 +17,56 @@
 //     children are pushed in slot order except the nearest, which is pushed
 //     last so it pops first; the higher entry id wins a distance tie.
 //   * leaf: Möller-Trumbore on triangles A = (v0, v1, v2) and B = (v2, v1, v3)
-//     of every pair in the window; B beats A, a later slot an earlier one and
-//     a later window an earlier one on an exact t tie. The hit id is
+//     of every pair in the window. The window's winner has the smallest t
+//     and, on an equal t, the larger enc = 2 * slot + second (all-miss:
+//     F32_MAX and enc 2 * leafw - 1); it is taken when t <= t_cur, so a
+//     later window wins an exact tie with an earlier one. The hit id is
 //     pair * 2 + second.
-//   * any-hit stops at the first accepted hit.
+//   * any-hit stops at the first window whose winner is taken; the winner
+//     is still that window's closest triangle.
 //   * a push beyond stack_cap sets *overflow and stops that ray: nodes are
 //     never dropped silently; the host checks the flag once per frame.
 //
-// What bounds it: each pop is a dependent global load — a 256-byte inner
-// row, or a window of leafw 64-byte pair rows — whose address comes from
-// the previous pop. The kernel is latency bound on those loads, with the
-// slab and Möller-Trumbore arithmetic second.
+// What bounds it: a leaf pop tests 2 * leafw = 128 triangles (~61
+// operations each), an inner pop 8 boxes (~25 each), so leaf windows carry
+// nearly all the arithmetic; every pop is a dependent load (a 256-byte
+// inner row, or a 4 KB window of 64-byte pair rows) whose address comes
+// from the previous pop. One thread per ray ran a window's 64 pairs in a
+// serial loop while the lanes of its warp at inner rows, or done, waited:
+// a warp where a few lanes popped a leaf ran all 64 iterations, and each
+// lane read its own window 16 bytes at a time.
 //
-// How the simple design stands to that: one thread per ray with a private
-// stack in local memory (the reference CUDA tracer's shape, src/Tracer.cu:
-// 308-374) keeps every ray's traversal exact and independent. Latency is
-// hidden only by occupancy — many resident warps — and by the read-only
-// cache; the callers hand in coherent orders (screen tiles for primary
-// rays, a hit-leaf sort for bounce rays) so the threads of a warp tend to
-// load the same rows. There is no wgmma, TMA or shared-memory staging yet.
+// What the design does about it (the while-while loop of Aila & Laine,
+// "Understanding the Efficiency of Ray Traversal on GPUs", HPG 2009): every
+// ray keeps its own stack and traversal order, but the warp shares the
+// leaf work. Each round,
+//   1. every lane pops and tests inner rows on its own until the top of its
+//      stack is a leaf tag or its stack is empty;
+//   2. __ballot_sync collects the lanes holding a leaf tag and
+//      __match_any_sync groups those that popped the same window. For each
+//      distinct window, lane l loads pair rows l, l + 32, ... once (a
+//      coalesced load, from L2 for the 1M tree); then for each ray of the
+//      group the ray is broadcast with __shfl_sync, every lane runs
+//      Möller-Trumbore on its slots, and a 5-step __shfl_xor_sync
+//      reduction finds the window's winner, which the ray's own lane takes.
+// So a window's 128 tests run on 32 lanes instead of one, whatever the
+// other lanes are doing. All 32 lanes stay in the loop until the whole warp
+// is done (rays past num_rays, finished any-hit rays and overflowed rays
+// keep serving the others), and every warp intrinsic runs with the full
+// mask on a converged warp.
+//
+// Why no TMA or shared-memory staging: the micro-probes on the H100
+// (tpu_raytracing_torch/benchmarks/, PERF.md) price a window staged by a TMA bulk copy on an mbarrier at ~315 ns a pop
+// and ~118 ns with four in flight, slower than plain coalesced loads that
+// hit L2 (the 1M tree fits in the 50 MB L2); and a CTA-wide decision costs
+// 40-77 ns where a warp vote costs almost nothing. So the design stays
+// inside the warp, with no __syncthreads.
 //
 // Bit-exactness: compiled with -fmad=false and without fast math, and every
 // expression keeps the order of the plain PyTorch version
-// (tpu_raytracing_torch/trace/split_trace.py:trace_split_plain), so the two
-// agree bit for bit.
+// (tpu_raytracing_torch/trace/split_trace.py:trace_split_plain). Per ray it
+// is the same arithmetic on the same values, and the reduction's key order
+// is the plain version's, so the two agree bit for bit on every output.
 
 #include <cuda_runtime.h>
 
@@ -47,6 +75,9 @@ namespace {
 constexpr int kWidth = 8;  // entries per inner row: the width the tracer's build emits
 constexpr int kMaxStack = 256;
 constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kMaxSlots = 4;  // pair slots per lane: leafw <= 128
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kF32Max = 3.402823466e+38f;
 constexpr float kTriEps = 1e-9f;
 
@@ -79,7 +110,51 @@ __device__ __forceinline__ float moller_trumbore(
   return acc ? tt : kF32Max;
 }
 
-template <bool ANY_HIT>
+// One lane's pair rows of a window: vertices v0..v3 of slots lane + 32 k.
+template <int SLOTS>
+struct Window {
+  float v[SLOTS][12];
+};
+
+// Tests window ``w`` (pairs from slot 0) against ray ``r`` with limit
+// ``t_cur`` on every lane and returns, on every lane, the window's winner:
+// the smallest t and, on an equal t, the larger enc = 2 * slot + second.
+// Slots past leafw take no part (t F32_MAX, enc -1).
+template <int SLOTS>
+__device__ __forceinline__ void window_winner(const Window<SLOTS>& w, const Ray& r, float t_cur,
+                                              int lane, int leafw, float& tm, int& wenc) {
+  tm = kF32Max;
+  wenc = -1;
+#pragma unroll
+  for (int k = 0; k < SLOTS; ++k) {
+    const int slot = lane + kWarp * k;
+    if (slot < leafw) {
+      const float* v = w.v[k];
+      const float ca = moller_trumbore(r, t_cur, v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
+                                       v[8]);
+      const float cb = moller_trumbore(r, t_cur, v[6], v[7], v[8], v[3], v[4], v[5], v[9], v[10],
+                                       v[11]);
+      const float c = fminf(ca, cb);
+      const int enc = 2 * slot + (cb <= ca ? 1 : 0);
+      // a lane's slots rise in enc: a later one wins an equal t
+      if (c <= tm) {
+        tm = c;
+        wenc = enc;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(kFull, tm, off);
+    const int oe = __shfl_xor_sync(kFull, wenc, off);
+    if (ot < tm || (ot == tm && oe > wenc)) {
+      tm = ot;
+      wenc = oe;
+    }
+  }
+}
+
+template <bool ANY_HIT, int SLOTS>
 __global__ void __launch_bounds__(kThreads)
 split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pairs,
                    const float* __restrict__ origin, const float* __restrict__ dir,
@@ -88,30 +163,37 @@ split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pair
                    int* __restrict__ ipops_out, int* __restrict__ lpops_out,
                    int* __restrict__ overflow, int num_rays, int leafw, int stack_cap) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= num_rays) return;
-  Ray r;
-  r.ox = origin[3 * ray + 0];
-  r.oy = origin[3 * ray + 1];
-  r.oz = origin[3 * ray + 2];
-  r.dx = dir[3 * ray + 0];
-  r.dy = dir[3 * ray + 1];
-  r.dz = dir[3 * ray + 2];
-  r.tmin = tmin[ray];
+  const int lane = threadIdx.x % kWarp;
+  const bool live = ray < num_rays;  // a lane past num_rays only serves the warp
+  Ray r{0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f};
+  float t_cur = 0.0f;
+  if (live) {
+    r.ox = origin[3 * ray + 0];
+    r.oy = origin[3 * ray + 1];
+    r.oz = origin[3 * ray + 2];
+    r.dx = dir[3 * ray + 0];
+    r.dy = dir[3 * ray + 1];
+    r.dz = dir[3 * ray + 2];
+    r.tmin = tmin[ray];
+    t_cur = tmax[ray];
+  }
   const float invx = 1.0f / r.dx, invy = 1.0f / r.dy, invz = 1.0f / r.dz;
-  float t_cur = tmax[ray];
   int tri = -1, ipops = 0, lpops = 0;
 
   int stack[kMaxStack];
   int sp = 0;
-  stack[sp++] = 0;  // root: inner row 0
-  while (sp > 0) {
-    const int tag = stack[--sp];
-    if ((tag & 1) == 0) {
+  if (live) stack[sp++] = 0;  // root: inner row 0
+  while (__any_sync(kFull, sp > 0)) {
+    // 1. inner rows, each lane on its own, until a leaf tag tops its stack
+    while (sp > 0) {
+      const int tag = stack[sp - 1];
+      if (tag & 1) break;
+      --sp;
       ++ipops;
       const int4* row = inner + static_cast<size_t>(tag >> 1) * (2 * kWidth);
       int ctag[kWidth];
       bool ok[kWidth];
-      int nearest = -1;
+      int nearest = -1, pushes = 0;
       float best = 0.0f;
 #pragma unroll
       for (int e = 0; e < kWidth; ++e) {
@@ -129,79 +211,130 @@ split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pair
         const float back = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
         ok[e] = (ntype != 0) && (back >= front) && (front <= t_cur) && (back >= r.tmin);
         ctag[e] = ((meta >> 5) << 1) | (ntype == 2 ? 1 : 0);
+        pushes += ok[e] ? 1 : 0;
         const float dist = fmaxf(front, 0.0f);
         if (ok[e] && (nearest < 0 || dist <= best)) {
           best = dist;
           nearest = e;
         }
       }
+      if (sp + pushes > stack_cap) {  // a push would overflow: stop the ray
+        atomicOr(overflow, 1);
+        sp = 0;
+        break;
+      }
 #pragma unroll
       for (int e = 0; e < kWidth; ++e) {
-        if (ok[e] && e != nearest) {
-          if (sp >= stack_cap) {
-            atomicOr(overflow, 1);
-            goto done;
-          }
-          stack[sp++] = ctag[e];
-        }
+        if (ok[e] && e != nearest) stack[sp++] = ctag[e];
       }
       if (nearest >= 0) {
-        if (sp >= stack_cap) {
-          atomicOr(overflow, 1);
-          goto done;
-        }
         int near_tag = ctag[0];
 #pragma unroll
         for (int e = 1; e < kWidth; ++e) near_tag = (e == nearest) ? ctag[e] : near_tag;
         stack[sp++] = near_tag;
       }
-    } else {
+    }
+
+    // 2. leaf windows, the whole warp on each
+    const bool at_leaf = sp > 0;
+    int start = -1;
+    if (at_leaf) {
+      start = stack[--sp] >> 1;
       ++lpops;
-      const int start = tag >> 1;
-      float tm = kF32Max;
-      int wenc = -1;
-      for (int j = 0; j < leafw; ++j) {
-        const int4* p = pairs + static_cast<size_t>(start + j) * 4;
-        const int4 q0 = __ldg(p), q1 = __ldg(p + 1), q2 = __ldg(p + 2);
-        const float v0x = __int_as_float(q0.x), v0y = __int_as_float(q0.y), v0z = __int_as_float(q0.z);
-        const float v1x = __int_as_float(q0.w), v1y = __int_as_float(q1.x), v1z = __int_as_float(q1.y);
-        const float v2x = __int_as_float(q1.z), v2y = __int_as_float(q1.w), v2z = __int_as_float(q2.x);
-        const float v3x = __int_as_float(q2.y), v3y = __int_as_float(q2.z), v3z = __int_as_float(q2.w);
-        const float ca = moller_trumbore(r, t_cur, v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z);
-        const float cb = moller_trumbore(r, t_cur, v2x, v2y, v2z, v1x, v1y, v1z, v3x, v3y, v3z);
-        const float c = fminf(ca, cb);
-        const int enc = 2 * j + (cb <= ca ? 1 : 0);
-        if (c <= tm) {
-          tm = c;
-          wenc = enc;
+    }
+    unsigned pending = __ballot_sync(kFull, at_leaf);
+    const unsigned same = __match_any_sync(kFull, start);
+    while (pending) {
+      const int leader = __ffs(pending) - 1;
+      unsigned group = __shfl_sync(kFull, same, leader);
+      const int wstart = __shfl_sync(kFull, start, leader);
+      pending &= ~group;
+      Window<SLOTS> w;
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k) {
+        const int slot = lane + kWarp * k;
+        int4 q0 = make_int4(0, 0, 0, 0), q1 = q0, q2 = q0;
+        if (slot < leafw) {
+          const int4* p = pairs + static_cast<size_t>(wstart + slot) * 4;
+          q0 = __ldg(p);
+          q1 = __ldg(p + 1);
+          q2 = __ldg(p + 2);
         }
+        const int q[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
+                           q2.x, q2.y, q2.z, q2.w};
+#pragma unroll
+        for (int i = 0; i < 12; ++i) w.v[k][i] = __int_as_float(q[i]);
       }
-      if (tm <= t_cur) {
-        tri = start * 2 + wenc;
-        if (ANY_HIT) break;
-        t_cur = tm;
+      while (group) {
+        const int src = __ffs(group) - 1;
+        group &= group - 1;
+        Ray g;
+        g.ox = __shfl_sync(kFull, r.ox, src);
+        g.oy = __shfl_sync(kFull, r.oy, src);
+        g.oz = __shfl_sync(kFull, r.oz, src);
+        g.dx = __shfl_sync(kFull, r.dx, src);
+        g.dy = __shfl_sync(kFull, r.dy, src);
+        g.dz = __shfl_sync(kFull, r.dz, src);
+        g.tmin = __shfl_sync(kFull, r.tmin, src);
+        const float g_t = __shfl_sync(kFull, t_cur, src);
+        float tm;
+        int wenc;
+        window_winner<SLOTS>(w, g, g_t, lane, leafw, tm, wenc);
+        if (lane == src && tm <= t_cur) {
+          tri = wstart * 2 + wenc;
+          if (ANY_HIT) {
+            sp = 0;
+          } else {
+            t_cur = tm;
+          }
+        }
       }
     }
   }
-done:
-  t_out[ray] = t_cur;
-  tri_out[ray] = tri;
-  ipops_out[ray] = ipops;
-  lpops_out[ray] = lpops;
+  if (live) {
+    t_out[ray] = t_cur;
+    tri_out[ray] = tri;
+    ipops_out[ray] = ipops;
+    lpops_out[ray] = lpops;
+  }
 }
 
-template <bool ANY_HIT>
+template <bool ANY_HIT, int SLOTS>
 void launch(const void* inner, const void* pairs, const void* origin, const void* dir,
             const void* tmin, const void* tmax, void* t_out, void* tri_out, void* ipops,
             void* lpops, void* overflow, int num_rays, int leafw, int stack_cap,
             cudaStream_t stream) {
   const int blocks = (num_rays + kThreads - 1) / kThreads;
-  split_trace_kernel<ANY_HIT><<<blocks, kThreads, 0, stream>>>(
+  split_trace_kernel<ANY_HIT, SLOTS><<<blocks, kThreads, 0, stream>>>(
       static_cast<const int4*>(inner), static_cast<const int4*>(pairs),
       static_cast<const float*>(origin), static_cast<const float*>(dir),
       static_cast<const float*>(tmin), static_cast<const float*>(tmax),
       static_cast<float*>(t_out), static_cast<int*>(tri_out), static_cast<int*>(ipops),
       static_cast<int*>(lpops), static_cast<int*>(overflow), num_rays, leafw, stack_cap);
+}
+
+template <bool ANY_HIT>
+void launch_slots(const void* inner, const void* pairs, const void* origin, const void* dir,
+                  const void* tmin, const void* tmax, void* t_out, void* tri_out, void* ipops,
+                  void* lpops, void* overflow, int num_rays, int leafw, int stack_cap,
+                  cudaStream_t s) {
+  switch ((leafw + kWarp - 1) / kWarp) {
+    case 1:
+      launch<ANY_HIT, 1>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                         overflow, num_rays, leafw, stack_cap, s);
+      break;
+    case 2:
+      launch<ANY_HIT, 2>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                         overflow, num_rays, leafw, stack_cap, s);
+      break;
+    case 3:
+      launch<ANY_HIT, 3>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                         overflow, num_rays, leafw, stack_cap, s);
+      break;
+    default:
+      launch<ANY_HIT, kMaxSlots>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops,
+                                 lpops, overflow, num_rays, leafw, stack_cap, s);
+  }
 }
 
 }  // namespace
@@ -214,14 +347,15 @@ extern "C" int split_trace_launch(const void* inner, const void* pairs, const vo
                                   void* overflow, int num_rays, int width, int leafw,
                                   int any_hit, int stack_cap, void* stream) {
   if (num_rays <= 0) return 0;
-  if (width != kWidth || leafw <= 0 || stack_cap <= 0 || stack_cap > kMaxStack)
+  if (width != kWidth || leafw < 1 || leafw > kMaxSlots * kWarp || stack_cap <= 0 ||
+      stack_cap > kMaxStack)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit)
-    launch<true>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops, overflow,
-                 num_rays, leafw, stack_cap, s);
+    launch_slots<true>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                       overflow, num_rays, leafw, stack_cap, s);
   else
-    launch<false>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops, overflow,
-                  num_rays, leafw, stack_cap, s);
+    launch_slots<false>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                        overflow, num_rays, leafw, stack_cap, s);
   return static_cast<int>(cudaGetLastError());
 }

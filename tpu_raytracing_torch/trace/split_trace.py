@@ -61,6 +61,8 @@ from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, i2f
 K = 256
 # Pairs per leaf window; emit_split_views(leaf_width=...) must match.
 LEAFW = 64
+# The widest window the kernel takes: four pair slots per lane of a warp.
+MAX_LEAFW = 128
 _F32_MAX = float(torch.finfo(torch.float32).max)
 _TRI_EPS = 1e-9
 # Rays per chunk of the plain version: bounds its [chunk, leafw] temporaries.
@@ -244,7 +246,8 @@ def trace_split_plain(inner, pairs, origin, direction, tmin, tmax, *, leafw: int
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _check_operands(inner, pairs, origin, direction, tmin, tmax, stack_cap: int) -> None:
+def _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw: int,
+                    stack_cap: int) -> None:
     dev = origin.device
     specs = [("inner", inner, torch.int32, 3), ("pairs", pairs, torch.int32, 2),
              ("origin", origin, torch.float32, 2), ("direction", direction, torch.float32, 2),
@@ -265,6 +268,8 @@ def _check_operands(inner, pairs, origin, direction, tmin, tmax, stack_cap: int)
         raise ValueError("split_traverse: ray arrays disagree in shape")
     if not 0 < stack_cap <= 256:
         raise ValueError(f"split_traverse: stack_cap {stack_cap} outside (0, 256]")
+    if not 1 <= leafw <= MAX_LEAFW:
+        raise ValueError(f"split_traverse: leafw {leafw} outside [1, {MAX_LEAFW}]")
 
 
 def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
@@ -273,7 +278,8 @@ def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
 
     inner [ICAP, 8, 8] i32 (8-wide rows only), pairs [P_pad, 16] i32 with P_pad >= every window
     end, origin/direction [R, 3] f32 (direction already sanitised), tmin/
-    tmax [R] f32. Returns (t, tri, inner_pops, leaf_pops, overflow [1]).
+    tmax [R] f32; the kernel takes windows of 1 <= leafw <= MAX_LEAFW
+    pairs. Returns (t, tri, inner_pops, leaf_pops, overflow [1]).
 
     CPU tensors run ``trace_split_plain``; CUDA tensors launch the kernel
     or raise.
@@ -284,7 +290,7 @@ def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
                                  leafw=leafw, any_hit=any_hit, stack_cap=stack_cap)
     if origin.device.type != "cuda":
         raise ValueError(f"split_traverse: unsupported device {origin.device}")
-    _check_operands(inner, pairs, origin, direction, tmin, tmax, stack_cap)
+    _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw, stack_cap)
     lib = _cuda_build.load_library("split_trace")
     fn = lib.split_trace_launch
     fn.argtypes = _ARGTYPES
