@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --k1-only    # phases 1-4
+    python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
+                                       # every phase; phase 7 also times an
+                                       # earlier K5 source beside K5
 
 Drives ``tpu_raytracing_torch`` only (no JAX, no ``tpu_raytracing``) and
 exits non-zero if any phase fails:
@@ -42,16 +45,28 @@ exits non-zero if any phase fails:
    generator seeds: one warm frame and 2 timed. K5's launch count is set
    to 0 before and read after; it must grow on every one of the 4 passes
    of every frame, no ray may be left unfinished, and the image must be
-   finite and within 40 dB PSNR of phase 3's split frame.
+   finite and within 40 dB PSNR of phase 3's split frame. The phase ends
+   with one profiled frame, as phases 3 and 8 do.
 7. K5 against its plain version on the card, bit for bit on all 8 out rows
    and the whole state, in closest-hit and any-hit and in three launch
    modes (unbudgeted, budget 48, no_switch): on the sphere and soup(2000)
    fixtures with ecap 128 and with ecap 16 (8-pair windows: portals and
-   the multi-round cut), and on 65,536 live rays sampled evenly from each
-   lane-frame pass. The lane tracer's hits on 4,096 bounce rays are held to
-   brute force over the 1M triangles. Then K5 and the plain version are
-   timed as one unbudgeted launch on the 1M bounce pass (on the 65,536-ray
-   sample instead if the plain version would take over 120 s).
+   the multi-round cut), on 65,536 live rays sampled evenly from each
+   lane-frame pass, and on the tie fixtures: every triangle of terrain(32)
+   and soup(2000) twice, pairs off and on, leaf width 16 / ecap 128 and 8 /
+   16 (and 24, 40 and 128 at ecap 128), with rays of tmax = F32_MAX for the
+   all-miss window. The lane
+   tracer's hits on 4,096 bounce rays are held to brute force over the 1M
+   triangles. Then K5 is timed on each of the lane frame's four passes as
+   the frame launches it (the sum of the wave driver's launches, each
+   replayed on its recorded operands) and as one unbudgeted launch, held
+   to the plain version bit for bit on every ray of each pass, with each
+   pass's bound and inner and window visits per live ray; the plain version
+   is timed on the bounce pass; and each lane driver is timed on the bounce
+   pass. With ``--k5-baseline``, the earlier K5 source (same C interface,
+   reading the reference's ``tables`` layout) is built beside the others,
+   held bit-equal to K5 on every replayed launch and timed on the same
+   operands, and the drivers are timed on it too.
 8. Binary path: the Karras build (``build_lbvh``, one warm build and 2
    timed) of phase 3's scene with pairs; ``count_nodes``' leaf count must
    equal the build's live leaf count and ``verify_hierarchy`` must find no
@@ -107,6 +122,7 @@ output are a JSON summary of the kernels and ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import statistics
@@ -171,6 +187,8 @@ PASSES = ("primary", "primary shadow", "bounce", "bounce shadow")
 FRAME_TRACERS = (("tracer", False), ("shadow_tracer", True), ("bounce_tracer", False),
                  ("shadow_tracer_bounce", True))
 TIE_LEAF_WIDTHS = (8, 40, split_trace.LEAFW, 128)
+# K5's wider windows (2, 4 and 8 triangles a lane) on the tie fixtures
+TIE_LANE_WIDTHS = (24, 40, lane_trace.MAX_LEAFW)
 F32_MAX = float(torch.finfo(torch.float32).max)
 LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe"]
 PROBE_MODULES = (micro_pallas, micro_control, probe_lane_machine, probe_lane_machine2,
@@ -624,7 +642,8 @@ def treelet_build(card: str, front) -> dict:
     tcap, wh, ecap = tb.tables.shape
     table_mib = tb.tables.numel() * 4 / 2**20
     print(f"phase 5: treelet build at 1M: {int(tb.num_treelets)} treelets, tcap {tcap}, "
-          f"tables [{tcap}, {wh}, {ecap}] = {table_mib:.1f} MiB, root tid {int(tb.root_tid)}, "
+          f"tables [{tcap}, {wh}, {ecap}] = {table_mib:.1f} MiB and columns [{tcap}, {ecap}, "
+          f"{wh}] = {tb.columns.numel() * 4 / 2**20:.1f} MiB, root tid {int(tb.root_tid)}, "
           f"max col {int(tb.max_col)}; check_treelet_capacity passed")
     print(f"  treelet_build_ms = {build_ms!r}  [{card}]")
     print(f"  pair_tid vs build_pair_tid: {bad} of {pair_tid.shape[0]} pairs differ")
@@ -662,6 +681,8 @@ def lane_path(device, card: str, dev_scene, camera, triangles, split_img) -> dic
         print(f"  {key} = {val!r}  [{card}]")
     print(f"  K5 launches per pass = {per_call} (total {launches})")
     require(db >= MIN_PSNR, f"lane frame {db:.2f} dB against the split frame (< {MIN_PSNR})")
+    profile_frame("lane", frame_fn(tb, packed, dev_scene, camera, device,
+                                   tracer=tracers["tracer"]), card)
     return dict(tb=tb, packed=packed, passes=calls[-4:], launches=launches, **out)
 
 
@@ -690,8 +711,8 @@ class LaneAgreement:
         counts = []
         for any_hit in (False, True):
             for mode, kw in self.MODES.items():
-                ko, ks = lane_trace.lane_traverse(tb.tables, r8, state, root, lw=tb.leaf_width,
-                                                  any_hit=any_hit, **kw)
+                ko, ks = lane_trace.lane_traverse(tb.tables, tb.columns, r8, state, root,
+                                                  lw=tb.leaf_width, any_hit=any_hit, **kw)
                 po, ps = lane_trace.trace_lane_plain(tb.tables, r8, state, root,
                                                      lw=tb.leaf_width, any_hit=any_hit, **kw)
                 torch.cuda.synchronize()
@@ -707,7 +728,36 @@ class LaneAgreement:
         return int(counts[0].split("/")[0])
 
 
-def lane_checks(device, card: str, lane: dict, triangles) -> dict:
+def lane_tie_fixtures(device, agree: LaneAgreement, rng) -> None:
+    """K5 against its plain version where windows hold exact t ties: every
+    triangle of terrain(32) and of soup(2000) twice, pairs off and on, leaf
+    width 16 / ecap 128 and 8 / 16 (16 of a warp's lanes on a window), and
+    on the random and unbounded rays also leaf widths 24, 40 and 128 at
+    ecap 128 (2, 4 and 8 triangles a lane). The "unbounded" rays have tmax
+    = F32_MAX, so a window they enter and miss still names its all-miss
+    index, 2 * lw - 1."""
+    for name, base in (("terrain32x2", procedural.terrain(32)),
+                       ("soup2000x2", procedural.random_triangle_soup(2000, seed=1))):
+        scene = dataclasses.replace(base, triangles=np.repeat(base.triangles, 2, axis=0))
+        tris = torch.as_tensor(scene.triangles, device=device)
+        sets = fixture_rays(scene, device, rng)
+        rays = sets["random"][0]
+        sets["unbounded"] = (Rays(rays.origin, rays.direction, rays.tmin,
+                                  torch.full_like(rays.tmax, F32_MAX)), None)
+        for pairs in (False, True):
+            front = bucket.split_front(tris, pairs)
+            for lw, ecap in ((16, 128), (8, 16)) + tuple((w, 128) for w in TIE_LANE_WIDTHS):
+                tcap = treelet.treelet_capacity(front, lw, ecap) + 8
+                tb, _ = treelet.build_treelet(front, tcap, leaf_width=lw, ecap=ecap)
+                treelet.check_treelet_capacity(tb)
+                for set_name, (rays, active) in sets.items():
+                    if lw in TIE_LANE_WIDTHS and set_name not in ("random", "unbounded"):
+                        continue
+                    agree.check(f"{name} pairs={int(pairs)} lw={lw} ecap={ecap} {set_name}",
+                                tb, rays, active)
+
+
+def lane_checks(device, card: str, lane: dict, triangles, baseline=None) -> dict:
     """Phase 7."""
     print("phase 7: K5 against its plain version on the card")
     agree = LaneAgreement()
@@ -730,6 +780,7 @@ def lane_checks(device, card: str, lane: dict, triangles) -> dict:
         print(f"  terrain1M {name}: {rays.origin.shape[0]} of {n_live} live rays")
         hits = agree.check(f"terrain1M {name}", tb, rays, None)
         require(hits > 0, f"terrain1M {name}: no ray of the sample hits, so it checks nothing")
+    lane_tie_fixtures(device, agree, rng)
 
     # the lane tracer's hits against brute force over the 1M triangles
     n_sample = samples["bounce"].origin.shape[0]
@@ -749,73 +800,178 @@ def lane_checks(device, card: str, lane: dict, triangles) -> dict:
                 f"lane tracer and brute force disagree on {key} for {count} rays")
     require(int(stats.overflow) == 0, "brute-force sample left rays unfinished")
 
-    timing = time_lane_bounce(tb, lane["passes"][2], samples["bounce"], card)
-    time_drivers(tb, packed, lane["passes"][2], card)
+    kernels = {"K5": lane_trace.lane_traverse}
+    if baseline is not None:
+        kernels["baseline K5"] = baseline
+    timing = time_lane_passes(tb, packed, lane["passes"], card, kernels)
+    for label, fn in kernels.items():
+        time_drivers(tb, packed, lane["passes"][2], card, label, fn)
     print(f"  K5 launch count after the comparisons = {lane_trace.launch_count} "
           f"(lane path: {lane['launches']})")
     return dict(max_abs_err=agree.max_abs_err, **timing)
 
 
-def time_lane_bounce(tb, bounce_call, sample: Rays, card: str) -> dict:
-    """K5 and its plain version, each as one unbudgeted closest-hit launch
-    on the 1M bounce pass, by CUDA events (K5: mean of 5 after a warm-up;
-    plain: one run). The plain version is first timed on the sample; if
-    the full pass would take it over PLAIN_LIMIT_S, both are timed on the
-    sample."""
-    kw = dict(lw=tb.leaf_width, any_hit=False)
-    root = int(tb.root_tid)
-    r8s, sts = lane_operands(tb, sample, None)
-    sample_ms, _ = event_ms(lambda: lane_trace.trace_lane_plain(tb.tables, r8s, sts, root, **kw),
-                            1, warm=False)
-    rays, active = bounce_call["rays"], bounce_call["active"]
-    num = rays.origin.shape[0]
-    estimate_s = sample_ms / 1000.0 * num / sample.origin.shape[0]
-    where = "1M bounce pass"
-    r8, st = lane_operands(tb, rays, active)
-    if estimate_s > PLAIN_LIMIT_S:
-        where = f"{sample.origin.shape[0]}-ray bounce sample (plain estimated {estimate_s:.0f} s)"
-        r8, st, num = r8s, sts, sample.origin.shape[0]
-    ms, kout = event_ms(lambda: lane_trace.lane_traverse(tb.tables, r8, st, root, **kw), 5)
-    # the sample run warmed the plain version up
-    plain_ms, pout = event_ms(lambda: lane_trace.trace_lane_plain(tb.tables, r8, st, root, **kw),
-                              1, warm=False)
-    bad = int((kout[0].view(torch.int32) != pout[0].view(torch.int32)).sum())
-    live = num if where != "1M bounce pass" else int(active.sum())
-    print(f"  {where}: {num} rays ({live} live); K5 {ms!r} ms, plain {plain_ms!r} ms, "
-          f"out mismatches {bad}  [{card}]")
-    require(bad == 0, f"{where}: K5 != plain")
-    # bound: out rows 2-3 count each ray's box and triangle tests; rays8
-    # and the state in, out and the state written back, each inner column
-    # (56 words) and window column (12 lw + 1 words) visited once
-    visited = {}
-    lane_trace.trace_lane_plain(tb.tables, r8, st, root, **kw, visited=visited)
-    n_ops = float(kout[0][:, 2].sum()) * SLAB_OPS + float(kout[0][:, 3].sum()) * MT_OPS
-    n_rays = r8.shape[0] * 128
-    nbytes = (n_rays * 4 * (8 + 8 + 2 * st.shape[1]) + int(visited["inner"].sum()) * 56 * 4
-              + int(visited["window"].sum()) * (12 * tb.leaf_width + 1) * 4)
-    b = bound(n_ops, nbytes)
-    print(f"  K5 bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
-          f"{int(visited['inner'].sum())} inner, {int(visited['window'].sum())} window columns)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+class BaselineK5:
+    """An earlier K5 source given by ``--k5-baseline``: the same C interface
+    as csrc/lane_trace.cu, reading the reference's ``tables`` layout. Called
+    as ``lane_traverse`` is; it counts no launch."""
+
+    NAME = "lane_trace_baseline"
+
+    def __init__(self, source: Path):
+        self.source = source
+
+    def __call__(self, tables, columns, rays8, state, root_tid, *, lw, any_hit, budget=0,
+                 no_switch=False):
+        fn = _cuda_build.load_library(self.NAME, self.source).lane_trace_launch
+        fn.argtypes = lane_trace._ARGTYPES
+        fn.restype = ctypes.c_int
+        num_p = rays8.shape[0]
+        out = torch.empty((num_p, 8, 128), dtype=torch.float32, device=rays8.device)
+        state_out = torch.empty_like(state)
+        t, wh, ecap = tables.shape
+        err = fn(tables.data_ptr(), t, wh, ecap, lw, rays8.data_ptr(), state.data_ptr(),
+                 out.data_ptr(), state_out.data_ptr(), num_p, int(root_tid), state.shape[1] - 5,
+                 int(budget), int(no_switch), int(any_hit),
+                 torch.cuda.current_stream(rays8.device).cuda_stream)
+        require(err == 0, f"baseline K5 launch failed: cudaError {err}")
+        return out, state_out
 
 
-def time_drivers(tb, packed, bounce_call, card: str) -> None:
-    """Each lane driver on the 1M bounce pass, host-timed around a
-    synchronise (one warm run, then the mean of ITERS)."""
+def wave_launches(tb, packed, call) -> list:
+    """The K5 launches the lane frame's tracer (the wave driver) makes on
+    one pass, in order: (rays8, state, keyword arguments) of each."""
+    launches = []
+    real = lane_trace.lane_traverse
+
+    def record(tables, columns, rays8, state, root_tid, **kw):
+        launches.append((rays8, state, kw))
+        return real(tables, columns, rays8, state, root_tid, **kw)
+
+    lane_trace.lane_traverse = record
+    try:
+        lane_trace.make_lane_tracer()(tb, packed, call["rays"], active=call["active"])
+    finally:
+        lane_trace.lane_traverse = real
+    return launches
+
+
+def launch_ms(fn) -> float:
+    """Median device time of 3 calls after a warm one, each in CUDA events
+    queued behind a spin kernel (the wrapper's host work left out)."""
+    return statistics.median(_common.time_runs(fn, [()] * 4, torch.device("cuda")))
+
+
+def same_words(a, b) -> bool:
+    return bool((a.view(torch.int32) == b.view(torch.int32)).all())
+
+
+def time_lane_passes(tb, packed, passes, card: str, kernels: dict) -> dict:
+    """Each kernel of ``kernels`` (K5 and any baseline) on each of the lane
+    frame's four passes: as the frame launches it (the wave driver's
+    launches recorded, then each replayed on its operands and timed by
+    ``launch_ms``; their sum) and as one unbudgeted closest-hit launch from
+    a fresh state (mean of 5 after a warm one, by CUDA events). Every replay
+    of a baseline must equal K5's output bit for bit; each unbudgeted K5
+    launch must equal the plain version on every out row and state word of
+    every ray. The bound comes from that plain run's counts; visits per
+    live ray are out rows 2 and 3 over 8 and 2 * lw. The plain version's
+    time is its run on the bounce pass (with the visit marking on). Returns
+    the bounce pass's numbers, which stand for K5 in the kernels line."""
+    root, lw = int(tb.root_tid), tb.leaf_width
+    totals = {label: 0.0 for label in kernels}
+    res = {}
+    for name, call in zip(PASSES, passes):
+        launches = wave_launches(tb, packed, call)
+        wave = {label: 0.0 for label in kernels}
+        for r8, st, kw in launches:
+            ref = None
+            for label, fn in kernels.items():
+                wave[label] += launch_ms(lambda: fn(tb.tables, tb.columns, r8, st, root, **kw))
+                got = fn(tb.tables, tb.columns, r8, st, root, **kw)
+                if ref is None:
+                    ref = got
+                else:
+                    require(same_words(got[0], ref[0]) and same_words(got[1], ref[1]),
+                            f"1M {name} pass: {label} != K5 on a wave launch {kw}")
+        n_wave = len(launches)
+        del launches
+        r8, st = lane_operands(tb, call["rays"], call["active"])
+        kw = dict(lw=lw, any_hit=False)
+        once, outs = {}, {}
+        for label, fn in kernels.items():
+            once[label], outs[label] = event_ms(
+                lambda: fn(tb.tables, tb.columns, r8, st, root, **kw), 5)
+        k5out = outs["K5"]
+        visited = {}
+        plain_ms, pout = event_ms(lambda: lane_trace.trace_lane_plain(
+            tb.tables, r8, st, root, **kw, visited=visited), 1, warm=False)
+        bad = [int((k.view(torch.int32) != p.view(torch.int32)).sum())
+               for k, p in zip(k5out, pout)]
+        require(sum(bad) == 0, f"1M {name} pass: K5 != plain on {bad} out / state words")
+        # bound: out rows 2-3 count each ray's box and triangle tests; rays8
+        # and the state in, out and the state written back, each inner column
+        # (56 words) and window column (12 lw + 1 words) visited once
+        out = k5out[0]
+        n_ops = float(out[:, 2].sum()) * SLAB_OPS + float(out[:, 3].sum()) * MT_OPS
+        n_rays = r8.shape[0] * 128
+        n_inner, n_window = int(visited["inner"].sum()), int(visited["window"].sum())
+        nbytes = (n_rays * 4 * (8 + 8 + 2 * st.shape[1]) + n_inner * 56 * 4
+                  + n_window * (12 * lw + 1) * 4)
+        b = bound(n_ops, nbytes)
+        live = call["active"]
+        n_live = int(live.sum()) if live is not None else call["rays"].origin.shape[0]
+        per_ray = out.transpose(1, 2).reshape(n_rays, 8)[:call["rays"].origin.shape[0]]
+        if live is not None:
+            per_ray = per_ray[live]
+        inner_v = float(per_ray[:, 2].sum()) / 8 / n_live
+        window_v = float(per_ray[:, 3].sum()) / (2 * lw) / n_live
+        times = ", ".join(f"{label} {wave[label]!r} ms ({once[label]!r} unbudgeted)"
+                          for label in kernels)
+        print(f"  1M {name} pass: {n_rays} rays ({n_live} live), wave driver ({n_wave} "
+              f"launches): {times}; "
+              f"bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
+              f"{n_inner} inner, {n_window} window columns); visits per live ray inner "
+              f"{inner_v!r} window {window_v!r}; K5 bit-equal to plain  [{card}]")
+        for label in kernels:
+            totals[label] += wave[label]
+        res[name] = dict(ms=once["K5"], plain_ms=plain_ms, **b)
+    print("  on the four passes, as the frame launches them: "
+          + ", ".join(f"{label} {ms!r} ms a frame" for label, ms in totals.items())
+          + f"  [{card}]")
+    print(f"  plain version on the 1M bounce pass: {res['bounce']['plain_ms']!r} ms  [{card}]")
+    return res["bounce"]
+
+
+def time_drivers(tb, packed, bounce_call, card: str, label: str, traverse) -> None:
+    """Each lane driver on the 1M bounce pass with ``traverse`` as the
+    kernel, host-timed around a synchronise (one warm run, then the mean of
+    ITERS)."""
     rays, active = bounce_call["rays"], bounce_call["active"]
     line = []
-    for driver in lane_trace.DRIVERS:
-        tracer = lane_trace.make_lane_tracer(driver=driver)
-        before = lane_trace.launch_count
-        tracer(tb, packed, rays, active=active)
-        launches = lane_trace.launch_count - before
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            _, stats = tracer(tb, packed, rays, active=active)
-        line.append(f"{driver} {sync_ms(t0) / ITERS:.3f} ms ({launches} launches)")
-        require(int(stats.overflow) == 0, f"lane driver {driver} left rays unfinished")
-    print(f"  lane drivers on the 1M bounce pass: {', '.join(line)}  [{card}]")
+    real = lane_trace.lane_traverse
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return traverse(*args, **kw)
+
+    lane_trace.lane_traverse = counted
+    try:
+        for driver in lane_trace.DRIVERS:
+            tracer = lane_trace.make_lane_tracer(driver=driver)
+            calls.clear()
+            tracer(tb, packed, rays, active=active)
+            launches = len(calls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                _, stats = tracer(tb, packed, rays, active=active)
+            line.append(f"{driver} {sync_ms(t0) / ITERS:.3f} ms ({launches} launches)")
+            require(int(stats.overflow) == 0, f"lane driver {driver} left rays unfinished")
+    finally:
+        lane_trace.lane_traverse = real
+    print(f"  lane drivers on the 1M bounce pass, {label}: {', '.join(line)}  [{card}]")
 
 
 def binary_path(device, card: str, dev_scene, camera, triangles, split_img) -> dict:
@@ -1187,6 +1343,10 @@ def main(argv=None) -> int:
     parser.add_argument("--k1-only", action="store_true",
                         help="stop after phase 4 (build, bench frame, K1's checks and timings); "
                              "prints no summary lines")
+    parser.add_argument("--k5-baseline", type=Path, metavar="SOURCE",
+                        help="an earlier csrc/lane_trace.cu (the same C interface over the "
+                             "reference's tables layout) to build, check against K5 and time "
+                             "beside it in phase 7")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1203,8 +1363,13 @@ def main(argv=None) -> int:
     print(card)
 
     t0 = time.perf_counter()
-    _cuda_build.load_libraries(LIBRARIES)
-    print(f"phase 2: built {', '.join(n + '.cu' for n in LIBRARIES)} in parallel in "
+    baseline, sources = None, {}
+    if args.k5_baseline is not None:
+        baseline = BaselineK5(args.k5_baseline.resolve())
+        sources[BaselineK5.NAME] = baseline.source
+    _cuda_build.load_libraries(LIBRARIES + list(sources), sources)
+    print(f"phase 2: built {', '.join(n + '.cu' for n in LIBRARIES)}"
+          f"{''.join(f' and {src} (as {n})' for n, src in sources.items())} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, (nvcc_s, log) in _cuda_build.BUILD_INFO.items():
         print(f"  {name}: nvcc {nvcc_s:.2f} s")
@@ -1226,7 +1391,7 @@ def main(argv=None) -> int:
     treelet_build(card, split["front"])
     lane = lane_path(device, card, dev_scene, camera, triangles, split["img"])
     lane_launches = lane["launches"]
-    k5 = lane_checks(device, card, lane, triangles)
+    k5 = lane_checks(device, card, lane, triangles, baseline)
     del lane
     binary = binary_path(device, card, dev_scene, camera, triangles, split["img"])
     k6 = fat_checks(device, card, binary, triangles)

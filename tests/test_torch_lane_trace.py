@@ -1,7 +1,9 @@
 """PyTorch port's per-ray treelet tracer (K5's plain version on the CPU) vs
-the JAX reference: the Pallas lane kernel in interpret mode, brute force,
-the numpy walk over the tables, and a JAX-built TreeletBVH traced by the
-port.
+the JAX reference: the Pallas lane kernel in interpret mode (also on a
+window of exact ties), brute force, the numpy walk over the tables, and a
+JAX-built TreeletBVH traced by the port; the drivers' packet-layout state
+shuffle against the per-ray one it replaced; the wrapper's routing and
+operand checks.
 
 Against the lane kernel the comparison is on hit, tri id and box/tri test
 counts, with t within rtol 1e-5: an unbudgeted launch visits the same
@@ -257,12 +259,156 @@ def test_wrapper_routes_by_device():
     r8 = lt.rays8_of(rays)
     state = lt.init_state(int(tb.root_tid), rays.tmax)
     before = lt.launch_count
-    out, st = lt.lane_traverse(tb.tables, r8, state, int(tb.root_tid), lw=16, any_hit=False)
+    out, st = lt.lane_traverse(tb.tables, tb.columns, r8, state, int(tb.root_tid), lw=16,
+                               any_hit=False)
     ref, ref_st = lt.trace_lane_plain(tb.tables, r8, state, int(tb.root_tid), lw=16,
                                       any_hit=False)
     np.testing.assert_array_equal(out.numpy().view(np.int32), ref.numpy().view(np.int32))
     np.testing.assert_array_equal(st.numpy(), ref_st.numpy())
     assert lt.launch_count == before
-    meta = [x.to("meta") for x in (tb.tables, r8, state)]
+    meta = [x.to("meta") for x in (tb.tables, tb.columns, r8, state)]
     with pytest.raises(ValueError, match="unsupported device"):
         lt.lane_traverse(*meta, int(tb.root_tid), lw=16, any_hit=False)
+
+
+def _misshapen_columns(tb, kind):
+    cols = tb.columns
+    if kind == "reference_layout":
+        return tb.tables
+    if kind == "not_contiguous":
+        return tb.tables.transpose(1, 2)
+    # the right shape, 4 bytes off a 16-byte boundary
+    return torch.empty(cols.numel() + 1, dtype=cols.dtype)[1:].view(cols.shape)
+
+
+@pytest.mark.parametrize("kind", ["reference_layout", "not_contiguous", "misaligned", "leafw"])
+def test_check_operands_refuses(kind):
+    """The kernel reads ``columns`` [T, ecap, wh] as 16-byte vectors and
+    takes leaf widths up to 128 (8 triangles a lane); the wrapper refuses
+    anything else before a launch."""
+    _, tb, _ = _port_tree("sphere")
+    rays = _port_rays(*_camera_rays(_port_tree("sphere")[0], 16, 8))
+    r8, state = lt.rays8_of(rays), lt.init_state(int(tb.root_tid), rays.tmax)
+    lt._check_operands(tb.tables, tb.columns, r8, state, 16)
+    cols, lw = tb.columns, 16
+    if kind == "leafw":
+        lw = lt.MAX_LEAFW + 1
+    else:
+        cols = _misshapen_columns(tb, kind)
+    with pytest.raises(ValueError, match="columns|leaf width"):
+        lt._check_operands(tb.tables, cols, r8, state, lw)
+
+
+def _tie_scene():
+    """terrain(8) with every triangle twice: 16 unpaired pair rows (each
+    row's second triangle repeats its first), the copies on neighbouring
+    rows, all in one 16-pair window, the tiny-scene root."""
+    from tpu_raytracing.scene import procedural
+    scene = procedural.terrain(8)
+    return scene, np.repeat(scene.triangles, 2, axis=0)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_matches_pallas_lane_kernel_on_exact_ties(any_hit):
+    """The window winner's tie rule against the Pallas lane kernel: the
+    smallest t and, on an equal t, the larger 2 * p + second, which K5's
+    warp reduction reproduces. One window, so the TPU's packet order cannot
+    matter; one packet of 128 rays on one packet slot (``c_slots=1`` keeps
+    interpret mode short). 96 camera rays hit copies; 32 rays start on the
+    box's top face, point up and have tmax = F32_MAX, so they enter the
+    window, miss every triangle and still take its all-miss index,
+    2 * lw - 1, as the reference does."""
+    scene, tris = _tie_scene()
+    jfront = jax.jit(lambda t: jbucket.split_front(t, enable_pairs=True))(jnp.asarray(tris))
+    tcap = jtreelet.treelet_capacity(jfront, 16) + 8
+    jtb, jpacked = jax.jit(lambda f: jtreelet.build_treelet(f, tcap, leaf_width=16))(jfront)
+    tb, packed = ttreelet.build_treelet(tbucket.split_front(torch.from_numpy(tris), True), tcap,
+                                        leaf_width=16)
+    assert int(tb.num_treelets) == 1 and int(tb.num_leaves) == 16
+    o, d, lo, hi = _camera_rays(scene, 16, 6)
+    rng = np.random.default_rng(5)
+    bmin, bmax = scene.aabb_min, scene.aabb_max
+    up_o = np.stack([rng.uniform(bmin[0], bmax[0], 32), np.full(32, bmax[1]),
+                     rng.uniform(bmin[2], bmax[2], 32)], 1)
+    up_d = np.tile([0.0, 1.0, 0.0], (32, 1)) + rng.normal(scale=0.05, size=(32, 3))
+    up_d /= np.linalg.norm(up_d, axis=1, keepdims=True)
+    f32_max = np.finfo(np.float32).max
+    o, d = (np.concatenate(a).astype(np.float32) for a in ((o, up_o), (d, up_d)))
+    lo = np.concatenate([lo, np.zeros(32)]).astype(np.float32)
+    hi = np.concatenate([hi, np.full(32, f32_max)]).astype(np.float32)
+    jrays = JRays(*(jnp.asarray(a) for a in (o, d, lo, hi)))
+    (_, jtri), _, jout, _ = lane_pallas.trace_rays_lane_pallas(
+        jtb, jpacked, jrays, any_hit=any_hit, c_slots=1, raw=True)
+    (_, tri), _, out, _ = lt.trace_rays_lane(tb, packed, _port_rays(o, d, lo, hi),
+                                             any_hit=any_hit, raw=True)
+    jtri, jout = np.asarray(jtri), np.asarray(jout)
+    np.testing.assert_array_equal(tri.numpy(), jtri)
+    for row in (1, 2, 3):  # tri bits, box tests, tri tests
+        np.testing.assert_array_equal(out[:, row].numpy().view(np.int32),
+                                      jout[:, row].view(np.int32))
+    # XLA's CPU compiler contracts Möller-Trumbore differently: t agrees to
+    # a few ulps here (bit for bit on the card, K5 to plain)
+    np.testing.assert_allclose(out[:, 0].numpy(), jout[:, 0], rtol=1e-5)
+    # every camera hit ties with its copy: the later copy (an odd pair) wins
+    cam_hit = jtri[:96] >= 0
+    assert cam_hit.sum() > 16
+    assert (jtri[:96][cam_hit] >> 1 & 1 == 1).all()
+    assert (jtri[96:] == 2 * 16 - 1).all()
+
+
+def _resume_rounds_per_ray(tb, rays, any_hit, rounds, stack):
+    """The wave and phase drivers' rounds with the state shuffled per ray
+    (transposed to [num, rows], reset by a where over every ray, gathered,
+    transposed back): the reference for ``lt._resume_rounds``, which keeps
+    the state in packet layout. Returns (t, tri, box, tri tests, want) in
+    the rays' order."""
+    num = rays.origin.shape[0]
+    root = int(tb.root_tid)
+    orig = torch.arange(num)
+    cur_rays, state = rays, None
+    box = torch.zeros((num,), dtype=torch.int32)
+    trit = torch.zeros((num,), dtype=torch.int32)
+    row = torch.arange(5 + stack)[None, :]
+    for i, (b, ns) in enumerate(rounds):
+        (t, tri), st2, out, state = lt.trace_rays_lane(
+            tb, None, cur_rays, any_hit=any_hit, raw=True, budget=b, state=state, no_switch=ns,
+            stack=stack)
+        box = box + st2.box_tests
+        trit = trit + st2.tri_tests
+        want = out[:, 7, :].to(torch.int32).reshape(num)
+        if i == len(rounds) - 1:
+            break
+        ovf = (want > 0) & (out[:, 6, :].to(torch.int32).reshape(num) > stack - 8)
+        pst = lt._per_ray(state)
+        reset = torch.where(row == 0, (root << 9) | 1, torch.where(row < 3, pst, 0))
+        pst = torch.where(ovf[:, None], reset, pst).to(torch.int32)
+        want = torch.where(ovf, root + 1, want)
+        perm = torch.sort(torch.where(want > 0, want, lt._BIG), stable=True).indices
+        state = lt._per_packet(pst[perm])
+        cur_rays = cur_rays.take(perm)
+        box, trit, orig = box[perm], trit[perm], orig[perm]
+    inv = torch.argsort(orig)
+    return t[inv], tri[inv], box[inv], trit[inv], want[inv]
+
+
+@pytest.mark.parametrize("driver", ["wave", "phase"])
+@pytest.mark.parametrize("case", ["ecap16", "recovery"])
+def test_packet_layout_shuffle_matches_per_ray_shuffle(driver, case):
+    """The drivers' rounds give bit-equal t, tri, test counts and wanted
+    treelets whether the state is shuffled in packet layout or per ray; the
+    recovery case's 12-deep stack flags rays for the reset between
+    rounds."""
+    tree, kind, stack = CASES[case]
+    scene, tb, packed = _port_tree(*tree)
+    rays = _port_rays(*_case_rays(scene, kind)[0])
+    rounds = ([(3, False), (5, False)] + [(0, False)] * (1 + lt.RECOVER) if driver == "wave"
+              else [(0, True)] * 3 + [(0, False)] * (1 + lt.RECOVER))
+    for any_hit in (False, True):
+        (t, tri), stats, want = lt._resume_rounds(tb, packed, rays, None, any_hit, True, rounds,
+                                                  stack)
+        ref = _resume_rounds_per_ray(tb, rays, any_hit, rounds, stack)
+        for a, b in zip((t, tri, stats.box_tests, stats.tri_tests, want), ref):
+            np.testing.assert_array_equal(a.numpy().view(np.int32), b.numpy().view(np.int32))
+    if case == "recovery":
+        (_, _), _, out, _ = lt.trace_rays_lane(tb, packed, rays, raw=True, stack=stack)
+        assert int((out[:, 6] > stack - 8).sum()) > 0

@@ -1,7 +1,8 @@
 """PyTorch port's treelet BVH vs the JAX reference: the build is bit-equal on
 the same scene, the classification-only pair -> treelet map equals the
-build's, capacity overflows raise the dedicated error, and a JAX-built
-structure carries into the port unchanged."""
+build's, capacity overflows raise the dedicated error, a JAX-built
+structure carries into the port unchanged, and the kernel's column-major
+copy of the tables holds the same words."""
 
 import functools
 
@@ -137,3 +138,21 @@ def test_treelet_from_numpy(case):
             np.testing.assert_array_equal(val.numpy(), other.numpy())
         else:
             assert val == other
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_columns_are_the_tables_transposed(case):
+    """``columns`` (the layout K5 reads) is ``tables.transpose(1, 2)``, word
+    for word and contiguous, from the port's build and from a JAX-built
+    structure through ``convert``."""
+    _, _, lw, ecap = CASES[case]
+    tcap, jtb, _ = _jax_build(case)
+    tb, _ = ttreelet.build_treelet(_port_front(case), tcap, leaf_width=lw, ecap=ecap)
+    fields = dict(tables=jtb.tables, num_treelets=jtb.num_treelets, root_tid=jtb.root_tid,
+                  max_col=jtb.max_col, num_leaves=jtb.num_leaves, pair_tid=jtb.pair_tid,
+                  leaf_width=jtb.leaf_width)
+    for tree in (tb, convert.treelet_from_numpy(fields, "cpu")):
+        assert tree.columns.shape == (tcap, ecap, ttreelet.table_words(lw))
+        assert tree.columns.is_contiguous() and tree.columns.dtype == torch.float32
+        np.testing.assert_array_equal(tree.columns.numpy().view(np.int32),
+                                      tree.tables.transpose(1, 2).numpy().view(np.int32))

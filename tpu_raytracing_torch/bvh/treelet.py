@@ -9,7 +9,10 @@ tests use). The tables, ``pair_tid``, ``num_treelets``, ``root_tid`` and
 ``max_col`` are bit-equal to the reference's on the same front.
 
 The tree is cut into treelets of at most ``ecap`` elements, each a
-[WH, ecap] f32 column table. Element columns:
+[WH, ecap] f32 column table. ``TreeletBVH.columns`` holds the same words
+column-contiguous, [ecap, WH] per treelet: the layout the K5 kernel reads
+(``tables`` is the reference's layout, which the plain version reads).
+Element columns:
 
 * INNER: 8 entries, word-major: rows [w*8 + e] for w in 0..5 hold the
   entry boxes (lo.xyz, hi.xyz), rows 48..55 the entry metas
@@ -66,12 +69,15 @@ class TreeletCapacityError(RuntimeError):
 class TreeletBVH:
     """See the module docstring.
 
-    tables [TCAP, WH, ECAP] f32; num_treelets, root_tid, max_col,
-    num_leaves [] int; pair_tid [n] int32, the treelet id of the window
-    holding each sorted pair (the ``tid`` bounce-sort key).
+    tables [TCAP, WH, ECAP] f32; columns [TCAP, ECAP, WH] f32, equal to
+    ``tables.transpose(1, 2)`` and contiguous (each column's WH words in a
+    row); num_treelets, root_tid, max_col, num_leaves [] int; pair_tid [n]
+    int32, the treelet id of the window holding each sorted pair (the
+    ``tid`` bounce-sort key).
     """
 
     tables: torch.Tensor
+    columns: torch.Tensor
     num_treelets: torch.Tensor
     root_tid: torch.Tensor
     max_col: torch.Tensor
@@ -389,8 +395,7 @@ def build_treelet(front, tcap: int, leaf_width: int = 16,
     ok_w = w_valid & (w_col < ecap)
     dest_w = torch.clamp(w_tid, max=tcap - 1) * ecap + w_col
     table[dest_w[ok_w], :12 * lw + 1] = wcols[ok_w]
-    tables = i2f(table).reshape(tcap, ecap, wh).transpose(1, 2).contiguous()
-    del table
+    columns = i2f(table).reshape(tcap, ecap, wh)
 
     # ---- root: if the level-0 bucket is a window (tiny scene), a single-
     # entry inner column at (tid 0, col 0) points at the window in col 1.
@@ -406,8 +411,9 @@ def build_treelet(front, tcap: int, leaf_width: int = 16,
     tiny_if = i2f(torch.cat([tiny_col, pad_i]))
     pad_w = torch.zeros((wh - (12 * lw + 1),), dtype=torch.int32, device=dev)
     tiny_win = i2f(torch.cat([wcols[0], pad_w]))
-    tables[0, :, 0] = torch.where(root_is_win, tiny_if, tables[0, :, 0])
-    tables[0, :, 1] = torch.where(root_is_win, tiny_win, tables[0, :, 1])
+    columns[0, 0] = torch.where(root_is_win, tiny_if, columns[0, 0])
+    columns[0, 1] = torch.where(root_is_win, tiny_win, columns[0, 1])
+    tables = columns.transpose(1, 2).contiguous()
 
     # pair -> owning window's treelet id: windows tile the live pair range
     # contiguously in leaf order
@@ -416,7 +422,7 @@ def build_treelet(front, tcap: int, leaf_width: int = 16,
     tid_at[w_pos[w_valid]] = w_tid[w_valid]
     pair_tid = tid_at[torch.clamp(seg, min=0)].to(torch.int32)
 
-    tb = TreeletBVH(tables=tables, num_treelets=cls["num_treelets"],
+    tb = TreeletBVH(tables=tables, columns=columns, num_treelets=cls["num_treelets"],
                     root_tid=root_tid.to(torch.int32), max_col=max_col,
                     num_leaves=num_leaves, pair_tid=pair_tid, leaf_width=lw)
     return tb, packed

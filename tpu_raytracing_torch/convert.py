@@ -70,9 +70,12 @@ def treelet_from_numpy(fields: Mapping, device) -> TreeletBVH:
     """``tpu_raytracing.bvh.treelet.TreeletBVH`` as a mapping of numpy arrays
     (``tables``, ``num_treelets``, ``root_tid``, ``max_col``,
     ``num_leaves``, ``pair_tid``) and its ``leaf_width`` -> the port's
-    ``TreeletBVH`` on ``device``. The layouts are the same."""
+    ``TreeletBVH`` on ``device``. The layouts are the same; ``columns`` is
+    made from ``tables``."""
+    tables = _t(np.asarray(fields["tables"], np.float32), device)
     return TreeletBVH(
-        tables=_t(np.asarray(fields["tables"], np.float32), device),
+        tables=tables,
+        columns=tables.transpose(1, 2).contiguous(),
         num_treelets=_t(fields["num_treelets"], device),
         root_tid=_t(np.asarray(fields["root_tid"], np.int32), device),
         max_col=_t(fields["max_col"], device),

@@ -21,7 +21,7 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
@@ -47,12 +47,13 @@ def nvcc_path() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; raises on a failed build."""
+def load_library(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, or the source ``src``
+    under ``name``; raises on a failed build."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = SRC_DIR / f"{name}.cu"
+    src = SRC_DIR / f"{name}.cu" if src is None else Path(src)
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}-{digest}.so"
     log_path = so.with_suffix(".log")
@@ -77,8 +78,10 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_libraries(names: Sequence[str]) -> None:
-    """``load_library`` for every name, with the nvcc builds run in
-    parallel (one process per source, all started together)."""
+def load_libraries(names: Sequence[str], sources: Optional[Mapping[str, Path]] = None) -> None:
+    """``load_library`` for every name (from ``sources[name]`` where given),
+    with the nvcc builds run in parallel (one process per source, all
+    started together)."""
+    sources = sources or {}
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        list(pool.map(load_library, names))
+        list(pool.map(lambda n: load_library(n, sources.get(n)), names))

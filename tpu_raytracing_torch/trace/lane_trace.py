@@ -12,9 +12,11 @@ Port of ``tpu_raytracing/trace/lane_pallas.py`` (``STACK``, ``RECOVER``,
 PyTorch; given CUDA tensors it launches the kernel or raises. The two agree
 bit for bit on every out row and state row.
 
-Layouts are the reference's. ``tables`` [T, wh, ecap] f32 (ecap <= 128);
-``rays8`` [num_p, 8, 128] f32 (o, d, tmin, tmax; dead rays have tmin =
-+F32_MAX, tmax = -F32_MAX); ``state`` [num_p, 5 + stack, 128] i32 (rows:
+Layouts are the reference's. ``tables`` [T, wh, ecap] f32 (ecap <= 128),
+which the plain version reads; the kernel reads ``columns`` [T, ecap, wh],
+the same words column-contiguous (``TreeletBVH.columns``); ``rays8``
+[num_p, 8, 128] f32 (o, d, tmin, tmax; dead rays have tmin = +F32_MAX,
+tmax = -F32_MAX); ``state`` [num_p, 5 + stack, 128] i32 (rows:
 0 current entry, 1 tbest bits, 2 tribest, 3 stack depth, 4 depth
 watermark, 5.. the stack, top first); out [num_p, 8, 128] f32 (rows: 0 t,
 1 tri bits, 2 box tests, 3 tri tests, 4 iterations, 5 treelet switches,
@@ -71,9 +73,11 @@ STACK = 32
 # Extra unbudgeted rounds after the last one, for flagged rays.
 RECOVER = 2
 SROWS = 5 + STACK
-# Widest treelet table (the column field of an entry word has 7 bits) and
-# deepest stack the kernel takes.
+# Widest treelet table (the column field of an entry word has 7 bits),
+# widest leaf window (2 * 128 triangles, 8 a lane) and deepest stack the
+# kernel takes.
 MAX_ECAP = 128
+MAX_LEAFW = 128
 MAX_STACK = 128
 # Iterations one ray may take in one launch (a guard, far above any tree).
 _MAX_ITERS = 1 << 20
@@ -352,9 +356,10 @@ _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
-def _check_operands(tables, rays8, state, lw: int) -> None:
+def _check_operands(tables, columns, rays8, state, lw: int) -> None:
     dev = rays8.device
     for name, x, dtype, ndim in (("tables", tables, torch.float32, 3),
+                                 ("columns", columns, torch.float32, 3),
                                  ("rays8", rays8, torch.float32, 3),
                                  ("state", state, torch.int32, 3)):
         if x.device != dev or x.dtype != dtype or x.dim() != ndim or not x.is_contiguous():
@@ -362,24 +367,28 @@ def _check_operands(tables, rays8, state, lw: int) -> None:
                 f"lane_traverse: {name} must be a contiguous {ndim}-d {dtype} tensor on {dev}, "
                 f"got {x.dtype} {tuple(x.shape)} on {x.device}")
     num_p = rays8.shape[0]
-    _, wh, ecap = tables.shape
+    t, wh, ecap = tables.shape
+    if columns.shape != (t, ecap, wh) or wh % 4 or columns.data_ptr() % 16:
+        raise ValueError(f"lane_traverse: columns {tuple(columns.shape)} are not the 16-byte "
+                         f"aligned [T, ecap, wh] of tables {tuple(tables.shape)} (wh % 4 == 0)")
     if rays8.shape != (num_p, 8, 128) or state.shape[0] != num_p or state.shape[2] != 128:
         raise ValueError(f"lane_traverse: rays8 {tuple(rays8.shape)} and state "
                          f"{tuple(state.shape)} are not [num_p, 8 | 5 + stack, 128]")
     if not 1 <= state.shape[1] - 5 <= MAX_STACK:
         raise ValueError(f"lane_traverse: stack depth {state.shape[1] - 5} outside "
                          f"[1, {MAX_STACK}]")
-    if not 1 <= ecap <= MAX_ECAP or wh < max(56, 12 * lw + 1) or lw < 1:
+    if not 1 <= ecap <= MAX_ECAP or wh < max(56, 12 * lw + 1) or not 1 <= lw <= MAX_LEAFW:
         raise ValueError(f"lane_traverse: tables [T, {wh}, {ecap}] do not hold leaf width {lw}")
 
 
-def lane_traverse(tables, rays8, state, root_tid: int, *, lw: int, any_hit: bool,
+def lane_traverse(tables, columns, rays8, state, root_tid: int, *, lw: int, any_hit: bool,
                   budget: int = 0, no_switch: bool = False):
     """K5: resume every ray's treelet traversal from ``state`` (see the
-    module docstring). Returns (out, state_out).
+    module docstring). ``tables`` and ``columns`` are a TreeletBVH's two
+    layouts of the same words. Returns (out, state_out).
 
-    CPU tensors run ``trace_lane_plain``; CUDA tensors launch the kernel
-    or raise.
+    CPU tensors run ``trace_lane_plain`` on ``tables``; CUDA tensors launch
+    the kernel on ``columns`` or raise.
     """
     global launch_count
     if rays8.device.type == "cpu":
@@ -387,7 +396,7 @@ def lane_traverse(tables, rays8, state, root_tid: int, *, lw: int, any_hit: bool
                                 budget=budget, no_switch=no_switch)
     if rays8.device.type != "cuda":
         raise ValueError(f"lane_traverse: unsupported device {rays8.device}")
-    _check_operands(tables, rays8, state, lw)
+    _check_operands(tables, columns, rays8, state, lw)
     lib = _cuda_build.load_library("lane_trace")
     fn = lib.lane_trace_launch
     fn.argtypes = _ARGTYPES
@@ -399,7 +408,7 @@ def lane_traverse(tables, rays8, state, root_tid: int, *, lw: int, any_hit: bool
         return out, state_out
     t, wh, ecap = tables.shape
     stream = torch.cuda.current_stream(rays8.device).cuda_stream
-    err = fn(tables.data_ptr(), t, wh, ecap, lw, rays8.data_ptr(), state.data_ptr(),
+    err = fn(columns.data_ptr(), t, wh, ecap, lw, rays8.data_ptr(), state.data_ptr(),
              out.data_ptr(), state_out.data_ptr(), num_p, int(root_tid), state.shape[1] - 5,
              int(budget), int(no_switch), int(any_hit), stream)
     if err != 0:
@@ -432,9 +441,9 @@ def trace_rays_lane(tb: TreeletBVH, packed: PackedPairs, rays: Rays, active=None
         raise ValueError(f"trace_rays_lane: {num} rays is not a multiple of 128")
     if state is None:
         state = init_state(tb.root_tid, rays.tmax, active, stack)
-    out, state_out = lane_traverse(tb.tables, rays8_of(rays, active), state, int(tb.root_tid),
-                                   lw=tb.leaf_width, any_hit=any_hit, budget=budget,
-                                   no_switch=no_switch)
+    out, state_out = lane_traverse(tb.tables, tb.columns, rays8_of(rays, active), state,
+                                   int(tb.root_tid), lw=tb.leaf_width, any_hit=any_hit,
+                                   budget=budget, no_switch=no_switch)
     t = out[:, 0, :].reshape(num)
     tri = f2i(out[:, 1, :]).reshape(num)
     want = out[:, 7, :].reshape(num)
@@ -501,43 +510,58 @@ def trace_rays_lane_restart(tb: TreeletBVH, packed: PackedPairs, rays: Rays, act
     return _finish(packed, rays, t, tri, box, trit, want, any_hit, raw)
 
 
+def _row(out, k: int):
+    """Out row ``k`` (a count) per ray, as int32."""
+    return out[:, k, :].reshape(-1).to(torch.int32)
+
+
+def _take_packets(block, perm):
+    """The rays of a [num_p, rows, 128] block in the order ``perm`` (new ray
+    i is old ray perm[i]). Each ray's words are gathered as one contiguous
+    row of the per-ray transpose: a gather straight in the packet layout
+    reads every word from another 32-byte sector and measured slower on the
+    card (PERF.md)."""
+    return _per_packet(_per_ray(block)[perm])
+
+
 def _resume_rounds(tb, packed, rays, active, any_hit, raw, rounds, stack):
     """Suspend/resume rounds shared by the wave and phase drivers. Each
     round is (budget, no_switch). Between rounds, rays flagged for stack
     overflow restart from the root with their (t, tri) standing, and rays
-    are regrouped by the treelet they want next (finished rays last)."""
+    are regrouped by the treelet they want next (finished rays last). Only
+    the flagged rays' states are rewritten, and the rounds end early once
+    no ray wants more work (a later launch would change nothing)."""
     num = rays.origin.shape[0]
-    num_p = num // 128
     dev = rays.origin.device
     root = int(tb.root_tid)
+    rays8 = rays8_of(rays, active)
+    state = init_state(root, rays.tmax, active, stack)
     orig = torch.arange(num, device=dev)
-    cur_rays, cur_act, state = rays, active, None
     box = torch.zeros((num,), dtype=torch.int32, device=dev)
     trit = torch.zeros((num,), dtype=torch.int32, device=dev)
-    srows = 5 + stack
-    row = torch.arange(srows, device=dev)[None, :]
     for i, (b, ns) in enumerate(rounds):
-        (t, tri), st2, out, state = trace_rays_lane(
-            tb, packed, cur_rays, active=cur_act, any_hit=any_hit, raw=True, budget=b,
-            state=state, no_switch=ns, stack=stack)
-        box = box + st2.box_tests
-        trit = trit + st2.tri_tests
-        want = out[:, 7, :].to(torch.int32).reshape(num)
+        out, state = lane_traverse(tb.tables, tb.columns, rays8, state, root, lw=tb.leaf_width,
+                                   any_hit=any_hit, budget=b, no_switch=ns)
+        box = box + _row(out, 2)
+        trit = trit + _row(out, 3)
+        want = _row(out, 7)
         if i == len(rounds) - 1:
             break
-        mxd = out[:, 6, :].to(torch.int32).reshape(num)
-        ovf = (want > 0) & (mxd > stack - 8)
-        pst = _per_ray(state)
+        ovf = (want > 0) & (_row(out, 6) > stack - 8)
         # overflowed rays: row 0 -> root entry, rows 3.. -> empty; tbest and
         # tribest (rows 1-2) stand
-        reset = torch.where(row == 0, (root << 9) | 1, torch.where(row < 3, pst, 0))
-        pst = torch.where(ovf[:, None], reset, pst).to(torch.int32)
+        flagged = torch.nonzero(ovf).reshape(-1)
+        pk, lane = flagged // 128, flagged % 128
+        state[pk, 0, lane] = (root << 9) | 1
+        state[pk, 3:, lane] = 0
         want = torch.where(ovf, root + 1, want)
+        if not bool((want > 0).any()):
+            break
         perm = torch.sort(torch.where(want > 0, want, _BIG), stable=True).indices
-        state = _per_packet(pst[perm])
-        cur_rays = cur_rays.take(perm)
+        state, rays8 = _take_packets(state, perm), _take_packets(rays8, perm)
         box, trit, orig = box[perm], trit[perm], orig[perm]
-        cur_act = None  # liveness rides in the state
+    t = out[:, 0, :].reshape(num)
+    tri = f2i(out[:, 1, :]).reshape(num)
     inv = torch.argsort(orig)
     return _finish(packed, rays, t[inv], tri[inv], box[inv], trit[inv], want[inv], any_hit, raw)
 
