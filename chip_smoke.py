@@ -6,6 +6,10 @@
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
+    python3 chip_smoke.py --k6-baseline OLD/tpu_raytracing_torch/csrc/fat_traverse.cu
+                                       # every phase; phase 9 also times an
+                                       # earlier K6 source beside K6 (the
+                                       # flag may be given more than once)
 
 Drives ``tpu_raytracing_torch`` only (no JAX, no ``tpu_raytracing``) and
 exits non-zero if any phase fails:
@@ -79,12 +83,22 @@ exits non-zero if any phase fails:
    the device's busy share of it and the kernels with the most device
    time.
 9. K6 against its plain version on the card, bit for bit on all six
-   outputs: on the sphere and soup(2000) fixtures (pairs off and on;
-   camera, axis-aligned, random and half-dead ray sets) and on 65,536 live
-   rays sampled evenly from each pass of the phase-8 frame. K6's hits on
-   4,096 bounce rays are held to brute force and to the scalar
-   ``trace_rays`` on the same tree. Then both are timed on the 1M bounce
-   pass (or the sample, as in phase 7).
+   outputs and the overflow flag, and so are its clock64-profiled form and
+   the profiled one-thread-per-ray kernel it replaced
+   (``fat_traverse_cycles``): on the sphere and soup(2000) fixtures (pairs
+   off and on; camera, axis-aligned, random and half-dead ray sets), on
+   65,536 live rays sampled evenly from each pass of the phase-8 frame,
+   and on the tie fixtures: every triangle of terrain(32) and soup(2000)
+   twice, pairs off and on, the same ray sets and rays of tmax = F32_MAX.
+   K6's hits on 4,096 bounce rays are held to brute force and to the
+   scalar ``trace_rays`` on the same tree. Then K6 (and, with
+   ``--k6-baseline``, each earlier source) is timed on each of the frame's
+   four passes as the tiled tracer hands them over, held to the plain
+   version on every ray of each, with each pass's bound, pops per live
+   ray, triangle tests per pop and per live ray, and two clock64 splits
+   per live ray (node loads and box tests; the Tri entries; sort, push and
+   pop): K6's, taken by the warp, and the replaced kernel's, taken per
+   lane; the plain version is timed on the bounce pass.
 10. ``kernel_v`` 5, 4 and 2 (the reference's K3, v4 and K4) on phase 3's
    bounce pass: each launches K1, with t and tri bit-equal to
    ``kernel_v=3``, and v2's statistics have v2's shape.
@@ -180,7 +194,6 @@ T_RTOL = 1e-5
 # rounding, and neighbours sharing an edge tie on t.
 BRUTE_AGREE = 0.995
 MIN_PSNR = 40.0
-PLAIN_LIMIT_S = 120.0
 PASSES = ("primary", "primary shadow", "bounce", "bounce shadow")
 # The bench frame's tracers (make_frame_tracers' keys) in PASSES' order,
 # each with its hit kind.
@@ -1037,8 +1050,16 @@ def binary_path(device, card: str, dev_scene, camera, triangles, split_img) -> d
                 **out)
 
 
+def fat_mismatches(kout, pout) -> list:
+    """Words of hit, t, prim, tri, u and v on which two K6 runs differ, and
+    whether their overflow flags differ."""
+    return ([int((k.view(torch.int32) != p.view(torch.int32)).sum())
+             for k, p in zip(kout[:6], pout[:6])] + [int(int(kout[6]) != int(pout[6]))])
+
+
 class FatAgreement:
-    """K6 against its plain version, bit for bit on all six outputs."""
+    """K6 against its plain version, bit for bit on all six outputs and the
+    overflow flag; so are both forms of ``fat_traverse_cycles``."""
 
     def __init__(self):
         self.max_abs_err = 0.0
@@ -1047,21 +1068,45 @@ class FatAgreement:
         ops = fat_traverse.kernel_operands(rays, active)
         kout = fat_traverse.fat_traverse(rows256, *ops)
         pout = fat_traverse.trace_fat_plain(rows256, *ops)
-        torch.cuda.synchronize()
-        bad = [int((k.view(torch.int32) != p.view(torch.int32)).sum())
-               for k, p in zip(kout[:6], pout[:6])]
+        bad = fat_mismatches(kout, pout)
+        for per_thread in (False, True):
+            other = fat_mismatches(fat_traverse.fat_traverse_cycles(
+                rows256, *ops, per_thread=per_thread), pout)
+            require(sum(other) == 0, f"{label}: fat_traverse_cycles(per_thread={per_thread}) "
+                                     f"!= plain on {other}")
         hit = kout[0] != 0
         if bool(hit.any()):
             self.max_abs_err = max(self.max_abs_err, float((kout[1] - pout[1])[hit].abs().max()))
         hits = int(hit.sum())
         print(f"  {label:<34} rays={hit.shape[0]:>7} hits={hits:>7} mismatches "
-              f"hit/t/prim/tri/u/v={bad} overflow={int(kout[6])}/{int(pout[6])}")
+              f"hit/t/prim/tri/u/v/overflow={bad} overflow={int(kout[6])}/{int(pout[6])}; "
+              f"both profiled forms bit-equal")
         require(sum(bad) == 0, f"{label}: K6 != plain on {bad}")
         require(int(kout[6]) == int(pout[6]) == 0, f"{label}: stack overflow")
         return hits
 
 
-def fat_checks(device, card: str, binary: dict, triangles) -> dict:
+def fat_tie_fixtures(device, agree: FatAgreement, rng) -> None:
+    """K6 against its plain version where rows hold exact t ties: every
+    triangle of terrain(32) and of soup(2000) twice, pairs off and on, on
+    the camera, axis-aligned, random and half-dead rays and on the random
+    rays with tmax = F32_MAX ("unbounded")."""
+    for name, base in (("terrain32x2", procedural.terrain(32)),
+                       ("soup2000x2", procedural.random_triangle_soup(2000, seed=1))):
+        scene = dataclasses.replace(base, triangles=np.repeat(base.triangles, 2, axis=0))
+        tris = torch.as_tensor(scene.triangles, device=device)
+        sets = fixture_rays(scene, device, rng)
+        rays = sets["random"][0]
+        sets["unbounded"] = (Rays(rays.origin, rays.direction, rays.tmin,
+                                  torch.full_like(rays.tmax, F32_MAX)), None)
+        for pairs in (False, True):
+            bvh, tp = lbvh.build_lbvh(tris, pairs)
+            rows = fat_traverse.pad_rows_256(wide.build_wide_fat(bvh, pack_pairs(tp).rows).rows)
+            for set_name, (rays, active) in sets.items():
+                agree.check(f"{name} pairs={int(pairs)} {set_name}", rows, rays, active)
+
+
+def fat_checks(device, card: str, binary: dict, triangles, baselines=()) -> dict:
     """Phase 9."""
     print("phase 9: K6 against its plain version on the card")
     agree = FatAgreement()
@@ -1082,6 +1127,7 @@ def fat_checks(device, card: str, binary: dict, triangles) -> dict:
         print(f"  terrain1M {name}: {rays.origin.shape[0]} of {n_live} live rays")
         hits = agree.check(f"terrain1M {name}", rows256, rays, None)
         require(hits > 0, f"terrain1M {name}: no ray of the sample hits, so it checks nothing")
+    fat_tie_fixtures(device, agree, rng)
 
     # K6's hits against brute force and the scalar tracer on the same tree
     n_sample = samples["bounce"].origin.shape[0]
@@ -1107,54 +1153,109 @@ def fat_checks(device, card: str, binary: dict, triangles) -> dict:
                 f"K6 and brute force disagree on {key} for {count} rays")
     require(bad_hit_s == 0 and bad_t_s == 0, "K6 and the scalar tracer disagree")
     require(int(stats.overflow) == 0 and int(sstats.overflow) == 0, "stack overflow")
-    timing = time_fat_bounce(rows256, binary["passes"][2], samples["bounce"], card)
+    timing = time_fat_passes(rows256, binary["passes"], card, baselines)
     print(f"  K6 launch count after the comparisons = {fat_traverse.launch_count} "
           f"(binary path: {binary['launches']})")
     return dict(max_abs_err=agree.max_abs_err, **timing)
 
 
-def time_fat_bounce(rows256, bounce_call, sample: Rays, card: str) -> dict:
-    """K6 and its plain version on the 1M bounce pass, in the order the
-    tiled tracer hands them to K6, by CUDA events (K6: mean of 5 after a
-    warm-up; plain: one run), or on the sample if the plain version would
-    take over PLAIN_LIMIT_S; then the bound from the plain version's
-    counts."""
-    sops = fat_traverse.kernel_operands(sample)
-    sample_ms, _ = event_ms(lambda: fat_traverse.trace_fat_plain(rows256, *sops), 1, warm=False)
-    rays, active = bounce_call["rays"], bounce_call["active"]
-    num = rays.origin.shape[0]
-    estimate_s = sample_ms / 1000.0 * num / sample.origin.shape[0]
-    where = "1M bounce pass"
+class BaselineK6:
+    """An earlier K6 source given by ``--k6-baseline``: the same C entry,
+    ``fat_traverse_launch``. Called as ``fat_traverse`` is; it counts no
+    launch."""
+
+    def __init__(self, source: Path, index: int):
+        self.source = source
+        self.name = f"fat_traverse_baseline{index}"
+
+    def __call__(self, rows, origin, direction, tmin, tmax):
+        _cuda_build.load_library(self.name, self.source)
+        return fat_traverse._launch("fat_traverse_launch", fat_traverse._ARGTYPES, rows, origin,
+                                    direction, tmin, tmax, library=self.name)
+
+
+def fat_pass_operands(call):
+    """K6's operands for one pass of the binary frame in the order the tiled
+    tracer hands them over (16 x 8 screen tiles), and the live mask in that
+    order."""
+    rays, active = call["rays"], call["active"]
     tiled = Rays(*(tile_reorder(getattr(rays, f), RES, RES, 16, 8)
                    for f in ("origin", "direction", "tmin", "tmax")))
-    ops = fat_traverse.kernel_operands(tiled, tile_reorder(active, RES, RES, 16, 8))
-    live = int(active.sum())
-    if estimate_s > PLAIN_LIMIT_S:
-        where = f"{sample.origin.shape[0]}-ray bounce sample (plain estimated {estimate_s:.0f} s)"
-        ops, num, live = sops, sample.origin.shape[0], sample.origin.shape[0]
-    ms, kout = event_ms(lambda: fat_traverse.fat_traverse(rows256, *ops), 5)
-    plain_ms, pout = event_ms(lambda: fat_traverse.trace_fat_plain(rows256, *ops), 1, warm=False)
-    bad = sum(int((k.view(torch.int32) != p.view(torch.int32)).sum())
-              for k, p in zip(kout[:6], pout[:6]))
-    print(f"  {where}: {num} rays ({live} live); K6 {ms!r} ms, plain {plain_ms!r} ms, "
-          f"out mismatches {bad}  [{card}]")
-    require(bad == 0, f"{where}: K6 != plain")
-    # bound: box tests of non-empty entries and triangle tests run; rays in
-    # (32 B), results out (24 B), the node words (256 B) of each row visited
-    # and the pair words (64 B) of each Tri entry whose box a ray entered
-    counts = {}
-    fat_traverse.trace_fat_plain(rows256, *ops, counts=counts)
-    n_ops = (float(counts["box_tests"].sum()) * SLAB_OPS
-             + float(counts["tri_tests"].sum()) * MT_OPS)
-    n_rows, n_tri = int(counts["visited"].sum()), int(counts["visited_tri"].sum())
-    nbytes = num * (32 + 24) + n_rows * 256 + n_tri * 64
-    b = bound(n_ops, nbytes)
-    pops = counts["pops"].float()
-    print(f"  K6 bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
-          f"{n_rows} rows, {n_tri} Tri entries); pops per ray mean {float(pops.mean()):.2f} "
-          f"max {int(pops.max())}, box tests {int(counts['box_tests'].sum())}, "
-          f"triangle tests {int(counts['tri_tests'].sum())}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+    live = (torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
+            if active is None else tile_reorder(active, RES, RES, 16, 8))
+    return fat_traverse.kernel_operands(tiled, live), live
+
+
+def time_fat_passes(rows256, passes, card: str, baselines=()) -> dict:
+    """K6 on each of the binary frame's four passes, on the operands the
+    tiled tracer hands it: K6 and any baselines, CUDA-event ms (mean of 5
+    launches after a warm one), each bit-equal to the plain version on every
+    ray; both clock64 splits and triangle tests run per live ray
+    (``fat_traverse_cycles``: K6's by the warp, the replaced kernel's per
+    lane) from one launch each; the bound from the plain version's
+    counts, counted as phase 4 counts K1's; pops per live
+    ray and triangle tests per pop and per live ray. Then the plain version
+    is timed on the bounce pass (one run). Returns K6's numbers on the
+    bounce pass, which stand for it in the kernels line."""
+    kernels = {"K6": fat_traverse.fat_traverse}
+    for b in baselines:
+        kernels[f"{b.name} ({Path(b.source).name})"] = b
+    totals = dict.fromkeys(kernels, 0.0)
+    res = {}
+    for name, call in zip(PASSES, passes):
+        ops, live = fat_pass_operands(call)
+        num, n_live = ops[0].shape[0], int(live.sum())
+        counts = {}
+        pout = fat_traverse.trace_fat_plain(rows256, *ops, counts=counts)
+        times = {}
+        for label, fn in kernels.items():
+            ms, kout = event_ms(lambda: fn(rows256, *ops), 5)
+            bad = fat_mismatches(kout, pout)
+            require(sum(bad) == 0 and int(kout[6]) == 0,
+                    f"1M {name} pass: {label} and plain disagree ({bad}) or overflow")
+            times[label] = ms
+            totals[label] += ms
+        splits = []
+        for per_thread, label in ((False, "K6, by the warp"),
+                                  (True, "the one-thread-per-ray kernel, per lane")):
+            *kout, cycles, tests = fat_traverse.fat_traverse_cycles(rows256, *ops,
+                                                                    per_thread=per_thread)
+            bad = fat_mismatches(kout, pout)
+            require(sum(bad) == 0, f"1M {name} pass: {label}: profiled form != plain on {bad}")
+            if per_thread:
+                require(torch.equal(tests, counts["tri_tests"].to(tests)),
+                        f"1M {name} pass: {label}: triangle tests != the plain version's")
+            per_ray = cycles[:, live].double().mean(dim=1).tolist()
+            whole = sum(per_ray)
+            splits.append(f"{label} {whole:.0f} cycles: " + ", ".join(
+                f"{phase} {c:.0f} ({100.0 * c / whole:.1f}%)"
+                for phase, c in zip(fat_traverse.PHASES, per_ray))
+                + f"; triangle tests run {float(tests[live].double().mean())!r}")
+        # bound: box tests of non-empty entries and triangle tests run; rays in
+        # (32 B), results out (24 B), the node words (256 B) of each row visited
+        # and the pair words (64 B) of each Tri entry whose box a ray entered
+        n_box, n_tri = float(counts["box_tests"].sum()), float(counts["tri_tests"].sum())
+        n_ops = n_box * SLAB_OPS + n_tri * MT_OPS
+        n_rows, n_entries = int(counts["visited"].sum()), int(counts["visited_tri"].sum())
+        nbytes = num * (32 + 24) + n_rows * 256 + n_entries * 64
+        b = bound(n_ops, nbytes)
+        pops = float(counts["pops"][live].sum())
+        tri_live = float(counts["tri_tests"][live].sum())
+        print(f"  1M {name} pass: {num} rays ({n_live} live): "
+              + ", ".join(f"{label} {ms!r} ms" for label, ms in times.items())
+              + f"; bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
+              f"{n_rows} rows, {n_entries} Tri entries); per live ray: pops {pops / n_live!r}, "
+              f"triangle tests {tri_live / n_live!r}; triangle tests per pop {tri_live / pops!r}; "
+              f"bit-equal to plain  [{card}]")
+        for line in splits:
+            print(f"    clock64 per live ray, {line}  [{card}]")
+        res[name] = dict(ms=times["K6"], **b)
+    print("  on the four passes: " + ", ".join(f"{label} {ms!r} ms a frame"
+                                               for label, ms in totals.items()) + f"  [{card}]")
+    ops, _ = fat_pass_operands(passes[2])
+    plain_ms, _ = event_ms(lambda: fat_traverse.trace_fat_plain(rows256, *ops), 1, warm=False)
+    print(f"  plain version on the 1M bounce pass: {plain_ms!r} ms  [{card}]")
+    return dict(plain_ms=plain_ms, **res["bounce"])
 
 
 def split_versions(split: dict) -> dict:
@@ -1347,6 +1448,11 @@ def main(argv=None) -> int:
                         help="an earlier csrc/lane_trace.cu (the same C interface over the "
                              "reference's tables layout) to build, check against K5 and time "
                              "beside it in phase 7")
+    parser.add_argument("--k6-baseline", type=Path, metavar="SOURCE", action="append",
+                        default=[],
+                        help="an earlier csrc/fat_traverse.cu (the same fat_traverse_launch) "
+                             "to build, check against K6 and time beside it in phase 9; "
+                             "may be given more than once")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1367,6 +1473,9 @@ def main(argv=None) -> int:
     if args.k5_baseline is not None:
         baseline = BaselineK5(args.k5_baseline.resolve())
         sources[BaselineK5.NAME] = baseline.source
+    baselines6 = [BaselineK6(src.resolve(), i) for i, src in enumerate(args.k6_baseline)]
+    for b in baselines6:
+        sources[b.name] = b.source
     _cuda_build.load_libraries(LIBRARIES + list(sources), sources)
     print(f"phase 2: built {', '.join(n + '.cu' for n in LIBRARIES)}"
           f"{''.join(f' and {src} (as {n})' for n, src in sources.items())} in parallel in "
@@ -1394,7 +1503,7 @@ def main(argv=None) -> int:
     k5 = lane_checks(device, card, lane, triangles, baseline)
     del lane
     binary = binary_path(device, card, dev_scene, camera, triangles, split["img"])
-    k6 = fat_checks(device, card, binary, triangles)
+    k6 = fat_checks(device, card, binary, triangles, baselines6)
     versions = split_versions(split)
     probes = probe_phase(device, card)
 

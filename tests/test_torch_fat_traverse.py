@@ -11,6 +11,7 @@ tests/test_torch_traverse.py for why).
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from tpu_raytracing.trace.traverse import pack_pairs as jpack_pairs  # noqa: E40
 from tpu_raytracing_torch import convert  # noqa: E402
 from tpu_raytracing_torch.bvh import lbvh, wide  # noqa: E402
 from tpu_raytracing_torch.ops import fat_traverse as ft  # noqa: E402
+from tpu_raytracing_torch.scene import procedural  # noqa: E402
 from tpu_raytracing_torch.trace import split_trace  # noqa: E402
 from tpu_raytracing_torch.trace.brute import brute_force_trace  # noqa: E402
 from tpu_raytracing_torch.trace.traverse import pack_bvh, pack_pairs, trace_rays  # noqa: E402
@@ -96,6 +98,35 @@ def test_plain_matches_pallas_kernel(name, request, pallas_pt):
     assert int(stats.overflow) == 0 and not stats.box_tests.any() and not stats.tri_tests.any()
 
 
+@pytest.mark.parametrize("pairs", [False, True])
+def test_plain_matches_pallas_within_row_ties(pairs, pallas_pt):
+    """Four terrain triangles, each given twice: the fat tree is one row of 8
+    Tri entries whose duplicates tie exactly on t. With one row the packet's
+    child order plays no part, so the plain version and the Pallas kernel
+    must name the same triangle of every tie (the later test wins an equal
+    t). 64 camera rays, then the same rays with tmax = F32_MAX."""
+    tris = np.repeat(procedural.terrain(2).triangles[:4], 2, axis=0)
+    scene = types.SimpleNamespace(triangles=tris, aabb_min=tris.min(axis=(0, 1)),
+                                  aabb_max=tris.max(axis=(0, 1)))
+    jb, jp = _jbuild(jnp.asarray(tris), enable_pairs=pairs)
+    fat = jax.jit(jwide.build_wide_fat)(jb, jpack_pairs(jp).rows)
+    assert int(fat.num_nodes) == 1
+    o, d, tmin, tmax = _camera_arrays(scene, 8, 8)
+    arrays = (np.concatenate([o, o]), np.concatenate([d, d]), np.concatenate([tmin, tmin]),
+              np.concatenate([tmax, np.full_like(tmax, np.finfo(np.float32).max)]))
+    jr, tr = both_rays(arrays)
+    ref, _ = pallas_pt.trace_rays_pallas(pallas_pt.pad_rows_256(fat.rows), jr)
+    rec, _ = ft.trace_rays_fat(_port_tree(scene, pairs)[2], tr)
+    hit = rec.hit.numpy()
+    assert hit.sum() > 32
+    for f in ("hit", "tri_id", "prim_id"):
+        np.testing.assert_array_equal(getattr(rec, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    # every hit is a tie, and the later duplicate (odd leaf) names it
+    assert (rec.tri_id.numpy()[hit] % 4 >= 2).all()
+    assert_hits_match(rec, ref)
+
+
 def test_pallas_active_mask(cornell, pallas_pt):
     """Dead rays (tmax = -1) hit nothing; live ones as the reference's."""
     jb, jp = _jbuild(jnp.asarray(cornell.triangles), enable_pairs=True)
@@ -163,7 +194,8 @@ def test_stack_overflow_flag_raises(sphere, monkeypatch):
 
 def test_tiled_tracer_and_routing(cornell):
     """make_fat_tracer tiles and restores a frame; CPU tensors take the
-    plain version and count no launch; other devices raise."""
+    plain version and count no launch; other devices raise, and so does the
+    cycle diagnostic off the card."""
     _, packed, rows = _port_tree(cornell, True)
     _, tr = both_rays(_camera_arrays(cornell, 32, 16))
     flat, _ = ft.trace_rays_fat(rows, tr)
@@ -176,4 +208,7 @@ def test_tiled_tracer_and_routing(cornell):
     ops = [x.to("meta") for x in (rows, *ft.kernel_operands(tr))]
     with pytest.raises(ValueError, match="unsupported device"):
         ft.fat_traverse(*ops)
+    with pytest.raises(ValueError, match="only on the card"):
+        ft.fat_traverse_cycles(rows, *ft.kernel_operands(tr))
     assert ft.STACK == 155 and ft.pad_rows_256(rows[:, :192]).shape == rows.shape
+

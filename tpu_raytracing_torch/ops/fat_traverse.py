@@ -9,7 +9,9 @@ Port of ``tpu_raytracing/ops/pallas_traverse.py`` (``pad_rows_256``,
 ``trace_fat_plain``, the same per-ray algorithm vectorised over rays in
 PyTorch; given CUDA tensors it launches the kernel or raises. The two agree
 bit for bit on all six outputs (the kernel is built with ``-fmad=false``
-and keeps the plain version's operation order).
+and keeps the plain version's operation order). ``fat_traverse_cycles``
+is a diagnostic on the card: the clock64 split of K6's pop phases, or of
+the one-thread-per-ray kernel K6 replaced.
 
 What is computed, per ray, from wide row 0: per pop, the slab test of all
 8 entries, ``(back >= front) & (front <= t) & (back >= tmin)`` with the
@@ -77,6 +79,8 @@ _PLAIN_CHUNK = 1 << 18
 # K6 launches since the count was last set to 0: fat_traverse adds one
 # where it launches the kernel and nowhere else.
 launch_count = 0
+# clock64 phases of fat_traverse_cycles, in the order of its cycles rows
+PHASES = ("node loads and box tests", "Tri entries", "sort, push and pop")
 
 
 def pad_rows_256(rows: torch.Tensor) -> torch.Tensor:
@@ -254,6 +258,7 @@ def trace_fat_plain(rows, origin, direction, tmin, tmax, counts: Optional[dict] 
 
 
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_PROFILE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int] + [ctypes.c_void_p] * 2
 
 
 def _check_operands(rows, origin, direction, tmin, tmax) -> None:
@@ -277,6 +282,30 @@ def _check_operands(rows, origin, direction, tmin, tmax) -> None:
         raise ValueError("fat_traverse: ray arrays disagree in shape")
 
 
+def _launch(entry: str, argtypes, rows, origin, direction, tmin, tmax, *extra,
+            library: str = "fat_traverse"):
+    """Launches a C entry of the built ``library``; returns (hit, t, prim,
+    tri, u, v, overflow [1])."""
+    _check_operands(rows, origin, direction, tmin, tmax)
+    fn = getattr(_cuda_build.load_library(library), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    num = origin.shape[0]
+    dev = origin.device
+    out = [torch.empty((num,), dtype=dt, device=dev) for dt in (
+        torch.int32, torch.float32, torch.int32, torch.int32, torch.float32, torch.float32)]
+    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if num == 0:
+        return (*out, overflow)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(rows.data_ptr(), origin.data_ptr(), direction.data_ptr(), tmin.data_ptr(),
+             tmax.data_ptr(), *(x.data_ptr() for x in out), overflow.data_ptr(), num, STACK,
+             *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"fat_traverse kernel launch failed: cudaError {err}")
+    return (*out, overflow)
+
+
 def fat_traverse(rows, origin, direction, tmin, tmax):
     """K6: closest hit of every ray over padded fat rows (see the module
     docstring). rows [W, 256] i32 from ``pad_rows_256``, origin/direction
@@ -292,26 +321,26 @@ def fat_traverse(rows, origin, direction, tmin, tmax):
         return trace_fat_plain(rows, origin, direction, tmin, tmax)
     if origin.device.type != "cuda":
         raise ValueError(f"fat_traverse: unsupported device {origin.device}")
-    _check_operands(rows, origin, direction, tmin, tmax)
-    lib = _cuda_build.load_library("fat_traverse")
-    fn = lib.fat_traverse_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    num = origin.shape[0]
-    dev = origin.device
-    out = [torch.empty((num,), dtype=dt, device=dev) for dt in (
-        torch.int32, torch.float32, torch.int32, torch.int32, torch.float32, torch.float32)]
-    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
-    if num == 0:
-        return (*out, overflow)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(rows.data_ptr(), origin.data_ptr(), direction.data_ptr(), tmin.data_ptr(),
-             tmax.data_ptr(), *(x.data_ptr() for x in out), overflow.data_ptr(), num, STACK,
-             stream)
-    if err != 0:
-        raise RuntimeError(f"fat_traverse kernel launch failed: cudaError {err}")
+    out = _launch("fat_traverse_launch", _ARGTYPES, rows, origin, direction, tmin, tmax)
     launch_count += 1
-    return (*out, overflow)
+    return out
+
+
+def fat_traverse_cycles(rows, origin, direction, tmin, tmax, *, per_thread: bool = False):
+    """A diagnostic on CUDA tensors, off every frame path: ``fat_traverse``'s
+    outputs from K6's clock64-profiled form, then the [3, R] int64 cycles
+    each ray spent in the ``PHASES`` (the warp's time at each phase's end,
+    booked to every ray in the pop) and the [R] triangle tests run for each
+    ray. With ``per_thread``, the same from the one-thread-per-ray kernel K6
+    replaced, split per lane (a lane books its wait for other lanes'
+    triangles to its own next phase). Counts no K6 launch."""
+    if origin.device.type != "cuda":
+        raise ValueError("fat_traverse_cycles: cycle counts exist only on the card")
+    cycles = torch.zeros((len(PHASES) + 1, origin.shape[0]), dtype=torch.int64,
+                         device=origin.device)
+    out = _launch("fat_traverse_profile_launch", _PROFILE_ARGTYPES, rows, origin, direction,
+                  tmin, tmax, int(per_thread), cycles.data_ptr())
+    return (*out, cycles[:len(PHASES)], cycles[len(PHASES)])
 
 
 def kernel_operands(rays: Rays, active=None):
