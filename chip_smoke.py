@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check, render.
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --k1-only    # phases 1-4
+    python3 chip_smoke.py --k1-only    # phases 1-4 and 12
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
@@ -40,7 +40,27 @@ exits non-zero if any phase fails:
    is timed on each of the frame's four passes as the frame launches it,
    held to the plain version on every ray of each, with each pass's bound
    and mean pops per live ray; the plain version is timed on the bounce
-   pass. ``--k1-only`` stops here.
+   pass. Phase 12 runs next; ``--k1-only`` stops after it.
+12. The frame-0 binned-SAH trace tree (``bench.py:175-228``) on phase 3's
+   scene with pairs and 64-pair windows, with no fallback: a failed build,
+   or one past its deadline, fails the phase. One build through
+   ``build_sah_split`` with its ``stats`` (setup, frontier, emit seconds;
+   the frontier's level count; the deepest anchor's depth) and the peak
+   memory; ``check_sah_split_capacity``; the Tri
+   entries' windows must tile [0, num_leaves) exactly once, and
+   ``refit_split`` must give back the emitted box words (as floats); the
+   tree's depth in rows must match its deepest anchor. The same build of
+   terrain(65,536), pairs on, splits off and on, on the card and on the
+   CPU: integer words and pair rows bit-equal, box words equal as floats.
+   Then the bench frame on the SAH tree (``sah_split_views``, K1 on all
+   four passes, the ``leaf`` bounce sort, phase 3's camera and seeds): one
+   warm frame and 2 timed; K1 must launch on every pass, no ray may
+   overflow the tree's stack bound, and the image must be finite and
+   within 40 dB PSNR of phase 3's; one profiled frame. K1 is held to its
+   plain version on every ray of each of the four passes and timed there,
+   as in phase 4, and its hits on 4,096 primary and 4,096 bounce rays to
+   brute force over the 1M triangles (0.5% may differ; a different
+   triangle at exactly the same t counts as agreement).
 5. Treelet build at 1M: ``build_treelet_auto`` on the phase-3 front (one
    warm build, 2 timed), its capacity check, and ``pair_tid`` equal to
    ``build_pair_tid`` on every pair.
@@ -162,7 +182,7 @@ from tpu_raytracing_torch.benchmarks import (  # noqa: E402
     probe_lane_machine2,
     probe_lane_machine3,
 )
-from tpu_raytracing_torch.bvh import bucket, lbvh, treelet, wide  # noqa: E402
+from tpu_raytracing_torch.bvh import bucket, lbvh, split_convert, treelet, wide  # noqa: E402
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
 from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
 from tpu_raytracing_torch.scene import camera as cam  # noqa: E402
@@ -194,6 +214,10 @@ T_RTOL = 1e-5
 # rounding, and neighbours sharing an edge tie on t.
 BRUTE_AGREE = 0.995
 MIN_PSNR = 40.0
+# The SAH build's deadline (bench.py's TPURT_SAH_BUDGET_S is 1500) and the
+# scene size of its card-against-CPU check.
+SAH_BUDGET_S = 300.0
+CPU_CHECK_TRIS = 65_536
 PASSES = ("primary", "primary shadow", "bounce", "bounce shadow")
 # The bench frame's tracers (make_frame_tracers' keys) in PASSES' order,
 # each with its hit kind.
@@ -446,10 +470,9 @@ class Agreement:
         self.max_abs_err = 0.0
 
     def check(self, label, views, rays, active, any_hit, leafw=split_trace.LEAFW) -> int:
-        inner, pairs = views
+        inner, pairs, stack_cap = views
         ops = split_trace.kernel_operands(rays, active)
-        kw = dict(leafw=leafw, any_hit=any_hit,
-                  stack_cap=split_trace._stack_cap(inner.shape[1], pairs.shape[0]))
+        kw = dict(leafw=leafw, any_hit=any_hit, stack_cap=stack_cap)
         kout = split_trace.split_traverse(inner, pairs, *ops, **kw)
         pout = split_trace.trace_split_plain(inner, pairs, *ops, **kw)
         torch.cuda.synchronize()
@@ -539,16 +562,16 @@ def pass_operands(key: str, cap: Capture):
     return split_trace.kernel_operands(rays, active), active
 
 
-def time_passes(views, captured: dict, card: str) -> dict:
-    """K1 on each of the bench frame's four passes, as the frame launches
-    it: CUDA-event ms (mean of 5 launches after a warm one), bit-equal to
-    the plain version on every ray, the bound from the plain version's
-    counts and the mean inner and leaf pops per live ray. Then the plain
-    version is timed on the bounce pass (one run). Returns the bounce
-    pass's numbers, which stand for K1 in the kernels line."""
-    inner, pairs = views
+def time_passes(views, captured: dict, card: str, label: str = "1M") -> dict:
+    """K1 on each of a frame's four passes, as the frame launches it:
+    CUDA-event ms (mean of 5 launches after a warm one), bit-equal to the
+    plain version on every ray, the bound from the plain version's counts
+    and the mean inner and leaf pops per live ray. Then the plain version
+    is timed on the bounce pass (one run). Returns the bounce pass's
+    numbers, which stand for K1 in the kernels line, and each pass's."""
+    inner, pairs, stack_cap = views
     w = inner.shape[1]
-    kw = dict(leafw=split_trace.LEAFW, stack_cap=split_trace._stack_cap(w, pairs.shape[0]))
+    kw = dict(leafw=split_trace.LEAFW, stack_cap=stack_cap)
     out, total_ms = {}, 0.0
     for (key, any_hit), name in zip(FRAME_TRACERS, PASSES):
         ops, live = pass_operands(key, captured[key])
@@ -559,7 +582,7 @@ def time_passes(views, captured: dict, card: str) -> dict:
                                              visited=visited)
         bad = k1_mismatches(kout, pout)
         require(sum(bad.values()) == 0 and int(kout[4]) == 0,
-                f"1M {name} pass: K1 and plain disagree ({bad}) or overflow {int(kout[4])}")
+                f"{label} {name} pass: K1 and plain disagree ({bad}) or overflow {int(kout[4])}")
         # bound: every inner pop tests w boxes, every leaf pop 2 * LEAFW
         # triangles; rays in (32 B), results out (16 B), each inner row
         # (w * 32 B) and pair row (64 B) visited once
@@ -572,18 +595,19 @@ def time_passes(views, captured: dict, card: str) -> dict:
         ipops = float(kout[2][live].float().mean())
         lpops = float(kout[3][live].float().mean())
         total_ms += ms
-        print(f"  1M {name} pass: {num} rays ({int(live.sum())} live), any_hit={int(any_hit)}: "
+        print(f"  {label} {name} pass: {num} rays ({int(live.sum())} live), "
+              f"any_hit={int(any_hit)}: "
               f"K1 {ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, "
               f"{nbytes} bytes: {n_inner} inner rows, {n_pairs} pair rows); pops per live ray "
               f"inner {ipops!r} leaf {lpops!r}; bit-equal to plain  [{card}]")
-        out[name] = dict(ms=ms, **b)
+        out[name] = dict(ms=ms, inner_pops=ipops, leaf_pops=lpops, **b)
     print(f"  K1 on the four passes: {total_ms!r} ms a frame  [{card}]")
     ops, _ = pass_operands("bounce_tracer", captured["bounce_tracer"])
     plain_ms, _ = event_ms(
         lambda: split_trace.trace_split_plain(inner, pairs, *ops, any_hit=False, **kw), 1,
         warm=False)
-    print(f"  plain version on the 1M bounce pass: {plain_ms!r} ms  [{card}]")
-    return dict(plain_ms=plain_ms, **out["bounce"])
+    print(f"  plain version on the {label} bounce pass: {plain_ms!r} ms  [{card}]")
+    return dict(plain_ms=plain_ms, passes=out, **out["bounce"])
 
 
 def tie_fixtures(device, agree: Agreement, rng) -> None:
@@ -639,6 +663,143 @@ def k1_checks(device, card: str, split: dict) -> dict:
     print(f"  K1 launch count after the comparisons = {split_trace.launch_count} "
           f"(main path: {split['launches']})")
     return dict(max_abs_err=agree.max_abs_err, **timing)
+
+
+def same_split(a, b) -> dict:
+    """Words on which two SAH split trees differ: the inner rows' integer
+    words (meta, pad) and e_ranges bit for bit, their box words as floats
+    (so -0.0 == +0.0), the sorted pair rows bit for bit, and the counts."""
+    (sa, pa), (sb, pb) = a, b
+    ia, ib = sa.inner.cpu().reshape(-1, 8), sb.inner.cpu().reshape(-1, 8)
+    return {
+        "shape": int(ia.shape != ib.shape or pa.rows.shape != pb.rows.shape),
+        "int_words": int((ia[:, 6:] != ib[:, 6:]).sum()),
+        "box_words": int((i2f(ia[:, :6]) != i2f(ib[:, :6])).sum()),
+        "e_ranges": int((sa.e_ranges.cpu() != sb.e_ranges.cpu()).sum()),
+        "pair_rows": int((pa.rows.cpu() != pb.rows.cpu()).sum()),
+        "counts": int(int(sa.num_inner) != int(sb.num_inner)
+                      or int(sa.num_leaves) != int(sb.num_leaves)),
+    }
+
+
+def brute_check(label: str, views, packed, rays, triangles) -> None:
+    """K1's hits on sampled rays against brute force over every triangle:
+    at most 0.5% of the rays may differ on hit, t or the primitive; a
+    different primitive at exactly the same t (either triangle of an exact
+    tie) counts as agreement."""
+    tracer = split_trace.make_split_tracer(RES, RES, sort_mode="presorted")
+    rec, stats = tracer(views, packed, rays)
+    ref = brute_force_trace(triangles, rays, chunk=64)
+    num = rays.origin.shape[0]
+    both = rec.hit & ref.hit
+    bad_hit = int((rec.hit != ref.hit).sum())
+    bad_t = int((both & ((rec.t - ref.t).abs() > T_RTOL * ref.t.abs())).sum())
+    bad_prim = int((both & (rec.prim_id != ref.prim_id) & (rec.t != ref.t)).sum())
+    ties = int((both & (rec.prim_id != ref.prim_id) & (rec.t == ref.t)).sum())
+    print(f"  brute force, {num} {label} rays over {triangles.shape[0]} tris: "
+          f"{int(ref.hit.sum())} hits, mismatches hit={bad_hit} t={bad_t} prim={bad_prim} "
+          f"(exact-t ties naming the other triangle: {ties}), overflow {int(stats.overflow)}")
+    for what, count in (("hit", bad_hit), ("t", bad_t), ("prim", bad_prim)):
+        require(count <= (1.0 - BRUTE_AGREE) * num,
+                f"SAH tree: K1 and brute force disagree on {what} for {count} {label} rays")
+    require(int(stats.overflow) == 0, f"{label} brute-force sample overflowed")
+    require(int(ref.hit.sum()) > 0, f"no {label} ray of the brute-force sample hits")
+
+
+def sah_checks(device, card: str, scene, dev_scene, camera, triangles, split: dict) -> dict:
+    """Phase 12: the frame-0 binned-SAH trace tree at 1M, its checks, its
+    agreement with a CPU build, and the bench frame traced on it by K1."""
+    print("phase 12: the frame-0 binned-SAH trace tree (bench.py:175-228)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    deadline = time.monotonic() + SAH_BUDGET_S
+    stats = {}
+    t0 = time.perf_counter()
+    tree, packed = split_convert.build_sah_split(triangles, True, split_trace.LEAFW,
+                                                 deadline=deadline, stats=stats)
+    stats["build_s"] = time.perf_counter() - t0
+    build_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    split_convert.check_sah_split_capacity(tree)
+    views, packed, tree = split_convert.sah_split_views(tree, packed)
+    rows = split_convert.row_depth(tree.inner, int(tree.num_inner))
+    print(f"  {scene.num_triangles} tris, pairs: {int(tree.num_leaves)} leaves, "
+          f"{int(tree.num_inner)} inner rows of {tree.inner.shape[0]}, {stats['levels']} frontier "
+          f"levels, tree depth {stats['tree_depth']}, deepest anchor at depth "
+          f"{stats['deepest_anchor']}, {rows} rows deep, stack bound {views[2]} (the bucket "
+          f"tree's {bucket.stack_cap(8, views[1].shape[0])})")
+    require(rows == stats["deepest_anchor"] // 3 + 1,
+            f"{rows} rows deep, but the deepest anchor is at depth {stats['deepest_anchor']}")
+    for key in ("setup_s", "frontier_s", "emit_s", "build_s"):
+        print(f"  {key} = {stats[key]!r}  [{card}]")
+    print(f"  build_peak_mem_mib = {build_peak_mib!r}  [{card}]")
+
+    # the Tri entries' windows tile [0, num_leaves) exactly once
+    ni = int(tree.num_inner)
+    meta = tree.inner[:ni].reshape(-1, 8)[:, 6]
+    er = tree.e_ranges[:ni].reshape(-1, 2)[(meta & 3) == 2].to(torch.int64)
+    er = er[torch.argsort(er[:, 0])]
+    tiled = (int(er[0, 0]) == 0 and bool((er[1:, 0] == (er[:, 0] + er[:, 1])[:-1]).all())
+             and int((er[:, 0] + er[:, 1])[-1]) == int(tree.num_leaves))
+    # a refit from the emitted pair rows gives back the emitted boxes
+    refit = bucket.refit_split(tree, packed)
+    box_bad = int((i2f(refit.inner.reshape(-1, 8)[:, :6])
+                   != i2f(tree.inner.reshape(-1, 8)[:, :6])).sum())
+    print(f"  check_sah_split_capacity passed; {er.shape[0]} Tri entries tile the leaves: "
+          f"{tiled}; refit_split box words differing as floats: {box_bad}")
+    require(tiled, "the SAH tree's Tri entries do not tile [0, num_leaves) exactly once")
+    require(box_bad == 0, f"refit_split changes {box_bad} box words of the emitted SAH tree")
+
+    # the same build on the card and on the CPU
+    small = torch.as_tensor(procedural.terrain(CPU_CHECK_TRIS).triangles)
+    for splits in (False, True):
+        card_tree = split_convert.build_sah_split(small.to(device), True, split_trace.LEAFW,
+                                                  enable_splits=splits)
+        cpu_tree = split_convert.build_sah_split(small, True, split_trace.LEAFW,
+                                                 enable_splits=splits)
+        bad = same_split(card_tree, cpu_tree)
+        print(f"  terrain({CPU_CHECK_TRIS}) pairs=1 splits={int(splits)}: "
+              f"{int(cpu_tree[0].num_inner)} inner rows, card against CPU: {bad}")
+        require(sum(bad.values()) == 0, f"SAH build differs between the card and the CPU: {bad}")
+
+    # the bench frame on the SAH tree: K1 on all four passes, leaf sort
+    torch.cuda.reset_peak_memory_stats()
+    tracers = split_trace.make_frame_tracers(RES, RES)
+    captured = {k: Capture(v) for k, v in tracers.items()}
+    recorders = {k: PassRecorder(v, split_trace) for k, v in captured.items()}
+    split_trace.launch_count = 0
+    frame = frame_fn(views, packed, dev_scene, camera, device, **recorders)
+    frame(0, 0.0, sort_kind="leaf")
+    img, frame_ms, total_rays = timed_frames(frame, sort_kind="leaf")
+    launches = split_trace.launch_count
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    calls = [c for r in recorders.values() for c in r.calls]
+    overflowed = int(sum(int(c["overflow"].sum()) for c in calls))
+    require(all(c["launches"] > 0 for c in calls) and len(calls) == 4 * (ITERS + 1),
+            f"{len(calls)} tracer calls, launches {[c['launches'] for c in calls]}")
+    require(launches >= 4 * (ITERS + 1), f"K1 launched {launches} times in {ITERS + 1} frames")
+    require(overflowed == 0, f"{overflowed} passes overflowed a K1 stack")
+    require(bool(torch.isfinite(img).all()), "SAH frame has non-finite pixels")
+    db = psnr(img, split["img"])
+    out = dict(frame_ms=frame_ms, mrays_per_s=total_rays / (frame_ms * ITERS) / 1000.0,
+               peak_mem_mib=peak_mib, psnr_vs_bucket_db=db)
+    print(f"  SAH frame: {RES}x{RES}, {BOUNCES} bounce, leaf bounce sort, K1 on every pass, "
+          f"{total_rays} rays in {ITERS} frames")
+    for key, val in out.items():
+        print(f"  {key} = {val!r}  [{card}]")
+    print(f"  K1 launches in {ITERS + 1} SAH frames = {launches}")
+    require(db >= MIN_PSNR, f"SAH frame {db:.2f} dB against the bucket frame (< {MIN_PSNR})")
+    profile_frame("SAH", frame_fn(views, packed, dev_scene, camera, device, **tracers), card,
+                  sort_kind="leaf")
+
+    # K1 against its plain version on every ray of each pass, and brute force
+    timing = time_passes(views, captured, card, label="SAH 1M")
+    for label, key in (("primary", "tracer"), ("bounce", "bounce_tracer")):
+        rays, active = captured[key].rays, captured[key].active
+        idx = (torch.arange(rays.origin.shape[0], device=device) if active is None
+               else torch.nonzero(active).reshape(-1))
+        pick = idx[torch.linspace(0, idx.shape[0] - 1, BRUTE_RAYS, device=device).round().long()]
+        brute_check(label, views, packed, rays.take(pick), triangles)
+    return dict(launches=launches, **timing)
 
 
 def treelet_build(card: str, front) -> dict:
@@ -1494,8 +1655,9 @@ def main(argv=None) -> int:
     triangles = torch.as_tensor(scene.triangles, device=device)
     split = split_path(device, card, scene, dev_scene, camera, triangles)
     k1 = k1_checks(device, card, split)
+    sah_frame = sah_checks(device, card, scene, dev_scene, camera, triangles, split)
     if args.k1_only:
-        print("chip_smoke: stopped after phase 4 (--k1-only)")
+        print("chip_smoke: stopped after phases 4 and 12 (--k1-only)")
         return 0
     treelet_build(card, split["front"])
     lane = lane_path(device, card, dev_scene, camera, triangles, split["img"])
@@ -1518,7 +1680,8 @@ def main(argv=None) -> int:
     # on the bounce pass (phase 4) serve the versions it stands in for
     sp = "tpu_raytracing/trace/split_pallas.py"
     print(json.dumps({"kernels": [
-        entry("split_trace", "split_trace.cu", f"{sp}:143", split["launches"], k1),
+        entry("split_trace", "split_trace.cu", f"{sp}:143",
+              split["launches"] + sah_frame["launches"], k1),
         entry("split_trace kernel_v=4", "split_trace.cu", f"{sp}:541", versions[4], k1),
         entry("split_trace kernel_v=5", "split_trace.cu", f"{sp}:898", versions[5], k1),
         entry("split_trace kernel_v=2", "split_trace.cu", f"{sp}:1250", versions[2], k1),

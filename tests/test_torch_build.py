@@ -15,6 +15,7 @@ from tpu_raytracing.bvh import lbvh as jlbvh  # noqa: E402
 from tpu_raytracing.bvh import pairing as jpairing  # noqa: E402
 from tpu_raytracing.ops import morton as jmorton  # noqa: E402
 from tpu_raytracing.scene import procedural  # noqa: E402
+from tpu_raytracing.trace import split_pallas as jsplit_pallas  # noqa: E402
 from tpu_raytracing.trace.traverse import PackedPairs as JPackedPairs  # noqa: E402
 from tpu_raytracing_torch.bvh import bucket as tbucket  # noqa: E402
 from tpu_raytracing_torch.bvh import lbvh as tlbvh  # noqa: E402
@@ -103,8 +104,9 @@ def test_fused_sorted_pairs_bit_equal(scene, pairs):
 @pytest.mark.parametrize("scene", ["cornell", "sphere", "soup", "terrain"])
 def test_emit_split_views_bit_equal(scene):
     (inner_i, inner_v, pairs_f), jpacked, jsplit = _jax_views(scene)
-    (inner, pairs), packed, split = _port_views(scene, debug=True)
+    (inner, pairs, stack_cap), packed, split = _port_views(scene, debug=True)
     w = inner.shape[1]
+    assert stack_cap == jsplit_pallas._stack_cap(w, pairs.shape[0])
     np.testing.assert_array_equal(jsplit.inner, split.inner.numpy())
     assert int(jsplit.num_inner) == int(split.num_inner)
     assert int(jsplit.num_leaves) == int(split.num_leaves)

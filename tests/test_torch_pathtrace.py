@@ -197,7 +197,7 @@ def test_path_trace_binary_tracers_match_jax(cornell_state, binary_reference, mo
     assert _psnr(ref_img, img.numpy()) >= 40.0
 
 
-def test_path_trace_bounce_frame_and_overflow(cornell_state, monkeypatch):
+def test_path_trace_bounce_frame_and_overflow(cornell_state):
     s = cornell_state
     args = (s["views"], s["packed"], s["tscene"], s["camera"], 24, 10)
     img, rays_traced = tpt.path_trace(*args, num_bounces=1, **st.make_frame_tracers(24, 10))
@@ -213,9 +213,8 @@ def test_path_trace_bounce_frame_and_overflow(cornell_state, monkeypatch):
         bucket.split_front(torch.from_numpy(sphere.triangles), True), leaf_width=st.LEAFW)
     scam = tcam.camera_to_device(
         tcam.update_camera(tcam.initialise_camera(sphere.aabb_min, sphere.aabb_max)), "cpu")
-    monkeypatch.setattr(st, "_stack_cap", lambda w, n: 1)
     with pytest.raises(RuntimeError, match="stack overflow"):
-        tpt.path_trace(sviews, spacked, scene_to_device(sphere, "cpu"), scam, 24, 10,
+        tpt.path_trace((*sviews[:2], 1), spacked, scene_to_device(sphere, "cpu"), scam, 24, 10,
                        num_bounces=1, tracer=st.make_split_tracer(24, 10))
     # the tid sort needs a treelet id per pair; with one, the image stands
     with pytest.raises(ValueError, match="needs pair_loc"):
@@ -236,7 +235,7 @@ def test_app_renders_and_refuses_unported_flags(tmp_path):
               "--debug-checks", "--output", str(tmp_path)])
     img = read_png(str(tmp_path / "frame0000_pt.png"))
     assert img.shape == (10, 24, 4) and img[..., :3].max() > 0
-    for extra in (["--type", "sah"], ["--tracer", "wide"], ["--tracer", "packet"],
+    for extra in (["--type", "hybrid"], ["--tracer", "wide"], ["--tracer", "packet"],
                   ["--animate"], ["--bounces", "0"],
                   ["--render-mode", "3"], ["--refit-bound", "1.5"], ["--grid-scale", "2"]):
         argv = ["--scene", "cornell", "--type", "bottom-up", "--tracer", "split", "--bounces",
@@ -245,17 +244,23 @@ def test_app_renders_and_refuses_unported_flags(tmp_path):
             app.main(argv)
 
 
-@pytest.mark.parametrize("tracer", ["scalar", "split", "lane"])
-def test_app_prints_hierarchy_stats(tmp_path, capsys, tracer):
-    """Frame 0 builds the Karras tree for every tracer and prints the
-    reference app's block (tpu_raytracing/app/main.py:223-234)."""
+@pytest.mark.parametrize("build_type,tracer", [
+    ("bottom-up", "scalar"), ("bottom-up", "split"), ("bottom-up", "lane"),
+    ("sah", "scalar"), ("sah", "split"), ("sah", "lane")],
+    ids=["scalar", "split", "lane", "sah-scalar", "sah-split", "sah-lane"])
+def test_app_prints_hierarchy_stats(tmp_path, capsys, build_type, tracer):
+    """Frame 0 builds the ``--type`` tree (Karras or binned SAH) for every
+    tracer and prints the reference app's block
+    (tpu_raytracing/app/main.py:223-234)."""
+    from tpu_raytracing.bvh import sah as jsah
     from tpu_raytracing.bvh import verify as jverify
     from tpu_raytracing_torch.app import main as app
 
-    app.main(["--scene", "cornell", "--type", "bottom-up", "--tracer", tracer, "--bounces", "1",
+    app.main(["--scene", "cornell", "--type", build_type, "--tracer", tracer, "--bounces", "1",
               "--width", "16", "--height", "8", "--device", "cpu", "--output", str(tmp_path)])
     out = capsys.readouterr()
-    jb, _ = jax.jit(jlbvh.build_lbvh)(jnp.asarray(tproc.cornell_box().triangles))
+    build = jsah.build_sah if build_type == "sah" else jlbvh.build_lbvh
+    jb, _ = jax.jit(build)(jnp.asarray(tproc.cornell_box().triangles))
     ref = jverify.count_nodes(jb)
     assert (f"Hierarchy stats\n  num nodes:      {ref.num_nodes}\n"
             f"  num tree nodes: {ref.num_tree_nodes}\n"
@@ -278,10 +283,11 @@ def test_port_imports_and_renders_without_jax(tmp_path):
             importlib.import_module(name)
         assert not any(k.startswith("tpu_raytracing.") for k in sys.modules)
         from tpu_raytracing_torch.app.main import main
-        for tracer in ("split", "lane"):
-            main(["--scene", "cornell", "--type", "bottom-up", "--pairs", "--tracer", tracer,
+        for build_type, tracer in (("bottom-up", "split"), ("bottom-up", "lane"),
+                                   ("sah", "split")):
+            main(["--scene", "cornell", "--type", build_type, "--pairs", "--tracer", tracer,
                   "--bounces", "1", "--width", "16", "--height", "16", "--device", "cpu",
-                  "--output", {str(tmp_path)!r} + "/" + tracer])
+                  "--output", {str(tmp_path)!r} + "/" + build_type + "-" + tracer])
         print("modules", len(names))
     """)
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
@@ -290,8 +296,10 @@ def test_port_imports_and_renders_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "modules" in proc.stdout
     from tpu_raytracing_torch.utils.png import read_png
-    split, lane = (read_png(str(tmp_path / t / "frame0000_pt.png")) for t in ("split", "lane"))
-    # both tracers find the same closest hits, and the bounce samples are
+    split, lane, sah = (read_png(str(tmp_path / t / "frame0000_pt.png"))
+                        for t in ("bottom-up-split", "bottom-up-lane", "sah-split"))
+    # the tracers find the same closest hits, and the bounce samples are
     # drawn per pixel, so the frames agree
     assert split.shape == (16, 16, 4) and split[..., :3].max() > 0
     np.testing.assert_array_equal(lane, split)
+    np.testing.assert_array_equal(sah, split)

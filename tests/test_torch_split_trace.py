@@ -216,13 +216,12 @@ def test_kernel_v2_stats_and_refusals(sphere):
         st.trace_rays_split(views, packed, tr, kernel_v=5, raw=True)
 
 
-def test_stack_overflow_flag_raises(sphere, monkeypatch):
+def test_stack_overflow_flag_raises(sphere):
     views, packed = _port_tree(sphere, True)
     _, tr = _both(*_camera_rays(sphere, 16, 8))
     rec, stats = st.trace_rays_split(views, packed, tr)
     st.check_overflow(stats.overflow)  # the derived bound holds
-    monkeypatch.setattr(st, "_stack_cap", lambda w, n: 2)
-    _, stats = st.trace_rays_split(views, packed, tr)
+    _, stats = st.trace_rays_split((*views[:2], 2), packed, tr)
     assert int(stats.overflow) == 1
     with pytest.raises(RuntimeError, match="stack overflow"):
         st.check_overflow(stats.overflow)
@@ -235,12 +234,12 @@ def test_wrapper_routes_by_device(sphere):
     _, tr = _both(*_camera_rays(sphere, 16, 8))
     ops = st.kernel_operands(tr)
     before = st.launch_count
-    out = st.split_traverse(*views, *ops, leafw=st.LEAFW, any_hit=False, stack_cap=64)
-    ref = st.trace_split_plain(*views, *ops, leafw=st.LEAFW, any_hit=False, stack_cap=64)
+    out = st.split_traverse(*views[:2], *ops, leafw=st.LEAFW, any_hit=False, stack_cap=64)
+    ref = st.trace_split_plain(*views[:2], *ops, leafw=st.LEAFW, any_hit=False, stack_cap=64)
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert st.launch_count == before
-    meta = [x.to("meta") for x in (*views, *ops)]
+    meta = [x.to("meta") for x in (*views[:2], *ops)]
     with pytest.raises(ValueError, match="unsupported device"):
         st.split_traverse(*meta, leafw=st.LEAFW, any_hit=False, stack_cap=64)
 
@@ -309,8 +308,8 @@ def test_check_operands_refuses_leafw(sphere, leafw):
     wrapper refuses any other width before a launch."""
     views, _ = _port_tree(sphere, True)
     ops = st.kernel_operands(_both(*_camera_rays(sphere, 16, 8))[1])
-    stack_cap = st._stack_cap(views[0].shape[1], views[1].shape[0])
+    inner, pairs, stack_cap = views
     for ok in (1, st.LEAFW, st.MAX_LEAFW):
-        st._check_operands(*views, *ops, ok, stack_cap)
+        st._check_operands(inner, pairs, *ops, ok, stack_cap)
     with pytest.raises(ValueError, match="leafw"):
-        st._check_operands(*views, *ops, leafw, stack_cap)
+        st._check_operands(inner, pairs, *ops, leafw, stack_cap)

@@ -1,6 +1,7 @@
 """CLI argument parsing (reference: src/Arguments.cpp:42-63).
 
-Port of ``tpu_raytracing/app/args.py``: the flags of the scalar, split and lane paths, with
+Port of ``tpu_raytracing/app/args.py``: the flags of the scalar, split and lane paths
+(``--type sah|bottom-up``, ``--pairs``, ``--splits``), with
 the reference's defaults and confirmation printout, plus ``--device``. The
 reference's other flags are accepted only to be refused: each is recorded
 in ``args.unported``, and ``app/main.py`` raises "not yet ported" for them
@@ -16,7 +17,7 @@ from tpu_raytracing_torch.trace.modes import BuildType
 # Reference flags whose paths are not ported yet, with the number of values
 # each takes.
 UNPORTED_FLAGS = {
-    "--splits": 0, "--render-mode": 1, "--cycle-modes": 0, "--animate": 0, "--refit": 0,
+    "--render-mode": 1, "--cycle-modes": 0, "--animate": 0, "--refit": 0,
     "--refit-bound": 1, "--refit-interval": 1, "--grid-scale": 1, "--profile-build": 0,
     "--interactive": 0,
 }
@@ -36,8 +37,10 @@ def parse_cmd(argv=None) -> argparse.Namespace:
                    help="OBJ scene file (or use --scene)")
     p.add_argument("--type", dest="build_type", default="sah",
                    choices=[b.value for b in BuildType],
-                   help="acceleration-structure build pipeline (the port has: bottom-up)")
+                   help="acceleration-structure build pipeline (the port has: sah, bottom-up)")
     p.add_argument("--pairs", action="store_true", help="enable triangle pairing")
+    p.add_argument("--splits", action="store_true",
+                   help="enable bounded spatial splits (SAH builds only)")
     p.add_argument("--scene", default=None,
                    help="procedural scene: cornell | sphere[:subdiv] | soup:N | terrain:N")
     p.add_argument("--width", type=int, default=1024)
@@ -65,4 +68,5 @@ def parse_cmd(argv=None) -> argparse.Namespace:
     print("Build options")
     print(f"  type:    {args.build_type.value}")
     print(f"  pairs:   {'true' if args.pairs else 'false'}")
+    print(f"  splits:  {'true' if args.splits else 'false'}")
     return args

@@ -4,7 +4,8 @@ Port of the split path of ``tpu_raytracing/bvh/bucket.py``: ``SplitBVH``,
 ``_sorted_leaves``, ``split_front``, ``leaf_major_tables``,
 ``classify_split``, ``_range_min_table``, ``_range_lookup``, ``_inner_cap``,
 ``check_inner_capacity``, ``check_split_capacity``, ``emit_split_views``
-and ``refit_split``. Every pass is a dense tensor op over the sorted leaves,
+and ``refit_split``, and ``trace/split_pallas.py:_stack_cap`` as
+``stack_cap``. Every pass is a dense tensor op over the sorted leaves,
 as in the reference; the outputs (``inner``, ``num_inner``, ``e_ranges``,
 ``max_slot``, pair rows) are bit-equal to the reference's.
 
@@ -16,7 +17,8 @@ flip, ``nonzero(size=, fill_value=)`` a truncate-and-pad to ``ecap``, and
 The kernel views use the port's own layout, with none of the reference's
 128-lane padding (a Mosaic DMA rule, ``split_pallas.py:120-126``):
 ``inner`` [ICAP, 8, 8] int32 and ``pairs`` [P_pad, 16] int32 with
-P_pad >= max(P, leaf_width), so no leaf window reads past the end.
+P_pad >= max(P, leaf_width), so no leaf window reads past the end, and the
+tracer's stack bound for the tree.
 
 ``bvh/invariants.py``'s ``checkify`` checks become host checks behind
 ``emit_split_views(..., debug=True)``.
@@ -271,12 +273,23 @@ def _check_invariants(valid_e, e_j, wid_parent, num_inner, icap: int, width: int
         raise RuntimeError("bucket inner rows overflow the static bound")
 
 
+def stack_cap(w: int, num_pair_rows: int) -> int:
+    """The split tracer's stack bound for a bucket tree (port of
+    ``trace/split_pallas.py:_stack_cap``): a pop pushes at most w-1 entries
+    that outlive it, and depth is bounded by the build's level count (1
+    root + ceil(30/bits) Morton levels + ceil(log_w n) chunk levels). It
+    does not hold for an SAH tree (``split_convert.sah_stack_cap``)."""
+    bits = w.bit_length() - 1
+    max_levels = 2 + -(-30 // bits) + math.ceil(math.log(max(num_pair_rows, 2), w))
+    return (w - 1) * max_levels + 8
+
+
 def emit_split_views(front, leaf_width: int = 16, debug: bool = False):
     """Emit the SplitBVH and the traversal kernel's views from a
     ``split_front`` result.
 
-    Returns ((inner [ICAP, 8, 8] i32, pairs [P_pad, 16] i32), packed,
-    split). Inner rows are 8 wide, the width the tracer takes (the
+    Returns ((inner [ICAP, 8, 8] i32, pairs [P_pad, 16] i32, stack_cap),
+    packed, split). Inner rows are 8 wide, the width the tracer takes (the
     reference's ``inner_width=16`` is not ported). ``debug`` runs the build
     invariants on the host and raises on a violation.
     """
@@ -366,7 +379,8 @@ def emit_split_views(front, leaf_width: int = 16, debug: bool = False):
         [rows_live, torch.zeros((p_pad - n, 16), dtype=torch.int32, device=dev)])
     split = SplitBVH(inner=inner, num_inner=num_inner, num_leaves=num_leaves,
                      leaf_width=leaf_width, e_ranges=e_ranges, max_slot=max_slot)
-    return (inner.reshape(icap, width, 8), pairs), PackedPairs(rows=rows_live), split
+    views = (inner.reshape(icap, width, 8), pairs, stack_cap(width, p_pad))
+    return views, PackedPairs(rows=rows_live), split
 
 
 def refit_split(split: SplitBVH, packed: PackedPairs) -> SplitBVH:

@@ -14,6 +14,7 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from tpu_raytracing_torch.bvh.bucket import SplitBVH, stack_cap
 from tpu_raytracing_torch.bvh.treelet import TreeletBVH
 from tpu_raytracing_torch.bvh.types import BVH
 from tpu_raytracing_torch.bvh.wide import FatWideBVH, WideBVH
@@ -49,9 +50,12 @@ def packed_from_numpy(rows, device) -> PackedPairs:
     return PackedPairs(rows=_t(np.asarray(rows, np.int32), device))
 
 
-def split_views_from_numpy(inner_i, inner_v, pairs_f, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference kernel views (``split_pallas.prep_split_views`` or
-    ``bucket.emit_split_views``) -> the port's ``(inner, pairs)``.
+def split_views_from_numpy(inner_i, inner_v, pairs_f,
+                           device) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The reference kernel views of a bucket tree
+    (``bucket.emit_split_views``) -> the port's ``(inner, pairs,
+    stack_cap)``, with the bucket tree's stack bound (``bucket.stack_cap``).
+    An SAH tree comes over with ``sah_split_from_numpy``.
 
     Strips the 128-lane Mosaic padding: ``inner_i`` [ICAP, 128] keeps its
     first w*8 words as [ICAP, w, 8] (w from ``inner_v`` [ICAP, w, 128]);
@@ -63,7 +67,21 @@ def split_views_from_numpy(inner_i, inner_v, pairs_f, device) -> Tuple[torch.Ten
     w = np.asarray(inner_v).shape[1]
     inner = inner_i[:, : w * 8].reshape(inner_i.shape[0], w, 8)
     pairs = np.asarray(pairs_f, np.float32).view(np.int32)[:, :16]
-    return _t(inner, device), _t(pairs, device)
+    return _t(inner, device), _t(pairs, device), stack_cap(w, pairs.shape[0])
+
+
+def sah_split_from_numpy(fields: Mapping, rows, device) -> Tuple[SplitBVH, PackedPairs]:
+    """``tpu_raytracing.bvh.split_convert.build_sah_split``'s ``SplitBVH``
+    as a mapping of numpy arrays (``inner``, ``num_inner``, ``num_leaves``,
+    ``e_ranges``, ``leaf_width``) and its ``PackedPairs.rows`` -> the port's
+    (``SplitBVH``, ``PackedPairs``); ``bvh/split_convert.sah_split_views``
+    makes K1's views of them."""
+    split = SplitBVH(inner=_t(np.asarray(fields["inner"], np.int32), device),
+                     num_inner=_t(np.asarray(fields["num_inner"], np.int64), device),
+                     num_leaves=_t(np.asarray(fields["num_leaves"], np.int64), device),
+                     leaf_width=int(fields["leaf_width"]),
+                     e_ranges=_t(np.asarray(fields["e_ranges"], np.int32), device))
+    return split, packed_from_numpy(rows, device)
 
 
 def treelet_from_numpy(fields: Mapping, device) -> TreeletBVH:

@@ -1,7 +1,7 @@
 """Split-BVH traversal: the K1 kernel's wrapper, its plain version, and the
 tracer front end.
 
-Port of ``tpu_raytracing/trace/split_pallas.py`` (``_stack_cap``, ``LEAFW``,
+Port of ``tpu_raytracing/trace/split_pallas.py`` (``LEAFW``,
 ``trace_rays_split_pallas`` -> ``trace_rays_split``,
 ``make_split_pallas_tracer`` -> ``make_split_tracer`` with ``sort_mode``
 None and ``"presorted"``) and of ``tpu_raytracing/trace/wide_fat.py:
@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
 
 import torch
 
@@ -71,15 +70,6 @@ _PLAIN_CHUNK = 1 << 16
 # K1 launches since the count was last set to 0: split_traverse adds one
 # where it launches the kernel and nowhere else.
 launch_count = 0
-
-
-def _stack_cap(w: int, num_pair_rows: int) -> int:
-    """Stack bound: a pop pushes at most w-1 entries that outlive it, and
-    depth is bounded by the build's level count (1 root + ceil(30/bits)
-    Morton levels + ceil(log_w n) chunk levels, bvh/bucket.py)."""
-    bits = w.bit_length() - 1
-    max_levels = 2 + -(-30 // bits) + math.ceil(math.log(max(num_pair_rows, 2), w))
-    return (w - 1) * max_levels + 8
 
 
 def _mt(a, b, c, o, d, tmn, t_cur):
@@ -321,7 +311,8 @@ def check_overflow(overflow: torch.Tensor) -> None:
     if int(overflow.sum()) != 0:
         raise RuntimeError(
             "traversal stack overflow: a split-BVH ray needed more than the stack "
-            "bound (trace/split_trace.py:_stack_cap), a scalar or fat wide-BVH ray more "
+            "bound its views carry (bvh/bucket.py:stack_cap, "
+            "bvh/split_convert.py:sah_stack_cap), a scalar or fat wide-BVH ray more "
             "than its stack (trace/traverse.py, ops/fat_traverse.py), and was stopped, or "
             "a lane ray was still unfinished after its recovery rounds "
             "(trace/lane_trace.py)")
@@ -380,10 +371,11 @@ KERNEL_V = 3
 def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
                      any_hit: bool = False, kernel_v: int = KERNEL_V, packet_tags=None,
                      raw: bool = False):
-    """Trace against a SplitBVH (views from bucket.emit_split_views with
-    ``leaf_width=LEAFW``); see ``kernel_operands`` for dead rays and
-    direction sanitising. Any-hit records carry ``rays.tmax`` as t.
-    ``kernel_v`` names the reference kernel (see the module docstring).
+    """Trace against a SplitBVH: ``views`` (inner, pairs, stack bound) from
+    bucket.emit_split_views or split_convert.sah_split_views, with
+    ``leaf_width=LEAFW``. See ``kernel_operands`` for dead rays and
+    direction sanitising. Any-hit records carry ``rays.tmax`` as
+    t. ``kernel_v`` names the reference kernel (see the module docstring).
     Returns (HitRecord, TraceStats).
     """
     if kernel_v < 3 and (packet_tags is not None or raw):
@@ -391,11 +383,11 @@ def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
     if packet_tags is not None or raw:
         raise NotImplementedError("packet_tags and raw (the binned and instanced tracers' "
                                   "inputs) are not yet ported")
-    inner, pairs = views
+    inner, pairs, stack_cap = views
     w = inner.shape[1]
     t, tri, ipops, lpops, overflow = split_traverse(
         inner, pairs, *kernel_operands(rays, active), leafw=LEAFW, any_hit=any_hit,
-        stack_cap=_stack_cap(w, pairs.shape[0]))
+        stack_cap=stack_cap)
     if any_hit:
         t = rays.tmax
     if kernel_v < 3:
