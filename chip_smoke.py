@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --k1-only    # phases 1-4 and 12
+    python3 chip_smoke.py --app-only   # phases 1, 2 and 13 (with phase 9's fixtures)
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
@@ -141,12 +142,42 @@ exits non-zero if any phase fails:
    with the lanes on one column, on 128 conflict-free columns and on 128
    columns 4 to a bank, beside how the reference's chains fall on the
    banks.
+13. The app's default run (``tpu_raytracing/app/args.py:23,34,56,59``:
+   ``--type sah --tracer wide --bounces 0``), called in this process
+   through ``app/main.py:main``: first with no flags at all (cornell,
+   1024x768, mode 0, ``out/frame0000_mode0.png``); then on phase 3's scene
+   with ``--pairs --cycle-modes --width 1024 --height 768 --frames 2``:
+   the SAH binary build and the fat collapse timed by the app's
+   ``StageTimer``, the tree's binary depth, each mode's frame (render and
+   read-back), the 18 PNGs read back at full size (all but LODS opaque;
+   each mode's frames 0 and 1 equal), and K6's counting launches set to 0
+   before and read after: every mode must launch the counting
+   instantiation, and nothing the one without counts. The default camera
+   sits at the scene's centre, on the terrain, so every mode is then also
+   rendered and timed from phase 3's aerial camera (more than a quarter
+   of each frame lit). K6's counting instantiation is held to its plain
+   version bit for bit, outputs and both counts, on 65,536 rays of the
+   primary pass and of TEXTURE_LIT_SHADOWS' shadow pass from both cameras
+   (and, with ``--app-only``, on phase 9's fixtures; in a full run phase 9
+   holds it there and on the binary frame's passes), then timed against
+   the instantiation without counts on each whole primary pass, in turns,
+   with the bound and the plain version, and held to the plain version
+   on every ray of it. ``--tracer split`` renders the nine modes of the
+   same scene, held to the wide images at 40 dB in modes 0 and 8. Last
+   the rock (``scene/genasset.py``, 6 subdivisions, 81,922 triangles and
+   a 256x256 texture): generated, parsed by the native parser (which must
+   run) and by the Python one (the same arrays), and rendered in all nine
+   modes through the app with the wide tracer and with ``--tracer
+   scalar`` (``trace_rays``) on the same SAH tree: modes 0, 3 and 5-8 at
+   40 dB or more between the two, the textured modes with more than one
+   colour. Images go to ``out/chip_smoke/`` (git-ignored).
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
 must move (rays in, results out, each structure row it visits once) over
 3.35 TB/s, the H100 SXM's published peaks, counted from the 1M bounce
-pass's per-ray statistics (for a probe: from its inputs, outputs and loop
+pass's per-ray statistics (K6's counting instantiation from the app
+frame's primary pass; for a probe: from its inputs, outputs and loop
 length at the reference's size, E2's bf16 products over the tensor cores'
 989 TFLOP/s; see each module's ``work``). The last two lines of standard
 output are a JSON summary of the kernels and ``{"ok": true, "device":
@@ -156,9 +187,12 @@ output are a JSON summary of the kernels and ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -170,6 +204,7 @@ T_PROCESS0 = time.perf_counter()
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from tpu_raytracing_torch.app import main as app_main  # noqa: E402
 from tpu_raytracing_torch.app.args import parse_cmd  # noqa: E402
 from tpu_raytracing_torch.app.main import build_trav  # noqa: E402
 from tpu_raytracing_torch.benchmarks import (  # noqa: E402
@@ -186,10 +221,11 @@ from tpu_raytracing_torch.bvh import bucket, lbvh, split_convert, treelet, wide 
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
 from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
 from tpu_raytracing_torch.scene import camera as cam  # noqa: E402
-from tpu_raytracing_torch.scene import procedural  # noqa: E402
+from tpu_raytracing_torch.scene import genasset, native_loader, objio, procedural  # noqa: E402
 from tpu_raytracing_torch.scene.types import scene_to_device  # noqa: E402
-from tpu_raytracing_torch.trace import lane_trace, split_trace  # noqa: E402
+from tpu_raytracing_torch.trace import lane_trace, render, split_trace, wide_fat  # noqa: E402
 from tpu_raytracing_torch.trace.brute import brute_force_trace  # noqa: E402
+from tpu_raytracing_torch.trace.modes import RenderType  # noqa: E402
 from tpu_raytracing_torch.trace.pathtrace import path_trace  # noqa: E402
 from tpu_raytracing_torch.trace.ray import Rays, generate_primary_rays  # noqa: E402
 from tpu_raytracing_torch.trace.packet import tile_reorder  # noqa: E402
@@ -201,6 +237,8 @@ from tpu_raytracing_torch.trace.traverse import (  # noqa: E402
     pack_pairs,
     trace_rays,
 )
+from tpu_raytracing_torch.utils.compare import psnr  # noqa: E402
+from tpu_raytracing_torch.utils.png import read_png  # noqa: E402
 
 NUM_TRIS = 1_000_000
 RES = 1024
@@ -239,6 +277,23 @@ PROBE_ITERS_CHECK = 64
 # and adds of the accept test), as the kernels compute them. bf16 products
 # with float32 sums (the one probe that does them) bound at the tensor
 # cores' dense bf16 peak.
+# Phase 13: the app's default run (tpu_raytracing/app/args.py:23,34,56,59:
+# --type sah, --tracer wide, --bounces 0) at 1024x768 on the 1M scene,
+# then the rock asset (scene/genasset.py, 81,922 triangles at 6
+# subdivisions). Its images go under out/chip_smoke/ (git-ignored).
+APP_W, APP_H = 1024, 768
+APP_FRAMES = 2
+ROCK_SUBDIVISIONS = 6
+NUM_MODES = 9
+LODS_MODE = 4
+# modes whose colour reads no texture: their images must be opaque
+NO_TEXTURE_MODES = (0, 1, 2, 3, 5)
+TEXTURED_MODES = (6, 7, 8)
+# the rock's modes held between K6 and trace_rays: not the test-count heat
+# maps (the two count differently) nor LODS (a log2 floored and times 20)
+ROCK_PSNR_MODES = (0, 3, 5, 6, 7, 8)
+SPLIT_PSNR_MODES = (0, 8)
+OUT_DIR = Path(__file__).resolve().parent / "out" / "chip_smoke"
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -278,9 +333,10 @@ def sync_ms(t0: float) -> float:
     return (time.perf_counter() - t0) * 1000.0
 
 
-def psnr(a, b) -> float:
-    mse = float(((a.clamp(0, 1) - b.clamp(0, 1)) ** 2).mean())
-    return float("inf") if mse == 0 else 10.0 * float(np.log10(1.0 / mse))
+def frame_psnr(a, b) -> float:
+    """``utils/compare.py:psnr`` of two radiance frames, each clamped to
+    [0, 1] (peak 1)."""
+    return psnr(a.clamp(0, 1).cpu().numpy(), b.clamp(0, 1).cpu().numpy(), peak=1.0)
 
 
 class Capture:
@@ -779,7 +835,7 @@ def sah_checks(device, card: str, scene, dev_scene, camera, triangles, split: di
     require(launches >= 4 * (ITERS + 1), f"K1 launched {launches} times in {ITERS + 1} frames")
     require(overflowed == 0, f"{overflowed} passes overflowed a K1 stack")
     require(bool(torch.isfinite(img).all()), "SAH frame has non-finite pixels")
-    db = psnr(img, split["img"])
+    db = frame_psnr(img, split["img"])
     out = dict(frame_ms=frame_ms, mrays_per_s=total_rays / (frame_ms * ITERS) / 1000.0,
                peak_mem_mib=peak_mib, psnr_vs_bucket_db=db)
     print(f"  SAH frame: {RES}x{RES}, {BOUNCES} bounce, leaf bounce sort, K1 on every pass, "
@@ -848,7 +904,7 @@ def lane_path(device, card: str, dev_scene, camera, triangles, split_img) -> dic
     require(all(n > 0 for n in per_call), f"a pass launched no K5: {per_call}")
     require(unfinished == 0, f"{unfinished} passes left rays unfinished")
     require(bool(torch.isfinite(img).all()), "lane frame has non-finite pixels")
-    db = psnr(img, split_img)
+    db = frame_psnr(img, split_img)
     out = dict(frame_ms=frame_ms, mrays_per_s=total_rays / (frame_ms * ITERS) / 1000.0,
                peak_mem_mib=peak_mib, psnr_vs_split_db=db)
     for key, val in out.items():
@@ -1196,7 +1252,7 @@ def binary_path(device, card: str, dev_scene, camera, triangles, split_img) -> d
     require(all(n > 0 for n in per_call), f"a pass launched no K6: {per_call}")
     require(overflowed == 0, f"{overflowed} passes overflowed a K6 stack")
     require(bool(torch.isfinite(img).all()), "binary frame has non-finite pixels")
-    db = psnr(img, split_img)
+    db = frame_psnr(img, split_img)
     out = dict(build_lbvh_ms=build_ms, build_wide_fat_ms=fat_ms, frame_ms=frame_ms,
                mrays_per_s=total_rays / (frame_ms * ITERS) / 1000.0, peak_mem_mib=peak_mib,
                psnr_vs_split_db=db)
@@ -1218,9 +1274,19 @@ def fat_mismatches(kout, pout) -> list:
              for k, p in zip(kout[:6], pout[:6])] + [int(int(kout[6]) != int(pout[6]))])
 
 
+def count_mismatches(kout, pout, counts) -> list:
+    """``fat_mismatches`` of K6's counting instantiation, then the rays on
+    which its box tests and triangle-entry tests differ from the plain
+    version's ``counts``."""
+    return fat_mismatches(kout[:7], pout) + [
+        int((kout[7] != counts["box_tests"]).sum()),
+        int((kout[8] != counts["tri_entry_tests"]).sum())]
+
+
 class FatAgreement:
     """K6 against its plain version, bit for bit on all six outputs and the
-    overflow flag; so are both forms of ``fat_traverse_cycles``."""
+    overflow flag; so are both forms of ``fat_traverse_cycles``, and K6's
+    counting instantiation on the outputs and both counts."""
 
     def __init__(self):
         self.max_abs_err = 0.0
@@ -1228,8 +1294,13 @@ class FatAgreement:
     def check(self, label, rows256, rays, active) -> int:
         ops = fat_traverse.kernel_operands(rays, active)
         kout = fat_traverse.fat_traverse(rows256, *ops)
-        pout = fat_traverse.trace_fat_plain(rows256, *ops)
+        counts = {}
+        pout = fat_traverse.trace_fat_plain(rows256, *ops, counts=counts)
         bad = fat_mismatches(kout, pout)
+        bad_count = count_mismatches(fat_traverse.fat_traverse(rows256, *ops, count=True), pout,
+                                     counts)
+        require(sum(bad_count) == 0, f"{label}: K6's counting instantiation != plain on "
+                                     f"{bad_count} (outputs, overflow, box and entry tests)")
         for per_thread in (False, True):
             other = fat_mismatches(fat_traverse.fat_traverse_cycles(
                 rows256, *ops, per_thread=per_thread), pout)
@@ -1241,7 +1312,7 @@ class FatAgreement:
         hits = int(hit.sum())
         print(f"  {label:<34} rays={hit.shape[0]:>7} hits={hits:>7} mismatches "
               f"hit/t/prim/tri/u/v/overflow={bad} overflow={int(kout[6])}/{int(pout[6])}; "
-              f"both profiled forms bit-equal")
+              f"both profiled forms and the counting form bit-equal")
         require(sum(bad) == 0, f"{label}: K6 != plain on {bad}")
         require(int(kout[6]) == int(pout[6]) == 0, f"{label}: stack overflow")
         return hits
@@ -1267,11 +1338,10 @@ def fat_tie_fixtures(device, agree: FatAgreement, rng) -> None:
                 agree.check(f"{name} pairs={int(pairs)} {set_name}", rows, rays, active)
 
 
-def fat_checks(device, card: str, binary: dict, triangles, baselines=()) -> dict:
-    """Phase 9."""
-    print("phase 9: K6 against its plain version on the card")
-    agree = FatAgreement()
-    rng = np.random.default_rng(0)
+def fat_fixture_checks(device, agree: FatAgreement, rng) -> None:
+    """K6's fixtures: the sphere and soup(2000), pairs off and on, on their
+    camera, axis-aligned, random and half-dead rays; then the tie
+    fixtures."""
     for name, scene in (("sphere", procedural.sphere_scene(3)),
                         ("soup2000", procedural.random_triangle_soup(2000, seed=1))):
         tris = torch.as_tensor(scene.triangles, device=device)
@@ -1280,6 +1350,15 @@ def fat_checks(device, card: str, binary: dict, triangles, baselines=()) -> dict
             rows = fat_traverse.pad_rows_256(wide.build_wide_fat(bvh, pack_pairs(tp).rows).rows)
             for set_name, (rays, active) in fixture_rays(scene, device, rng).items():
                 agree.check(f"{name} pairs={int(pairs)} {set_name}", rows, rays, active)
+    fat_tie_fixtures(device, agree, rng)
+
+
+def fat_checks(device, card: str, binary: dict, triangles, baselines=()) -> dict:
+    """Phase 9."""
+    print("phase 9: K6 against its plain version on the card")
+    agree = FatAgreement()
+    rng = np.random.default_rng(0)
+    fat_fixture_checks(device, agree, rng)
     rows256 = binary["rows256"]
     samples = {}
     for name, call in zip(PASSES, binary["passes"]):
@@ -1288,7 +1367,6 @@ def fat_checks(device, card: str, binary: dict, triangles, baselines=()) -> dict
         print(f"  terrain1M {name}: {rays.origin.shape[0]} of {n_live} live rays")
         hits = agree.check(f"terrain1M {name}", rows256, rays, None)
         require(hits > 0, f"terrain1M {name}: no ray of the sample hits, so it checks nothing")
-    fat_tie_fixtures(device, agree, rng)
 
     # K6's hits against brute force and the scalar tracer on the same tree
     n_sample = samples["bounce"].origin.shape[0]
@@ -1376,6 +1454,8 @@ def time_fat_passes(rows256, passes, card: str, baselines=()) -> dict:
                     f"1M {name} pass: {label} and plain disagree ({bad}) or overflow")
             times[label] = ms
             totals[label] += ms
+        bad = count_mismatches(fat_traverse.fat_traverse(rows256, *ops, count=True), pout, counts)
+        require(sum(bad) == 0, f"1M {name} pass: K6's counting instantiation != plain on {bad}")
         splits = []
         for per_thread, label in ((False, "K6, by the warp"),
                                   (True, "the one-thread-per-ray kernel, per lane")):
@@ -1407,7 +1487,7 @@ def time_fat_passes(rows256, passes, card: str, baselines=()) -> dict:
               + f"; bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: "
               f"{n_rows} rows, {n_entries} Tri entries); per live ray: pops {pops / n_live!r}, "
               f"triangle tests {tri_live / n_live!r}; triangle tests per pop {tri_live / pops!r}; "
-              f"bit-equal to plain  [{card}]")
+              f"bit-equal to plain, the counting form too  [{card}]")
         for line in splits:
             print(f"    clock64 per live ray, {line}  [{card}]")
         res[name] = dict(ms=times["K6"], **b)
@@ -1600,10 +1680,329 @@ def probe_phase(device, card: str) -> list:
     return entries
 
 
+class ModeRecorder:
+    """Wraps ``app/main.py:render_frame``: for each call, its render mode
+    and the launches of K6's counting instantiation it made."""
+
+    def __init__(self):
+        self.fn = app_main.render_frame
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        before = fat_traverse.count_launch_count
+        out = self.fn(*args, **kw)
+        self.calls.append((int(args[6]), fat_traverse.count_launch_count - before))
+        return out
+
+
+def run_app(argv):
+    """``app/main.py:main(argv)`` in this process, its ``render_frame``
+    recorded; returns (main's result, [(mode, counting launches)], wall s,
+    its standard output)."""
+    rec = ModeRecorder()
+    app_main.render_frame = rec
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = app_main.main(argv)
+    finally:
+        app_main.render_frame = rec.fn
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        if not line.startswith(("Total number of box tests", "frame ")):
+            print("    | " + line)
+    return res, rec.calls, wall, buf.getvalue()
+
+
+def mode_images(res) -> dict:
+    """{(frame, mode): [H, W, 4] uint8} read back from the app's PNGs."""
+    out = {}
+    for frame, mode, _, path in res["frames"]:
+        require(Path(path).stat().st_size > 0, f"{path} is empty")
+        out[(frame, mode)] = read_png(path)
+    return out
+
+
+def check_mode_images(label: str, images: dict, frames: int) -> str:
+    """Every mode's image decoded at full size; all but LODS (whose alpha
+    is its grey) opaque, the modes that read no texture among them.
+    Returns each frame-0 image's share of non-black pixels, to print."""
+    for (frame, mode), img in images.items():
+        require(img.shape == (APP_H, APP_W, 4), f"{label} mode {mode}: shape {img.shape}")
+        if mode != LODS_MODE:
+            require(bool((img[..., 3] == 255).all()), f"{label} mode {mode}: alpha not 255")
+    require(sorted(m for f, m in images if f == 0) == list(range(NUM_MODES))
+            and len(images) == NUM_MODES * frames, f"{label}: images {sorted(images)}")
+    return ", ".join(f"{m}: {float(images[(0, m)][..., :3].any(axis=-1).mean()):.3f}"
+                     for m in range(NUM_MODES))
+
+
+def frame_ms_by_mode(res) -> dict:
+    return {(f, m): ms for f, m, ms, _ in res["frames"]}
+
+
+def aerial_modes(card: str, res) -> dict:
+    """The app's structures rendered in every mode from phase 3's aerial
+    camera (bench.py:85-91), whose rays cross the terrain as a user's view
+    would: one warm frame and ITERS timed ones each (host clock,
+    synchronised, the image left on the card), then one DEPTH and one
+    TEXTURE_LIT_SHADOWS frame profiled. Returns the camera."""
+    bvh = res["bvh"]
+    box = dataclasses.make_dataclass("Box", ["aabb_min", "aabb_max"])(
+        bvh.node_min[0].cpu().numpy(), bvh.node_max[0].cpu().numpy())
+    camera = aerial_camera(box, bvh.node_min.device)
+    times = {}
+    for m in range(NUM_MODES):
+        def frame():
+            return render.render_frame(res["trav"], res["packed"], res["scene"], camera, APP_W,
+                                       APP_H, RenderType(m), tracer=res["tracer"])
+        img, _ = frame()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            img, tests = frame()
+        times[m] = sync_ms(t0) / ITERS
+        share = float((img[..., :3] != 0).any(dim=-1).float().mean())
+        print(f"  terrain1M wide, aerial camera, mode {m} ({RenderType(m).name}): "
+              f"{times[m]!r} ms a frame ({ITERS} frames), box tests {int(tests)}, non-black "
+              f"share {share:.3f}  [{card}]")
+        require(share > 0.25, f"aerial mode {m}: only {share:.3f} of the frame is lit")
+    for m in (RenderType.DEPTH, RenderType.TEXTURE_LIT_SHADOWS):
+        profile_frame(f"aerial mode {int(m)} ({m.name})", lambda *a, m=m: render.render_frame(
+            res["trav"], res["packed"], res["scene"], camera, APP_W, APP_H, m,
+            tracer=res["tracer"]), card)
+    return camera
+
+
+def counting_checks(card: str, res, aerial, fixtures: bool) -> dict:
+    """Phase 13 (b): K6's counting instantiation against its plain version
+    on 65,536 live rays of the app frame's primary pass and of
+    TEXTURE_LIT_SHADOWS' shadow pass, in the 8x8 tile order the wide tracer
+    hands them over, and the same from the ``aerial`` camera (with
+    ``fixtures``, also phase 9's fixtures); then both instantiations timed
+    on the whole aerial primary pass with the bound, and the counting one
+    held to the plain version on every ray of it."""
+    fat = res["trav"]
+    rows256 = wide_fat.live_rows256(fat)
+
+    def tiled(rays):
+        return Rays(*(tile_reorder(getattr(rays, f), APP_W, APP_H, 8, 8)
+                      for f in ("origin", "direction", "tmin", "tmax")))
+
+    passes = {}
+    for label, camera in (("app", res["camera"]), ("aerial", aerial)):
+        primary = generate_primary_rays(camera, APP_W, APP_H)
+        rec, _ = res["tracer"](fat, res["packed"], primary)
+        passes[f"{label} primary"] = tiled(primary)
+        passes[f"{label} shadow"] = tiled(render._shadow_rays(res["scene"], primary, rec))
+    max_err = 0.0
+    for name, rays in passes.items():
+        sample, n_live = live_sample(rays, None)
+        ops = fat_traverse.kernel_operands(sample)
+        kout = fat_traverse.fat_traverse(rows256, *ops, count=True)
+        counts = {}
+        pout = fat_traverse.trace_fat_plain(rows256, *ops, counts=counts)
+        bad = count_mismatches(kout, pout, counts)
+        hits = int(pout[0].sum())
+        print(f"  {name} pass: {sample.origin.shape[0]} of {n_live} live rays, {hits} hits; "
+              f"mismatches hit/t/prim/tri/u/v/overflow/box/entry={bad}; box tests "
+              f"{int(counts['box_tests'].sum())}, triangle-entry tests "
+              f"{int(counts['tri_entry_tests'].sum())}")
+        require(sum(bad) == 0, f"{name} pass: counting K6 != plain on {bad}")
+        # the shadow rays may all reach the light; their tests are still counted
+        require((hits > 0 or "shadow" in name) and int(counts["tri_entry_tests"].sum()) > 0,
+                f"{name} pass: the sample checks no hit or no count")
+        if hits:
+            hit = kout[0] != 0
+            max_err = max(max_err, float((kout[1] - pout[1])[hit].abs().max()))
+    if fixtures:
+        fat_fixture_checks(fat.rows.device, FatAgreement(), np.random.default_rng(0))
+
+    res_by_pass = {}
+    for name in ("app primary", "aerial primary"):
+        res_by_pass[name] = time_counting(card, rows256, passes[name], name, int(fat.num_nodes))
+    # the kernels line takes the main path's own pass: the app camera's
+    return dict(max_abs_err=max_err, **res_by_pass["app primary"])
+
+
+def time_counting(card: str, rows256, rays, name: str, num_rows: int) -> dict:
+    """K6 and its counting instantiation timed on one whole pass (CUDA
+    events, 5 launches after a warm one, in turns K6, counting, counting,
+    K6), the plain version once, the counting one held to it on every ray;
+    the bound from the plain version's counts, as phase 9 counts it."""
+    ops = fat_traverse.kernel_operands(rays)
+    num = ops[0].shape[0]
+    counting = lambda: fat_traverse.fat_traverse(rows256, *ops, count=True)  # noqa: E731
+    plain_k6 = lambda: fat_traverse.fat_traverse(rows256, *ops)  # noqa: E731
+    times = {"K6": [], "K6 counting": []}
+    for label, fn in (("K6", plain_k6), ("K6 counting", counting), ("K6 counting", counting),
+                      ("K6", plain_k6)):
+        ms, out = event_ms(fn, 5)
+        times[label].append(ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = {}
+    pout = fat_traverse.trace_fat_plain(rows256, *ops, counts=counts)
+    plain_ms = sync_ms(t0)
+    bad = count_mismatches(counting(), pout, counts)
+    require(sum(bad) == 0, f"{name} pass: counting K6 != plain on {bad}")
+    # bound: box tests of non-empty entries and triangle tests run; rays in
+    # (32 B), results and the two counts out (32 B), the node words (256 B)
+    # of each row visited and the pair words (64 B) of each Tri entry entered
+    n_box, n_tri = float(counts["box_tests"].sum()), float(counts["tri_tests"].sum())
+    n_ops = n_box * SLAB_OPS + n_tri * MT_OPS
+    n_rows, n_entries = int(counts["visited"].sum()), int(counts["visited_tri"].sum())
+    nbytes = num * (32 + 32) + n_rows * 256 + n_entries * 64
+    b = bound(n_ops, nbytes)
+    print(f"  {name} pass, {num} rays, 8x8 tiles, {num_rows} fat rows: K6 "
+          f"{times['K6'][0]!r} / {times['K6'][1]!r} ms, K6 counting {times['K6 counting'][0]!r} / "
+          f"{times['K6 counting'][1]!r} ms (turns: K6, counting, counting, K6); bound "
+          f"{b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, {nbytes} bytes: {n_rows} rows, "
+          f"{n_entries} Tri entries); per ray: pops {float(counts['pops'].double().mean())!r}, box "
+          f"tests {n_box / num!r}, triangle-entry tests "
+          f"{float(counts['tri_entry_tests'].double().mean())!r}; plain version {plain_ms!r} ms; "
+          f"counting K6 bit-equal to plain on every ray  [{card}]")
+    return dict(ms=statistics.mean(times["K6 counting"]), plain_ms=plain_ms, **b)
+
+
+def app_phase(device, card: str, fixtures: bool = False) -> dict:
+    """Phase 13: the app's default run on the card (the render modes on
+    the wide tracer), K6's counting instantiation against its plain
+    version, the rock asset, and the split tracer's render modes."""
+    print("phase 13: the app's default run: --type sah --tracer wide --bounces 0, "
+          f"{APP_W}x{APP_H}, every render mode")
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    scene_arg = f"terrain:{NUM_TRIS}"
+    size = ["--width", str(APP_W), "--height", str(APP_H)]
+
+    # the app with no flags at all, as a user first runs it: cornell,
+    # 1024x768, mode 0, into ./out
+    OUT_DIR.mkdir(parents=True)
+    with contextlib.chdir(OUT_DIR):
+        res, calls, wall, _ = run_app([])
+    image = read_png(str(OUT_DIR / "out" / "frame0000_mode0.png"))
+    require(image.shape == (768, 1024, 4) and calls == [(0, 1)],
+            f"the no-flag run: image {image.shape}, counting launches {calls}")
+    print(f"  no flags: cornell, out/frame0000_mode0.png {image.shape}, frame "
+          f"{res['frames'][0][2]!r} ms, app wall {wall!r} s  [{card}]")
+    del res
+
+    # (a) the 1M scene through the app's default path
+    fat_traverse.count_launch_count = 0
+    fat_traverse.launch_count = 0
+    torch.cuda.reset_peak_memory_stats()
+    res, calls, wall, _ = run_app(["--scene", scene_arg, "--pairs", "--cycle-modes", *size,
+                                   "--frames", str(APP_FRAMES), "--output",
+                                   str(OUT_DIR / "terrain_wide")])
+    launches = fat_traverse.count_launch_count
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    require(fat_traverse.launch_count == 0, "the wide tracer launched K6 without counts")
+    require(len(calls) == NUM_MODES * APP_FRAMES and all(n > 0 for _, n in calls),
+            f"a mode launched no counting K6: {calls}")
+    stages = dict(res["stages"])
+    depth = fat_traverse.binary_depth(res["bvh"])
+    images = mode_images(res)
+    lit = check_mode_images("terrain wide", images, APP_FRAMES)
+    for m in range(NUM_MODES):
+        require(np.array_equal(images[(0, m)], images[(APP_FRAMES - 1, m)]),
+                f"mode {m}: frames 0 and {APP_FRAMES - 1} differ with one camera")
+    ms = frame_ms_by_mode(res)
+    print(f"  terrain1M wide: SAH binary build {stages['SharedTaskBuild     ']!r} ms, fat collapse "
+          f"{stages['WideFatCollapse     ']!r} ms ({int(res['trav'].num_nodes)} rows, binary "
+          f"depth {depth}); app wall {wall!r} s; peak {peak_mib!r} MiB  [{card}]")
+    for m in range(NUM_MODES):
+        print(f"  terrain1M wide mode {m} ({RenderType(m).name}): frame ms "
+              + " / ".join(f"{ms[(f, m)]!r}" for f in range(APP_FRAMES))
+              + f" (render and read-back, frames 0..{APP_FRAMES - 1}); counting K6 launches "
+              f"{[n for mm, n in calls if mm == m]}  [{card}]")
+    print(f"  counting K6 launches on the app's path = {launches}; non-black share by mode "
+          f"(the default camera sits at the scene's centre, on the terrain): {lit}")
+    aerial = aerial_modes(card, res)
+    k6c = counting_checks(card, res, aerial, fixtures)
+    wide_images = {m: images[(0, m)] for m in range(NUM_MODES)}
+    del res, images
+
+    # (d) the split tracer's render modes on the same scene
+    res, _, wall, _ = run_app(["--scene", scene_arg, "--pairs", "--cycle-modes", "--tracer",
+                               "split", *size, "--output", str(OUT_DIR / "terrain_split")])
+    images = mode_images(res)
+    lit = check_mode_images("terrain split", images, 1)
+    ms = frame_ms_by_mode(res)
+    dbs = {m: psnr(images[(0, m)], wide_images[m]) for m in range(NUM_MODES)}
+    print(f"  terrain1M split (K1): app wall {wall!r} s; frame ms by mode "
+          + ", ".join(f"{m}: {ms[(0, m)]!r}" for m in range(NUM_MODES)) + f"  [{card}]")
+    print("  terrain1M split against wide, PSNR dB by mode: "
+          + ", ".join(f"{m}: {db:.2f}" for m, db in dbs.items()) + f"; non-black share {lit}")
+    for m in SPLIT_PSNR_MODES:
+        require(dbs[m] >= MIN_PSNR, f"split mode {m}: {dbs[m]:.2f} dB against wide")
+    del res, images, wide_images
+
+    # (c) the rock: generated, loaded by both parsers, all modes on K6 and
+    # on trace_rays over the same SAH tree
+    t0 = time.perf_counter()
+    path = genasset.generate_rock(str(OUT_DIR / "rock_asset"), subdivisions=ROCK_SUBDIVISIONS)
+    gen_s = time.perf_counter() - t0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        scene_n = objio.load_obj(path)
+    native_s = time.perf_counter() - t0
+    require("OBJ parser: native" in buf.getvalue(), f"the native parser did not run: "
+                                                    f"{buf.getvalue()!r}")
+    native_parse = objio._try_native_parse
+    objio._try_native_parse = lambda f: None  # the Python parser, as the tests force it
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            scene_p = objio.load_obj(path)
+    finally:
+        objio._try_native_parse = native_parse
+    python_s = time.perf_counter() - t0
+    for f in ("triangles", "normals", "uvs", "material_ids", "aabb_min", "aabb_max", "light"):
+        require(np.array_equal(getattr(scene_n, f), getattr(scene_p, f)),
+                f"rock: native and Python parsers differ on {f}")
+    require(all(np.array_equal(a, b) for tn, tp in zip(scene_n.library.textures,
+                                                       scene_p.library.textures)
+                for a, b in zip(tn.mips, tp.mips)), "rock: textures differ")
+    print(f"  rock: {scene_n.num_triangles} triangles, {len(scene_n.library.textures)} texture(s) "
+          f"({scene_n.library.textures[0].mips[0].shape}); generated in {gen_s:.2f} s, native "
+          f"parse {native_s:.2f} s ({native_loader.SRC.name}), Python parse {python_s:.2f} s; "
+          f"the two parsers' arrays equal  [{card}]")
+    fat_traverse.count_launch_count = 0
+    res_w, calls_w, wall_w, _ = run_app([path, "--cycle-modes", *size, "--output",
+                                         str(OUT_DIR / "rock_wide")])
+    require(all(n > 0 for _, n in calls_w), f"rock: a mode launched no counting K6: {calls_w}")
+    res_s, _, wall_s, _ = run_app([path, "--cycle-modes", "--tracer", "scalar", *size,
+                                   "--output", str(OUT_DIR / "rock_scalar")])
+    img_w, img_s = mode_images(res_w), mode_images(res_s)
+    print(f"  rock non-black share by mode: {check_mode_images('rock wide', img_w, 1)}")
+    check_mode_images("rock scalar", img_s, 1)
+    ms_w, ms_s = frame_ms_by_mode(res_w), frame_ms_by_mode(res_s)
+    for m in range(NUM_MODES):
+        a, b = img_w[(0, m)], img_s[(0, m)]
+        db = psnr(a, b)
+        colours = len(np.unique(a[..., :3].reshape(-1, 3), axis=0))
+        print(f"  rock mode {m} ({RenderType(m).name}): K6 {ms_w[(0, m)]!r} ms, trace_rays "
+              f"{ms_s[(0, m)]!r} ms, PSNR {db:.2f} dB, {colours} colours  [{card}]")
+        if m in ROCK_PSNR_MODES:
+            require(db >= MIN_PSNR, f"rock mode {m}: {db:.2f} dB between K6 and trace_rays")
+        if m in TEXTURED_MODES:
+            require(colours > 1, f"rock mode {m} shows one colour: no texel was read")
+    print(f"  rock: app wall {wall_w!r} s (wide), {wall_s!r} s (scalar); SAH build "
+          f"{dict(res_w['stages'])['SharedTaskBuild     ']!r} ms, fat collapse "
+          f"{dict(res_w['stages'])['WideFatCollapse     ']!r} ms  [{card}]")
+    return dict(launches=launches, **k6c)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     parser.add_argument("--k1-only", action="store_true",
                         help="stop after phase 4 (build, bench frame, K1's checks and timings); "
+                             "prints no summary lines")
+    parser.add_argument("--app-only", action="store_true",
+                        help="run phases 1, 2 and 13 only (the app's render modes, K6's "
+                             "counting instantiation with phase 9's fixtures, the rock); "
                              "prints no summary lines")
     parser.add_argument("--k5-baseline", type=Path, metavar="SOURCE",
                         help="an earlier csrc/lane_trace.cu (the same C interface over the "
@@ -1649,6 +2048,10 @@ def main(argv=None) -> int:
             elif "registers" in line or "spill" in line:
                 print("      " + line.strip())
 
+    if args.app_only:
+        app_phase(device, card, fixtures=True)
+        print("chip_smoke: stopped after phase 13 (--app-only)")
+        return 0
     scene = procedural.terrain(NUM_TRIS)
     dev_scene = scene_to_device(scene, device)
     camera = aerial_camera(scene, device)
@@ -1668,6 +2071,10 @@ def main(argv=None) -> int:
     k6 = fat_checks(device, card, binary, triangles, baselines6)
     versions = split_versions(split)
     probes = probe_phase(device, card)
+    k1_launches = split["launches"] + sah_frame["launches"]
+    binary_launches = binary["launches"]
+    del split, binary, sah_frame
+    app = app_phase(device, card)
 
     def entry(name, source, replaces, launches, res):
         # no single PyTorch call traces rays through a BVH: library_ms is null
@@ -1681,14 +2088,16 @@ def main(argv=None) -> int:
     sp = "tpu_raytracing/trace/split_pallas.py"
     print(json.dumps({"kernels": [
         entry("split_trace", "split_trace.cu", f"{sp}:143",
-              split["launches"] + sah_frame["launches"], k1),
+              k1_launches, k1),
         entry("split_trace kernel_v=4", "split_trace.cu", f"{sp}:541", versions[4], k1),
         entry("split_trace kernel_v=5", "split_trace.cu", f"{sp}:898", versions[5], k1),
         entry("split_trace kernel_v=2", "split_trace.cu", f"{sp}:1250", versions[2], k1),
         entry("lane_trace", "lane_trace.cu", "tpu_raytracing/trace/lane_pallas.py:107",
               lane_launches, k5),
         entry("fat_traverse", "fat_traverse.cu", "tpu_raytracing/ops/pallas_traverse.py:71",
-              binary["launches"], k6),
+              binary_launches, k6),
+        entry("fat_traverse count=True", "fat_traverse.cu",
+              "tpu_raytracing/ops/pallas_traverse.py:71", app["launches"], app),
     ] + probes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -50,7 +50,8 @@ def _port_views(name, debug=False):
                                     debug=debug)
 
 
-def test_morton_codes_bit_equal(rng):
+def test_morton_codes_bit_equal():
+    rng = np.random.default_rng(101)  # its own: the shared rng fixture depends on file order
     pts = rng.random((5000, 3)).astype(np.float32)
     # edges of the unit cube, out-of-range and the 1023/1024 boundary
     pts[:6] = [[0, 0, 0], [1, 1, 1], [-0.5, 2.0, 0.5],
@@ -122,7 +123,8 @@ def test_emit_split_views_bit_equal(scene):
     tbucket.check_split_capacity(split, _scene_tris(scene).shape[0])
 
 
-def test_refit_split_bit_equal(rng):
+def test_refit_split_bit_equal():
+    rng = np.random.default_rng(102)  # its own: the shared rng fixture depends on file order
     _, jpacked, jsplit = _jax_views("terrain")
     _, packed, split = _port_views("terrain")
     v = jpacked.rows[:, :12].view(np.float32)

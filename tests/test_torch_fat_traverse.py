@@ -143,10 +143,11 @@ def test_pallas_active_mask(cornell, pallas_pt):
 
 
 @pytest.mark.parametrize("pairs", [False, True])
-def test_plain_matches_scalar_and_brute(soup, sphere, rng, pairs):
+def test_plain_matches_scalar_and_brute(soup, sphere, pairs):
     """The soup and sphere ray sets against the port's trace_rays on the
     same binary tree (the same Möller-Trumbore, so t is exact) and against
     brute force."""
+    rng = np.random.default_rng(108)  # its own: the shared rng fixture depends on file order
     for scene in (soup, sphere):
         bvh, packed, rows = _port_tree(scene, pairs)
         trav = pack_bvh(bvh)
@@ -165,6 +166,51 @@ def test_plain_matches_scalar_and_brute(soup, sphere, rng, pairs):
                                   t_rtol=1e-5, uv=False)
             hits += int(rec.hit.sum())
         assert hits > 16
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+def test_plain_counts_match_reference_packets_of_one(soup, sphere, pairs):
+    """The plain version's per-ray counts on the soup and sphere ray sets
+    against the reference's wide tracer with packets of one ray
+    (``wide_fat.trace_rays_wide_fat(packet_size=1)``), whose per-packet
+    counts are then per ray and whose child order is the ray's own, as
+    K6's: ``box_tests`` and ``tri_entry_tests`` (Tri entries whose box the
+    ray passes) equal on every live ray, and the hits too. ``tri_tests``
+    (the triangles run) lies between one and two a counted entry. A dead
+    ray (tmax = -1) pops the root row in the port and no row in the
+    reference."""
+    from tpu_raytracing.trace import wide_fat as jwide_fat
+
+    rng = np.random.default_rng(110)
+    for scene in (soup, sphere):
+        jb, jp = _jbuild(jnp.asarray(scene.triangles), enable_pairs=pairs)
+        jpacked = jpack_pairs(jp)
+        jfat = jax.jit(jwide.build_wide_fat)(jb, jpacked.rows)
+        _, _, rows = _port_tree(scene, pairs)
+        sets = dict(ray_sets(scene, rng), aimed=(aimed_rays(scene, rng, 512), None))
+        entries = 0
+        for set_name, (arrays, active) in sets.items():
+            jr, tr = both_rays(arrays)
+            live = np.ones(arrays[0].shape[0], bool) if active is None else active
+            ref, jstats = jwide_fat.trace_rays_wide_fat(
+                jfat, jpacked, jr, active=None if active is None else jnp.asarray(active),
+                packet_size=1)
+            counts = {}
+            ops = ft.kernel_operands(tr, None if active is None else torch.from_numpy(active))
+            out = ft.trace_fat_plain(rows, *ops, counts=counts)
+            box, ent, tri = (counts[k].numpy() for k in (
+                "box_tests", "tri_entry_tests", "tri_tests"))
+            np.testing.assert_array_equal(box[live], np.asarray(jstats.box_tests)[live],
+                                          err_msg=set_name)
+            np.testing.assert_array_equal(ent[live], np.asarray(jstats.tri_tests)[live],
+                                          err_msg=set_name)
+            assert (ent <= tri).all() and (tri <= 2 * ent).all()
+            assert (ent[~live] == 0).all()
+            np.testing.assert_array_equal(out[0].numpy().astype(bool), np.asarray(ref.hit))
+            hit = np.asarray(ref.hit)
+            np.testing.assert_array_equal(out[3].numpy()[hit], np.asarray(ref.tri_id)[hit])
+            entries += int(ent.sum())
+        assert entries > 20
 
 
 def test_jax_built_fat_tree_traced_by_port(sphere):

@@ -79,7 +79,8 @@ def _close(a, b, name):
 @pytest.mark.parametrize("sort_kind,sample_next", [("leaf", True), ("cell", True),
                                                    ("leaf", False), ("tid", True),
                                                    ("tid_cell", True)])
-def test_bounce_stage_matches_jax(cornell_state, rng, sort_kind, sample_next):
+def test_bounce_stage_matches_jax(cornell_state, sort_kind, sample_next):
+    rng = np.random.default_rng(103)  # its own: the shared rng fixture depends on file order
     s = cornell_state
     num = W * H
     # the tid kinds read a treelet id per pair; ids above 0xFFF check that
@@ -115,7 +116,8 @@ def test_bounce_stage_matches_jax(cornell_state, rng, sort_kind, sample_next):
         _close(getattr(j_rays, f), getattr(t_rays, f), f)
 
 
-def test_shadow_pair_matches_jax(cornell_state, rng):
+def test_shadow_pair_matches_jax(cornell_state):
+    rng = np.random.default_rng(104)  # its own: the shared rng fixture depends on file order
     s = cornell_state
     alive = rng.random(W * H) < 0.7
     jr, ja, jinv = jpt._jit_shadow_pair(jscene_to_device(s["scene"]), _jax_rays(s["rays"]),
@@ -235,9 +237,10 @@ def test_app_renders_and_refuses_unported_flags(tmp_path):
               "--debug-checks", "--output", str(tmp_path)])
     img = read_png(str(tmp_path / "frame0000_pt.png"))
     assert img.shape == (10, 24, 4) and img[..., :3].max() > 0
-    for extra in (["--type", "hybrid"], ["--tracer", "wide"], ["--tracer", "packet"],
-                  ["--animate"], ["--bounces", "0"],
-                  ["--render-mode", "3"], ["--refit-bound", "1.5"], ["--grid-scale", "2"]):
+    for extra in (["--type", "hybrid"], ["--tracer", "packet"], ["--tracer", "grid"],
+                  ["--animate"], ["--refit"], ["--refit-bound", "1.5"],
+                  ["--refit-interval", "2"], ["--grid-scale", "2"], ["--profile-build"],
+                  ["--interactive"]):
         argv = ["--scene", "cornell", "--type", "bottom-up", "--tracer", "split", "--bounces",
                 "1", "--device", "cpu", "--output", str(tmp_path)] + extra
         with pytest.raises(NotImplementedError, match=f"not yet ported: .*{extra[0]}"):

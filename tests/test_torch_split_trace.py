@@ -99,7 +99,8 @@ def test_plain_matches_brute(name, pairs, request):
     _assert_matches(tbrute(torch.from_numpy(scene.triangles), tr), ref)
 
 
-def test_dead_and_axis_aligned_rays(sphere, rng):
+def test_dead_and_axis_aligned_rays(sphere):
+    rng = np.random.default_rng(106)  # its own: the shared rng fixture depends on file order
     views, packed = _port_tree(sphere, True)
     lo, hi = sphere.aabb_min, sphere.aabb_max
     n = 16

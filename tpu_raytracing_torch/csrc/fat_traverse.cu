@@ -24,6 +24,12 @@
 //     near, so the nearest pops first.
 //   * a push at a depth of stack_cap sets *overflow and stops the ray; the
 //     TPU kernel drops the push without a word.
+//   * with COUNT (fat_traverse_count_launch), per ray: box tests, 1 for each
+//     non-empty entry of every row the ray pops, and triangle-entry tests, 1
+//     for each Tri entry whose box test (with the running t) the ray passes,
+//     whether the entry holds one triangle or two. They are what the
+//     reference's wide tracer counts per 128-ray packet
+//     (tpu_raytracing/trace/wide_fat.py:108,117), counted per ray.
 //
 // What bounds it. The arithmetic is small: 25 operations a slab test and 61
 // a triangle test come to 0.0493 ms of float32 issue on the 1M bounce pass
@@ -88,11 +94,19 @@
 // entries with the walk; sort, push and pop) and the triangle tests run;
 // their six outputs stay bit-equal.
 //
+// The counting instantiation (COUNT) is the same kernel plus two int
+// registers a lane: the box tests are added in phase 1 by the lane that
+// owns the ray, the triangle-entry tests in the walk, where the owning lane
+// re-checks each entry with the running t. So a count lands on its own ray
+// although the triangle tests of a pop are spread over the warp. The render
+// modes' wide tracer takes it (trace/wide_fat.py); the binary frame keeps
+// the instantiation without counts.
+//
 // Bit-exactness: compiled with -fmad=false and without fast math, and every
 // expression keeps the order of the plain PyTorch version
 // (tpu_raytracing_torch/ops/fat_traverse.py:trace_fat_plain), so the kernel
 // and both diagnostics agree with it bit for bit on hit, t, prim, tri, u
-// and v.
+// and v, and the counting instantiation on both counts too.
 
 #include <cuda_runtime.h>
 
@@ -242,8 +256,9 @@ __device__ __forceinline__ void warp_lap(unsigned long long& acc, unsigned long 
 // K6. PROFILE adds the warp's clock64 cycles in each phase of a pop (taken
 // at a __syncwarp, so a phase ends when its slowest lane ends it) to every
 // ray in the pop, in cycles[0..2][num_rays], and each ray's triangle tests
-// run in cycles[3]; its six outputs are the same.
-template <bool PROFILE>
+// run in cycles[3]; COUNT writes each ray's box tests and triangle-entry
+// tests to box_out and tri_tests_out. The six outputs are the same.
+template <bool PROFILE, bool COUNT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fat_traverse_kernel(const int4* __restrict__ rows, const float* __restrict__ origin,
                     const float* __restrict__ dir, const float* __restrict__ tmin,
@@ -251,6 +266,7 @@ fat_traverse_kernel(const int4* __restrict__ rows, const float* __restrict__ ori
                     float* __restrict__ t_out, int* __restrict__ prim_out,
                     int* __restrict__ tri_out, float* __restrict__ u_out,
                     float* __restrict__ v_out, int* __restrict__ overflow,
+                    int* __restrict__ box_out, int* __restrict__ tri_tests_out,
                     unsigned long long* __restrict__ cycles, int num_rays, int stack_cap) {
   __shared__ int s_task[kWarps][kMaxTasks];
   __shared__ float s_t0[kWarps][kMaxTasks];
@@ -270,6 +286,7 @@ fat_traverse_kernel(const int4* __restrict__ rows, const float* __restrict__ ori
   int hit = 0, win_node = 0, win_code = 0, win_tri = 0;
   unsigned long long cyc[3] = {0, 0, 0}, mark = PROFILE ? clock64() : 0;
   int tests = 0;  // triangle tests run for this ray (PROFILE)
+  int box_tests = 0, tri_tests = 0;  // COUNT
 
   int stack[kMaxStack];
   int sp = 0;
@@ -280,7 +297,7 @@ fat_traverse_kernel(const int4* __restrict__ rows, const float* __restrict__ ori
     const int4* row = rows + static_cast<size_t>(act ? node : 0) * kRowVec;
     float front[kWide];
     int child[kWide];
-    unsigned in_tri = 0, in_box = 0, second = 0;
+    unsigned in_tri = 0, in_box = 0, second = 0, nonempty = 0;
     if (act) {
 #pragma unroll
       for (int e = 0; e < kWide; ++e) {
@@ -295,7 +312,9 @@ fat_traverse_kernel(const int4* __restrict__ rows, const float* __restrict__ ori
         in_tri |= (in && ntype == kTypeTri) ? 1u << e : 0u;
         in_box |= (in && ntype == kTypeBox) ? 1u << e : 0u;
         second |= (((meta >> 2) & 7) > 0) ? 1u << e : 0u;
+        nonempty |= ntype != 0 ? 1u << e : 0u;
       }
+      if (COUNT) box_tests += __popc(nonempty);
     }
     if (PROFILE) {
       asm volatile("" ::"r"(in_tri), "r"(in_box));
@@ -352,6 +371,7 @@ fat_traverse_kernel(const int4* __restrict__ rows, const float* __restrict__ ori
       for (int e = 0; e < kWide; ++e) {
         const bool ok = (((in_tri | in_box) >> e) & 1u) && front[e] <= t;
         if (ok && ((in_tri >> e) & 1u)) {
+          if (COUNT) ++tri_tests;
           const int k = base + __popc(in_tri & ((1u << e) - 1u));
           const float t0 = s_t0[warp][k];
           const float t1 = s_t1[warp][k];
@@ -439,6 +459,10 @@ fat_traverse_kernel(const int4* __restrict__ rows, const float* __restrict__ ori
   if (PROFILE) {
     for (int k = 0; k < 3; ++k) cycles[static_cast<size_t>(k) * num_rays + ray] = cyc[k];
     cycles[3 * static_cast<size_t>(num_rays) + ray] = tests;
+  }
+  if (COUNT) {
+    box_out[ray] = box_tests;
+    tri_tests_out[ray] = tri_tests;
   }
   hit_out[ray] = hit;
   t_out[ray] = t;
@@ -573,7 +597,23 @@ extern "C" int fat_traverse_launch(FAT_PARAMS, void* stream) {
   if (stack_cap <= 0 || stack_cap > kMaxStack) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (num_rays + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fat_traverse_kernel<false><<<blocks, kThreads, 0, s>>>(FAT_ARGS, nullptr, num_rays, stack_cap);
+  fat_traverse_kernel<false, false>
+      <<<blocks, kThreads, 0, s>>>(FAT_ARGS, nullptr, nullptr, nullptr, num_rays, stack_cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's counting instantiation: the same outputs, and each ray's box tests
+// and triangle-entry tests in ``box_out`` and ``tri_tests_out`` (int32).
+extern "C" int fat_traverse_count_launch(FAT_PARAMS, void* box_out, void* tri_tests_out,
+                                         void* stream) {
+  if (num_rays <= 0) return 0;
+  if (stack_cap <= 0 || stack_cap > kMaxStack || box_out == nullptr || tri_tests_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (num_rays + kThreads - 1) / kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fat_traverse_kernel<false, true><<<blocks, kThreads, 0, s>>>(
+      FAT_ARGS, static_cast<int*>(box_out), static_cast<int*>(tri_tests_out), nullptr, num_rays,
+      stack_cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -591,6 +631,7 @@ extern "C" int fat_traverse_profile_launch(FAT_PARAMS, int per_thread, void* cyc
   if (per_thread)
     fat_traverse_thread_split<<<blocks, kThreads, 0, s>>>(FAT_ARGS, cyc, num_rays, stack_cap);
   else
-    fat_traverse_kernel<true><<<blocks, kThreads, 0, s>>>(FAT_ARGS, cyc, num_rays, stack_cap);
+    fat_traverse_kernel<true, false>
+        <<<blocks, kThreads, 0, s>>>(FAT_ARGS, nullptr, nullptr, cyc, num_rays, stack_cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,12 @@ Port of ``tpu_raytracing/ops/pallas_traverse.py`` (``pad_rows_256``,
 ``trace_fat_plain``, the same per-ray algorithm vectorised over rays in
 PyTorch; given CUDA tensors it launches the kernel or raises. The two agree
 bit for bit on all six outputs (the kernel is built with ``-fmad=false``
-and keeps the plain version's operation order). ``fat_traverse_cycles``
-is a diagnostic on the card: the clock64 split of K6's pop phases, or of
-the one-thread-per-ray kernel K6 replaced.
+and keeps the plain version's operation order). ``fat_traverse(...,
+count=True)`` launches K6's counting instantiation, which also returns each
+ray's box tests and triangle-entry tests (the counts the render modes read,
+``trace/wide_fat.py``); it has a launch count of its own.
+``fat_traverse_cycles`` is a diagnostic on the card: the clock64 split of
+K6's pop phases, or of the one-thread-per-ray kernel K6 replaced.
 
 What is computed, per ray, from wide row 0: per pop, the slab test of all
 8 entries, ``(back >= front) & (front <= t) & (back >= tmin)`` with the
@@ -34,7 +37,8 @@ Differences from the TPU kernel, both deliberate:
 * The TPU kernel's 64-entry stack drops pushes silently when full. Here
   the stack holds ``STACK`` entries, enough for any tree the Karras build
   makes (below), and a push past it sets the overflow flag and stops the
-  ray; ``path_trace`` raises on the flag.
+  ray; ``path_trace`` raises on the flag. ``check_stack_depth`` holds
+  another tree (an SAH tree) to the same bound before it is collapsed.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpu_raytracing_torch.bvh.lbvh import MAX_TREE_DEPTH
-from tpu_raytracing_torch.bvh.types import CHILD_BOX, CHILD_NONE, CHILD_TRI
+from tpu_raytracing_torch.bvh.types import BVH, CHILD_BOX, CHILD_NONE, CHILD_TRI
 from tpu_raytracing_torch.bvh.wide import WIDE
 from tpu_raytracing_torch.ops import _cuda_build
 from tpu_raytracing_torch.ops.intersect import safe_inverse
@@ -77,10 +81,41 @@ _F32_MAX = float(torch.finfo(torch.float32).max)
 _PLAIN_CHUNK = 1 << 18
 
 # K6 launches since the count was last set to 0: fat_traverse adds one
-# where it launches the kernel and nowhere else.
+# where it launches the kernel and nowhere else; count_launch_count likewise
+# for the counting instantiation.
 launch_count = 0
+count_launch_count = 0
 # clock64 phases of fat_traverse_cycles, in the order of its cycles rows
 PHASES = ("node loads and box tests", "Tri entries", "sort, push and pop")
+
+
+def binary_depth(bvh: BVH) -> int:
+    """Deepest slot's depth below its root group (root slots have depth
+    0), by pointer doubling on parent links until every pointer reaches a
+    root; one host read."""
+    ptr = bvh.parent.to(torch.int64)
+    slots = torch.arange(bvh.num_slots, device=ptr.device)
+    depth = (ptr != slots).to(torch.int64)
+    for _ in range(max(bvh.num_slots, 2).bit_length()):
+        depth = depth + depth[ptr]
+        ptr = ptr[ptr]
+    return int(depth.max())
+
+
+def check_stack_depth(bvh: BVH) -> None:
+    """Raise unless K6's ``STACK`` covers the collapse of ``bvh``: row 0
+    holds the root group's first 2 (a pair root) or 3 binary levels, each
+    further row 3, and a tree of L wide levels needs at most 7 L + 1 stack
+    slots. The Karras build always passes; a binned-SAH tree can in
+    principle go deeper (its midpoint levels past the SAH ones,
+    ``bvh/sah.py:frontier_build``)."""
+    base = 2 if int(bvh.root_count) == 2 else 3
+    depth = binary_depth(bvh)
+    levels = 1 + -(-max(depth - base, 0) // 3)
+    if 7 * levels + 1 > STACK:
+        raise ValueError(
+            f"the tree is {depth} binary levels deep ({levels} wide levels): K6's stack of "
+            f"{STACK} entries covers at most {(STACK - 1) // 7} wide levels")
 
 
 def pad_rows_256(rows: torch.Tensor) -> torch.Tensor:
@@ -194,6 +229,7 @@ def _plain_chunk(rows, origin, direction, tmin, tmax, out, counts):
             if counts is not None:
                 counts["box_tests"][r] += (ntype != CHILD_NONE).to(torch.int32)
                 counts["tri_tests"][r] += leaf.to(torch.int32) + second.to(torch.int32)
+                counts["tri_entry_tests"][r] += leaf.to(torch.int32)
                 counts["visited_tri"][node[leaf], e] = True
 
             push = box_hit & (ntype == CHILD_BOX)
@@ -232,9 +268,11 @@ def trace_fat_plain(rows, origin, direction, tmin, tmax, counts: Optional[dict] 
 
     Returns (hit i32, t f32, prim i32, tri i32, u f32, v f32, overflow
     i32 [1]). With ``counts`` (a dict), also fills per-ray ``pops``,
-    ``box_tests`` (non-empty entries tested) and ``tri_tests`` (triangle
-    tests run), and the ``visited`` rows [W] and ``visited_tri`` Tri
-    entries [W, 8] whose pair words were read.
+    ``box_tests`` (non-empty entries tested), ``tri_tests`` (triangle
+    tests run, one or two an entry) and ``tri_entry_tests`` (Tri entries
+    whose box the ray passes: the counting instantiation's count), and the
+    ``visited`` rows [W] and ``visited_tri`` Tri entries [W, 8] whose pair
+    words were read.
     """
     num = origin.shape[0]
     dev = origin.device
@@ -242,7 +280,7 @@ def trace_fat_plain(rows, origin, direction, tmin, tmax, counts: Optional[dict] 
         torch.int32, torch.float32, torch.int32, torch.int32, torch.float32, torch.float32)]
     out.append(torch.zeros((1,), dtype=torch.int32, device=dev))
     if counts is not None:
-        for key in ("pops", "box_tests", "tri_tests"):
+        for key in ("pops", "box_tests", "tri_tests", "tri_entry_tests"):
             counts[key] = torch.zeros((num,), dtype=torch.int32, device=dev)
         counts["visited"] = torch.zeros((rows.shape[0],), dtype=torch.bool, device=dev)
         counts["visited_tri"] = torch.zeros((rows.shape[0], WIDE), dtype=torch.bool, device=dev)
@@ -250,8 +288,8 @@ def trace_fat_plain(rows, origin, direction, tmin, tmax, counts: Optional[dict] 
         e = min(s + _PLAIN_CHUNK, num)
         sub = None
         if counts is not None:
-            sub = dict(counts, pops=counts["pops"][s:e], box_tests=counts["box_tests"][s:e],
-                       tri_tests=counts["tri_tests"][s:e])
+            sub = dict(counts, **{k: counts[k][s:e] for k in (
+                "pops", "box_tests", "tri_tests", "tri_entry_tests")})
         _plain_chunk(rows, origin[s:e], direction[s:e], tmin[s:e], tmax[s:e],
                      [x[s:e] for x in out[:6]] + [out[6]], sub)
     return tuple(out)
@@ -259,6 +297,7 @@ def trace_fat_plain(rows, origin, direction, tmin, tmax, counts: Optional[dict] 
 
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _PROFILE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int] + [ctypes.c_void_p] * 2
+_COUNT_ARGTYPES = _ARGTYPES + [ctypes.c_void_p] * 2
 
 
 def _check_operands(rows, origin, direction, tmin, tmax) -> None:
@@ -306,24 +345,37 @@ def _launch(entry: str, argtypes, rows, origin, direction, tmin, tmax, *extra,
     return (*out, overflow)
 
 
-def fat_traverse(rows, origin, direction, tmin, tmax):
+def fat_traverse(rows, origin, direction, tmin, tmax, count: bool = False):
     """K6: closest hit of every ray over padded fat rows (see the module
     docstring). rows [W, 256] i32 from ``pad_rows_256``, origin/direction
     [R, 3] f32 (direction as given: the kernel forms the safe inverse),
     tmin/tmax [R] f32 (tmax = -1 for dead rays). Returns (hit, t, prim,
-    tri, u, v, overflow [1]).
+    tri, u, v, overflow [1]); with ``count``, from the counting
+    instantiation, then also each ray's box tests and triangle-entry tests
+    (int32 [R]: the plain version's ``box_tests`` and ``tri_entry_tests``).
 
     CPU tensors run ``trace_fat_plain``; CUDA tensors launch the kernel or
     raise.
     """
-    global launch_count
+    global launch_count, count_launch_count
     if origin.device.type == "cpu":
-        return trace_fat_plain(rows, origin, direction, tmin, tmax)
+        if not count:
+            return trace_fat_plain(rows, origin, direction, tmin, tmax)
+        counts = {}
+        out = trace_fat_plain(rows, origin, direction, tmin, tmax, counts=counts)
+        return (*out, counts["box_tests"], counts["tri_entry_tests"])
     if origin.device.type != "cuda":
         raise ValueError(f"fat_traverse: unsupported device {origin.device}")
-    out = _launch("fat_traverse_launch", _ARGTYPES, rows, origin, direction, tmin, tmax)
-    launch_count += 1
-    return out
+    if not count:
+        out = _launch("fat_traverse_launch", _ARGTYPES, rows, origin, direction, tmin, tmax)
+        launch_count += 1
+        return out
+    box, tri = (torch.empty((origin.shape[0],), dtype=torch.int32, device=origin.device)
+                for _ in range(2))
+    out = _launch("fat_traverse_count_launch", _COUNT_ARGTYPES, rows, origin, direction, tmin,
+                  tmax, box.data_ptr(), tri.data_ptr())
+    count_launch_count += 1
+    return (*out, box, tri)
 
 
 def fat_traverse_cycles(rows, origin, direction, tmin, tmax, *, per_thread: bool = False):
