@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --k1-only    # phases 1-4 and 12
     python3 chip_smoke.py --app-only   # phases 1, 2 and 13 (with phase 9's fixtures)
+    python3 chip_smoke.py --animate-only   # phases 1, 2 and 14
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
@@ -217,7 +218,7 @@ from tpu_raytracing_torch.benchmarks import (  # noqa: E402
     probe_lane_machine2,
     probe_lane_machine3,
 )
-from tpu_raytracing_torch.bvh import bucket, lbvh, split_convert, treelet, wide  # noqa: E402
+from tpu_raytracing_torch.bvh import bucket, hybrid, lbvh, split_convert, treelet, wide  # noqa: E402
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
 from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
 from tpu_raytracing_torch.scene import camera as cam  # noqa: E402
@@ -299,6 +300,19 @@ BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 SLAB_OPS = 25
 MT_OPS = 61
+# Phase 14: the app's animated run (tpu_raytracing/app/main.py:306-369,
+# 470-490). The refit schedule on the bucket and SAH split trees at 1M,
+# 1024x1024, 1 bounce (frames after frame 0; a periodic rebuild every 3),
+# then per-frame rebuilds at 1024x768 in DIFFUSE (mode 5, which draws no
+# random numbers), then --interactive on cornell in a pseudo-terminal.
+REFIT_RUNS = (("bottom-up", 6), ("sah", 3))
+REFIT_INTERVAL = 3
+REBUILD_RUNS = (("wide", "sah"), ("wide", "bottom-up"), ("wide", "hybrid"), ("lane", "bottom-up"))
+REBUILD_FRAMES = 3
+DIFFUSE_MODE = 5
+INTERACTIVE_W, INTERACTIVE_H = 256, 192
+INTERACTIVE_FIRST_S = 180.0
+INTERACTIVE_READ_S = 30.0
 
 
 def demangled(log: str) -> str:
@@ -738,7 +752,7 @@ def same_split(a, b) -> dict:
     }
 
 
-def brute_check(label: str, views, packed, rays, triangles) -> None:
+def brute_check(label: str, views, packed, rays, triangles, tree: str = "SAH tree") -> None:
     """K1's hits on sampled rays against brute force over every triangle:
     at most 0.5% of the rays may differ on hit, t or the primitive; a
     different primitive at exactly the same t (either triangle of an exact
@@ -757,7 +771,7 @@ def brute_check(label: str, views, packed, rays, triangles) -> None:
           f"(exact-t ties naming the other triangle: {ties}), overflow {int(stats.overflow)}")
     for what, count in (("hit", bad_hit), ("t", bad_t), ("prim", bad_prim)):
         require(count <= (1.0 - BRUTE_AGREE) * num,
-                f"SAH tree: K1 and brute force disagree on {what} for {count} {label} rays")
+                f"{tree}: K1 and brute force disagree on {what} for {count} {label} rays")
     require(int(stats.overflow) == 0, f"{label} brute-force sample overflowed")
     require(int(ref.hit.sum()) > 0, f"no {label} ray of the brute-force sample hits")
 
@@ -1995,6 +2009,346 @@ def app_phase(device, card: str, fixtures: bool = False) -> dict:
     return dict(launches=launches, **k6c)
 
 
+def stage_ms(stages, *names) -> float:
+    """The summed ms of the named StageTimer stages (names unpadded)."""
+    return sum(ms for name, ms in stages if name.strip() in names)
+
+
+def k1_sample_stats(views, captured: dict) -> dict:
+    """K1 on 65,536 live rays sampled from each of a frame's four passes:
+    the mean inner and leaf pops per ray, and K1's CUDA-event ms on the
+    whole pass (3 launches after a warm one)."""
+    inner, pairs, stack_cap = views
+    kw = dict(leafw=split_trace.LEAFW, stack_cap=stack_cap)
+    out = {}
+    for (key, any_hit), name in zip(FRAME_TRACERS, PASSES):
+        rays, _ = live_sample(captured[key].rays, captured[key].active)
+        kout = split_trace.split_traverse(inner, pairs, *split_trace.kernel_operands(rays, None),
+                                          any_hit=any_hit, **kw)
+        ops, _ = pass_operands(key, captured[key])
+        ms, _ = event_ms(lambda: split_trace.split_traverse(inner, pairs, *ops, any_hit=any_hit,
+                                                            **kw), 3)
+        out[name] = dict(inner=float(kout[2].float().mean()), leaf=float(kout[3].float().mean()),
+                         ms=ms)
+    return out
+
+
+def refit_run(device, card: str, build_type: str, frames: int, rebuild_ms) -> dict:
+    """Phase 14 (a, b): the app's refit schedule on the split tree at 1M,
+    1024x1024, 1 bounce, then the last (refitted) frame's checks: the card's
+    refit against the CPU's, K1 against its plain version on each pass's
+    sample, the image against a full rebuild at the same t, brute force."""
+    tag = f"refit {build_type}"
+    split_trace.launch_count = 0
+    res, _, wall, out = run_app(
+        ["--scene", f"terrain:{NUM_TRIS}", "--pairs", "--tracer", "split", "--type", build_type,
+         "--bounces", str(BOUNCES), "--width", str(RES), "--height", str(RES), "--animate",
+         "--refit", "--refit-interval", str(REFIT_INTERVAL), "--frames", str(frames),
+         "--output", str(OUT_DIR / f"refit_{build_type}")])
+    launches = split_trace.launch_count
+    require(launches >= 4 * frames, f"{tag}: K1 launched {launches} times in {frames} frames")
+    sched, recs = res["sched"], res["animated"]
+    frame_ms = {f: ms for f, _, ms, _ in res["frames"]}
+    build0 = stage_ms(res["stages"], "SplitBuild")
+    print(f"  {tag} frame 0: build, split tree {build0!r} ms (the --type tree "
+          f"{stage_ms(res['stages'], 'BottomUpBuild', 'SharedTaskBuild')!r} ms), frame "
+          f"{frame_ms[0]!r} ms  [{card}]")
+    for rec in recs:
+        st_ = rec["stages"]
+        ratio = None if rec["sa_ratio"] is None else float(rec["sa_ratio"])
+        print(f"  {tag} frame {rec['frame']} (t={rec['t']:.2f}): {rec['kind']}, animate "
+              f"{stage_ms(st_, 'Animate')!r} ms, deform {stage_ms(st_, 'DeformRows')!r} ms, "
+              f"{rec['kind']} {stage_ms(st_, 'RefitSchedule')!r} ms, SA ratio {ratio!r}, frame "
+              f"{frame_ms[rec['frame']]!r} ms  [{card}]")
+    for line in out.splitlines():
+        if line.startswith("refit schedule:"):
+            print(f"  {tag}: {line}")
+    sched_ms = [stage_ms(r["stages"], "DeformRows", "RefitSchedule") for r in recs]
+    amortised = statistics.mean(sched_ms)
+    print(f"  {tag}: amortised build {amortised!r} ms a frame over frames 1-{frames - 1} "
+          f"(deform and refit or rebuild; {sched.rebuild_count} rebuilds), phase 3's full "
+          f"rebuild {rebuild_ms!r} ms; app wall {wall!r} s; K1 launches {launches}  [{card}]")
+    require(recs[-1]["kind"] == "refit", f"{tag}: the last frame was not a refit")
+
+    # (b) the refitted frame: the card's refit against the CPU's
+    views, packed = res["trav"], res["packed"]
+    cpu_tree = dataclasses.replace(
+        sched.split0, **{f: getattr(sched.split0, f).cpu()
+                         for f in ("inner", "num_inner", "num_leaves", "e_ranges")})
+    cpu = bucket.refit_split(cpu_tree, PackedPairs(rows=packed.rows.cpu()))
+    card_words = views[0].cpu().reshape(cpu.inner.shape)
+    bad = int((cpu.inner != card_words).sum())
+    print(f"  {tag}: refit words differing between the card and the CPU: {bad} of "
+          f"{cpu.inner.numel()} (as floats: {int((i2f(cpu.inner) != i2f(card_words)).sum())})")
+    require(bad == 0, f"{tag}: the card's refit differs from the CPU's in {bad} words")
+
+    # the same frame traced on the refitted tree and on a full rebuild at
+    # the same t, with the same seed, from the aerial camera
+    with contextlib.redirect_stdout(io.StringIO()):
+        args = parse_cmd(["--scene", f"terrain:{NUM_TRIS}", "--pairs", "--tracer", "split",
+                          "--type", build_type])
+    t = recs[-1]["t"]
+    scene = procedural.terrain(NUM_TRIS)
+    triangles = procedural.animate_triangles(torch.as_tensor(scene.triangles, device=device), t)
+    camera = aerial_camera(scene, device)
+    dev_scene = res["scene"]
+    captured = {k: Capture(v) for k, v in split_trace.make_frame_tracers(RES, RES).items()}
+    img, _ = frame_fn(views, packed, dev_scene, camera, device, **captured)(7, 0.0)
+    fresh, fresh_packed = app_main.split_tree(args, triangles)
+    fresh_views = app_main.split_tree_views(args, fresh, fresh_packed)
+    fresh_cap = {k: Capture(v) for k, v in split_trace.make_frame_tracers(RES, RES).items()}
+    img_r, _ = frame_fn(fresh_views, fresh_packed, dev_scene, camera, device, **fresh_cap)(7, 0.0)
+    db = frame_psnr(img, img_r)
+    print(f"  {tag} t={t:.2f}: refitted frame against a full rebuild, same seed: {db!r} dB; "
+          f"stack bound {views[2]} (rebuilt tree's {fresh_views[2]})")
+    require(bool(torch.isfinite(img).all()) and db >= MIN_PSNR,
+            f"{tag}: the refitted frame is {db:.2f} dB from the rebuilt one")
+    agree = Agreement()
+    for key, any_hit in FRAME_TRACERS:
+        rays, n_live = live_sample(captured[key].rays, captured[key].active)
+        hits = agree.check(f"{tag} refitted {key} ({n_live} live)", views, rays, None, any_hit)
+        require(hits > 0, f"{tag} {key}: no ray of the sample hits, so it checks nothing")
+    refit_k1, fresh_k1 = k1_sample_stats(views, captured), k1_sample_stats(fresh_views, fresh_cap)
+    for name in PASSES:
+        a, b = refit_k1[name], fresh_k1[name]
+        print(f"  {tag} {name} pass: K1 {a['ms']!r} ms refitted / {b['ms']!r} ms rebuilt; pops "
+              f"per sampled live ray inner {a['inner']!r} / {b['inner']!r}, leaf {a['leaf']!r} / "
+              f"{b['leaf']!r}  [{card}]")
+    rays = captured["tracer"].rays
+    pick = torch.linspace(0, rays.origin.shape[0] - 1, BRUTE_RAYS, device=device).round().long()
+    brute_check("primary", views, packed, rays.take(pick), triangles, tree=f"{tag} refitted tree")
+
+    # one more animated frame under the profiler: the geometry moved, the
+    # rows deformed, the schedule's step and the path-traced frame
+    with contextlib.redirect_stdout(io.StringIO()):
+        sargs = parse_cmd(["--tracer", "split", "--type", build_type, "--pairs", "--refit"])
+    rest = {}
+
+    def animated_frame(seed, jitter):
+        trav, packed_t, _, _ = app_main.animated_trees(
+            sargs, triangles0, t + app_main.ANIMATE_DT, views, sched, rest)
+        return frame_fn(trav, packed_t, dev_scene, camera, device,
+                        **split_trace.make_frame_tracers(RES, RES))(seed, jitter)
+
+    triangles0 = torch.as_tensor(scene.triangles, device=device)
+    sched.max_interval = 0  # the periodic cap off: both frames below refit
+    animated_frame(ITERS, 0.0)  # warm: the rest rows of the last rebuild
+    profile_frame(f"{tag} animated", animated_frame, card)
+    return dict(launches=launches, amortised_ms=amortised, max_abs_err=agree.max_abs_err)
+
+
+def rebuild_runs(card: str) -> dict:
+    """Phase 14 (c): per-frame rebuilds through the app at 1M, 1024x768,
+    DIFFUSE, 3 frames: --tracer wide with each --type, and --tracer lane.
+    Each frame's rebuild ms; the hybrid tree's images against the SAH
+    tree's; the last hybrid tree's checks and K6's counting instantiation
+    against its plain version on its primary passes."""
+    size = ["--width", str(APP_W), "--height", str(APP_H)]
+    out, images = {"k6c": 0, "k5": 0}, {}
+    for tracer, build_type in REBUILD_RUNS:
+        tag = f"rebuild {tracer} {build_type}"
+        fat_traverse.count_launch_count = 0
+        lane_trace.launch_count = 0
+        res, calls, wall, _ = run_app(
+            ["--scene", f"terrain:{NUM_TRIS}", "--pairs", "--tracer", tracer, "--type",
+             build_type, "--render-mode", str(DIFFUSE_MODE), *size, "--animate", "--frames",
+             str(REBUILD_FRAMES), "--output", str(OUT_DIR / f"rebuild_{tracer}_{build_type}")])
+        frame_ms = {f: ms for f, _, ms, _ in res["frames"]}
+        recs = [dict(frame=0, stages=res["stages"])] + res["animated"]
+        for rec in recs:
+            stages = [(n.strip(), ms) for n, ms in rec["stages"]]
+            print(f"  {tag} frame {rec['frame']}: "
+                  + ", ".join(f"{n} {ms!r}" for n, ms in stages)
+                  + f" ms; frame {frame_ms[rec['frame']]!r} ms  [{card}]")
+        print(f"  {tag}: app wall {wall!r} s")
+        if tracer == "wide":
+            require(len(calls) == REBUILD_FRAMES and all(n > 0 for _, n in calls),
+                    f"{tag}: a frame launched no counting K6: {calls}")
+            out["k6c"] += fat_traverse.count_launch_count
+        else:
+            require(lane_trace.launch_count >= REBUILD_FRAMES,
+                    f"{tag}: K5 launched {lane_trace.launch_count} times")
+            out["k5"] += lane_trace.launch_count
+        images[(tracer, build_type)] = mode_images(res)
+        if build_type == "hybrid":
+            hybrid_res = res
+        del res
+    for (f, m), img in images[("wide", "hybrid")].items():
+        db = psnr(img, images[("wide", "sah")][(f, m)])
+        print(f"  hybrid against SAH tree, frame {f}: {db!r} dB")
+        require(db >= MIN_PSNR, f"hybrid frame {f}: {db:.2f} dB from the SAH tree's")
+
+    # the last frame's hybrid tree: host checks and K6's counting
+    # instantiation against its plain version on its primary passes
+    bvh = hybrid_res["bvh"]
+    t0 = time.perf_counter()
+    stats, errors = count_nodes(bvh), verify_hierarchy(bvh)
+    print(f"  hybrid tree (frame {REBUILD_FRAMES - 1}): {bvh.num_slots} slots, root "
+          f"{int(bvh.root)} (count {int(bvh.root_count)}), binary depth "
+          f"{fat_traverse.binary_depth(bvh)}, {stats}, verify_hierarchy errors {len(errors)} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    require(not errors and int(bvh.root_count) == 1, f"hybrid tree: {len(errors)} errors")
+    # the hybrid build's parts at 1M (synchronised, ITERS runs after a warm
+    # one): the LBVH, the sub-root extraction, and the rest (the arena and
+    # the SAH frontier over the sub-roots)
+    triangles = torch.as_tensor(procedural.terrain(NUM_TRIS).triangles, device=bvh.child.device)
+    base, _ = lbvh.build_lbvh(triangles, True)
+    parts = {}
+    for name, fn in (("build_lbvh", lambda: lbvh.build_lbvh(triangles, True)),
+                     ("extract_depth", lambda: hybrid.extract_depth(base)),
+                     ("build_hybrid", lambda: hybrid.build_hybrid(triangles, True))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            fn()
+        parts[name] = sync_ms(t0) / ITERS
+    print(f"  hybrid build parts: build_lbvh {parts['build_lbvh']!r} ms, extract_depth "
+          f"{parts['extract_depth']!r} ms, arena and SAH frontier "
+          f"{parts['build_hybrid'] - parts['build_lbvh'] - parts['extract_depth']!r} ms, "
+          f"build_hybrid {parts['build_hybrid']!r} ms  [{card}]")
+    del triangles, base
+    fat = hybrid_res["trav"]
+    rows256 = wide_fat.live_rows256(fat)
+    camera = aerial_camera(procedural.terrain(NUM_TRIS), rows256.device)
+    max_err = 0.0
+    for label, cam_dev in (("app", hybrid_res["camera"]), ("aerial", camera)):
+        primary = generate_primary_rays(cam_dev, APP_W, APP_H)
+        tiled = Rays(*(tile_reorder(getattr(primary, f), APP_W, APP_H, 8, 8)
+                       for f in ("origin", "direction", "tmin", "tmax")))
+        sample, n_live = live_sample(tiled, None)
+        ops = fat_traverse.kernel_operands(sample)
+        kout = fat_traverse.fat_traverse(rows256, *ops, count=True)
+        counts = {}
+        pout = fat_traverse.trace_fat_plain(rows256, *ops, counts=counts)
+        bad = count_mismatches(kout, pout, counts)
+        hits = int(pout[0].sum())
+        print(f"  hybrid {label} primary pass: {sample.origin.shape[0]} of {n_live} rays, {hits} "
+              f"hits; counting K6 mismatches hit/t/prim/tri/u/v/overflow/box/entry={bad}")
+        require(sum(bad) == 0 and hits > 0, f"hybrid {label}: counting K6 != plain on {bad}")
+        hit = kout[0] != 0
+        max_err = max(max_err, float((kout[1] - pout[1])[hit].abs().max()))
+    out["max_abs_err"] = max_err
+    return out
+
+
+def profile_runs(card: str) -> None:
+    """Phase 14 (d): --profile-build at 1M for each --type and for the
+    split tracer's bucket build; the app prints the stage lines."""
+    for flags in (["--type", "sah"], ["--type", "bottom-up"], ["--type", "hybrid"],
+                  ["--type", "bottom-up", "--tracer", "split"]):
+        print(f"  --profile-build {' '.join(flags)}:  [{card}]")
+        _, _, wall, out = run_app(["--scene", f"terrain:{NUM_TRIS}", "--pairs", "--profile-build",
+                                   "--width", "256", "--height", "192", *flags, "--output",
+                                   str(OUT_DIR / "profile")])
+        require(" time elapsed: " in out, f"--profile-build {flags}: no stage line")
+
+
+def interactive_run(card: str) -> None:
+    """Phase 14 (e): --interactive in a pseudo-terminal on the card: w, the
+    right arrow, m, p and x; every read with its own time limit; exit 0 and
+    the PNG decodes."""
+    import fcntl
+    import os
+    import pty
+    import re
+    import select
+    import struct
+    import termios
+
+    out_dir = OUT_DIR / "interactive"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    err_path = out_dir / "stderr.txt"
+    master, slave = pty.openpty()
+    fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH", 40, 200, 0, 0))
+    t0 = time.perf_counter()
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "tpu_raytracing_torch.app.main", "--scene", "cornell",
+             "--width", str(INTERACTIVE_W), "--height", str(INTERACTIVE_H), "--interactive",
+             "--output", str(out_dir)],
+            stdin=slave, stdout=slave, stderr=err, cwd=str(Path(__file__).parent))
+    os.close(slave)
+    status = re.compile(rb"mode=(\w+)  fps=(\S+)  pos=\(([-\d.]+),([-\d.]+),([-\d.]+)\) "
+                        rb"yaw=([-\d.]+)")
+
+    def fail(what):
+        code = proc.poll()
+        err = err_path.read_text(errors="replace")[-2000:]
+        raise RuntimeError(f"interactive: no {what} after {time.perf_counter() - t0:.1f} s "
+                           f"(exit code {code}); stderr: {err}")
+
+    def until(what, limit, pred=lambda m: True):
+        """Read the terminal until a status line satisfies ``pred``; the
+        scan covers only the newest bytes (a frame is ~300 KB)."""
+        buf, end = b"", time.monotonic() + limit
+        while time.monotonic() < end:
+            if select.select([master], [], [], 0.5)[0]:
+                try:
+                    buf = (buf + os.read(master, 1 << 16))[-(1 << 20):]
+                except OSError:
+                    fail(what)
+            for m in reversed(list(status.finditer(buf))):
+                if pred(m):
+                    return m
+            if proc.poll() is not None:
+                fail(what)
+        fail(what)
+
+    try:
+        first = until("first frame", INTERACTIVE_FIRST_S)
+        first_s = time.perf_counter() - t0
+        pos0, yaw0 = first.group(3, 4, 5), first.group(6)
+        os.write(master, b"w\x1b[C")
+        until("moved frame", INTERACTIVE_READ_S,
+              lambda m: m.group(3, 4, 5) != pos0 and m.group(6) != yaw0)
+        os.write(master, b"m")
+        moved = until("BOX_TESTS frame", INTERACTIVE_READ_S, lambda m: m.group(1) == b"BOX_TESTS")
+        os.write(master, b"p")
+        shot, end = out_dir / "shot0000.png", time.monotonic() + INTERACTIVE_READ_S
+        while not shot.is_file() and time.monotonic() < end:
+            until("frame after the shot", INTERACTIVE_READ_S)
+        img = read_png(str(shot))
+        os.write(master, b"x")
+        end = time.monotonic() + INTERACTIVE_READ_S
+        while proc.poll() is None and time.monotonic() < end:
+            if select.select([master], [], [], 0.5)[0]:
+                try:
+                    os.read(master, 1 << 16)
+                except OSError:
+                    pass
+        code = proc.poll()
+        print(f"  interactive: first frame after {first_s:.2f} s (process start included), "
+              f"fps {moved.group(2).decode()} at {INTERACTIVE_W}x{INTERACTIVE_H}, shot "
+              f"{img.shape}, exit code {code}  [{card}]")
+        require(code == 0, f"interactive: exit code {code}: {err_path.read_text()[-1000:]}")
+        require(img.shape == (INTERACTIVE_H, INTERACTIVE_W, 4), f"interactive shot {img.shape}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        os.close(master)
+
+
+def animate_phase(device, card: str, rebuild_ms=None) -> dict:
+    """Phase 14: the app's animated run on the card."""
+    print("phase 14: the app's animated run: the refit schedule on the split trees, per-frame "
+          "rebuilds on the wide and lane tracers, --profile-build, --interactive")
+    (OUT_DIR).mkdir(parents=True, exist_ok=True)
+    out = {"k1": 0}
+    for build_type, frames in REFIT_RUNS:
+        res = refit_run(device, card, build_type, frames, rebuild_ms)
+        out["k1"] += res["launches"]
+        out[f"refit {build_type}"] = res
+    out.update(rebuild_runs(card))
+    profile_runs(card)
+    interactive_run(card)
+    print(f"  phase 14 launches: K1 {out['k1']}, K5 {out['k5']}, counting K6 {out['k6c']}")
+    return out
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     parser.add_argument("--k1-only", action="store_true",
@@ -2003,6 +2357,10 @@ def main(argv=None) -> int:
     parser.add_argument("--app-only", action="store_true",
                         help="run phases 1, 2 and 13 only (the app's render modes, K6's "
                              "counting instantiation with phase 9's fixtures, the rock); "
+                             "prints no summary lines")
+    parser.add_argument("--animate-only", action="store_true",
+                        help="run phases 1, 2 and 14 only (the app's animated run: the refit "
+                             "schedule, per-frame rebuilds, --profile-build, --interactive); "
                              "prints no summary lines")
     parser.add_argument("--k5-baseline", type=Path, metavar="SOURCE",
                         help="an earlier csrc/lane_trace.cu (the same C interface over the "
@@ -2052,6 +2410,10 @@ def main(argv=None) -> int:
         app_phase(device, card, fixtures=True)
         print("chip_smoke: stopped after phase 13 (--app-only)")
         return 0
+    if args.animate_only:
+        animate_phase(device, card)
+        print("chip_smoke: stopped after phase 14 (--animate-only)")
+        return 0
     scene = procedural.terrain(NUM_TRIS)
     dev_scene = scene_to_device(scene, device)
     camera = aerial_camera(scene, device)
@@ -2073,8 +2435,10 @@ def main(argv=None) -> int:
     probes = probe_phase(device, card)
     k1_launches = split["launches"] + sah_frame["launches"]
     binary_launches = binary["launches"]
+    rebuild_ms = split["rebuild_ms"]
     del split, binary, sah_frame
     app = app_phase(device, card)
+    anim = animate_phase(device, card, rebuild_ms)
 
     def entry(name, source, replaces, launches, res):
         # no single PyTorch call traces rays through a BVH: library_ms is null
@@ -2088,16 +2452,16 @@ def main(argv=None) -> int:
     sp = "tpu_raytracing/trace/split_pallas.py"
     print(json.dumps({"kernels": [
         entry("split_trace", "split_trace.cu", f"{sp}:143",
-              k1_launches, k1),
+              k1_launches + anim["k1"], k1),
         entry("split_trace kernel_v=4", "split_trace.cu", f"{sp}:541", versions[4], k1),
         entry("split_trace kernel_v=5", "split_trace.cu", f"{sp}:898", versions[5], k1),
         entry("split_trace kernel_v=2", "split_trace.cu", f"{sp}:1250", versions[2], k1),
         entry("lane_trace", "lane_trace.cu", "tpu_raytracing/trace/lane_pallas.py:107",
-              lane_launches, k5),
+              lane_launches + anim["k5"], k5),
         entry("fat_traverse", "fat_traverse.cu", "tpu_raytracing/ops/pallas_traverse.py:71",
               binary_launches, k6),
         entry("fat_traverse count=True", "fat_traverse.cu",
-              "tpu_raytracing/ops/pallas_traverse.py:71", app["launches"], app),
+              "tpu_raytracing/ops/pallas_traverse.py:71", app["launches"] + anim["k6c"], app),
     ] + probes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -1,12 +1,11 @@
 """CLI argument parsing (reference: src/Arguments.cpp:42-63).
 
-Port of ``tpu_raytracing/app/args.py``: the flags of the scalar, split,
-lane and wide paths (``--type sah|bottom-up``, ``--pairs``, ``--splits``,
-``--render-mode``, ``--cycle-modes``, ``--bounces``), with the reference's
-defaults and confirmation printout, plus ``--device``. The reference's
-other flags are accepted only to be refused: each is recorded in
-``args.unported``, and ``app/main.py`` raises "not yet ported" for them and
-for the ``--type`` and ``--tracer`` values the port does not have.
+Port of ``tpu_raytracing/app/args.py``: every flag of the reference but
+``--grid-scale``, with its defaults and confirmation printout, plus
+``--device``. ``--grid-scale`` is accepted only to be refused: it is
+recorded in ``args.unported``, and ``app/main.py`` raises "not yet ported"
+for it and for the ``--tracer`` values the port does not have (``packet``,
+``grid``).
 """
 
 from __future__ import annotations
@@ -17,11 +16,7 @@ from tpu_raytracing_torch.trace.modes import BuildType, RenderType
 
 # Reference flags whose paths are not ported yet, with the number of values
 # each takes.
-UNPORTED_FLAGS = {
-    "--animate": 0, "--refit": 0,
-    "--refit-bound": 1, "--refit-interval": 1, "--grid-scale": 1, "--profile-build": 0,
-    "--interactive": 0,
-}
+UNPORTED_FLAGS = {"--grid-scale": 1}
 
 
 class _Unported(argparse.Action):
@@ -38,7 +33,7 @@ def parse_cmd(argv=None) -> argparse.Namespace:
                    help="OBJ scene file (or use --scene)")
     p.add_argument("--type", dest="build_type", default="sah",
                    choices=[b.value for b in BuildType],
-                   help="acceleration-structure build pipeline (the port has: sah, bottom-up)")
+                   help="acceleration-structure build pipeline")
     p.add_argument("--pairs", action="store_true", help="enable triangle pairing")
     p.add_argument("--splits", action="store_true",
                    help="enable bounded spatial splits (SAH builds only)")
@@ -53,17 +48,34 @@ def parse_cmd(argv=None) -> argparse.Namespace:
     p.add_argument("--frames", type=int, default=1)
     p.add_argument("--orbit", action="store_true",
                    help="orbit the camera around the scene across frames")
+    p.add_argument("--animate", action="store_true",
+                   help="animate the geometry and rebuild the BVH every frame")
+    p.add_argument("--refit", action="store_true",
+                   help="with --animate --tracer split: the quality-guarded refit "
+                        "schedule: refit the tree's boxes in place every frame, and "
+                        "rebuild only when the entry-area monitor or --refit-interval "
+                        "trips (bvh/refit_schedule.py)")
+    p.add_argument("--refit-bound", type=float, default=1.3,
+                   help="with --refit: rebuild when the total entry surface area exceeds "
+                        "this ratio of its value at the last rebuild (0 turns it off)")
+    p.add_argument("--refit-interval", type=int, default=0,
+                   help="with --refit: rebuild at least every N frames (0: no cap)")
     p.add_argument("--bounces", type=int, default=0,
                    help="path-trace with N bounces instead of the render modes")
     p.add_argument("--output", default="out", help="PNG output directory")
     p.add_argument("--tracer", default="wide",
                    choices=["scalar", "packet", "wide", "split", "grid", "lane"],
                    help="traversal kernel (the port has: scalar, wide, split, lane)")
+    p.add_argument("--profile-build", action="store_true",
+                   help="time each build stage separately (the run() report)")
     p.add_argument("--debug-checks", action="store_true",
                    help="run the build invariants on the host and raise on violation")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, or cpu for the plain "
                         "PyTorch kernels)")
+    p.add_argument("--interactive", action="store_true",
+                   help="live frames in the terminal: WASD/QE and arrows move the camera, 'm' "
+                        "cycles the mode, 'p' saves a PNG, 'x' quits (app/interactive.py)")
     p.set_defaults(unported=[])
     for flag, nargs in UNPORTED_FLAGS.items():
         p.add_argument(flag, action=_Unported, nargs=nargs, help="not yet ported")

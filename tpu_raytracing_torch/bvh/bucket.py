@@ -3,11 +3,13 @@
 Port of the split path of ``tpu_raytracing/bvh/bucket.py``: ``SplitBVH``,
 ``_sorted_leaves``, ``split_front``, ``leaf_major_tables``,
 ``classify_split``, ``_range_min_table``, ``_range_lookup``, ``_inner_cap``,
-``check_inner_capacity``, ``check_split_capacity``, ``emit_split_views``
-and ``refit_split``, and ``trace/split_pallas.py:_stack_cap`` as
-``stack_cap``. Every pass is a dense tensor op over the sorted leaves,
-as in the reference; the outputs (``inner``, ``num_inner``, ``e_ranges``,
-``max_slot``, pair rows) are bit-equal to the reference's.
+``check_inner_capacity``, ``check_split_capacity``, ``emit_split``,
+``build_bucket_split``, ``emit_split_views`` and ``refit_split``,
+``trace/split_pallas.py:_stack_cap`` as ``stack_cap`` and its
+``prep_split_views`` as ``split_views``. Every pass is a dense tensor op
+over the sorted leaves, as in the reference; the outputs (``inner``,
+``num_inner``, ``e_ranges``, ``max_slot``, pair rows) are bit-equal to the
+reference's.
 
 XLA primitives without a direct torch counterpart: ``lax.clz`` becomes
 ``torch.frexp`` on float64 (exact for every int32), reverse ``cummin`` a
@@ -21,7 +23,7 @@ P_pad >= max(P, leaf_width), so no leaf window reads past the end, and the
 tracer's stack bound for the tree.
 
 ``bvh/invariants.py``'s ``checkify`` checks become host checks behind
-``emit_split_views(..., debug=True)``.
+``emit_split(..., debug=True)``.
 """
 
 from __future__ import annotations
@@ -284,14 +286,16 @@ def stack_cap(w: int, num_pair_rows: int) -> int:
     return (w - 1) * max_levels + 8
 
 
-def emit_split_views(front, leaf_width: int = 16, debug: bool = False):
-    """Emit the SplitBVH and the traversal kernel's views from a
-    ``split_front`` result.
-
-    Returns ((inner [ICAP, 8, 8] i32, pairs [P_pad, 16] i32, stack_cap),
-    packed, split). Inner rows are 8 wide, the width the tracer takes (the
-    reference's ``inner_width=16`` is not ported). ``debug`` runs the build
-    invariants on the host and raises on a violation.
+def emit_split(front, leaf_width: int = 16, debug: bool = False):
+    """Emit the SplitBVH from a ``split_front`` result: (SplitBVH,
+    PackedPairs), with ``e_ranges`` (each entry's leaf range, what
+    ``refit_split`` refreshes boxes from). Inner rows are 8 wide, the width
+    the tracer takes (the reference's ``inner_width=16`` is not ported).
+    The pair rows past ``num_leaves`` are zeroed: leaf windows may overlap
+    the padded tail, zero vertices never intersect, and a deformation that
+    moves all four vertices of a row alike keeps them degenerate.
+    ``debug`` runs the build invariants on the host and raises on a
+    violation.
     """
     width = _INNER_WIDTH
     if leaf_width < width:
@@ -302,8 +306,6 @@ def emit_split_views(front, leaf_width: int = 16, debug: bool = False):
 
     iota = torch.arange(n, dtype=torch.int64, device=dev)
     live = iota < num_leaves
-    # Zero sentinel pairs: leaf windows may overlap the padded tail, and
-    # zero vertices never intersect.
     rows_live = torch.where(live[:, None], packed.rows, 0)
 
     heads, starts, nxts, counts = leaf_major_tables(sorted_codes, num_leaves, n, width)
@@ -374,13 +376,44 @@ def emit_split_views(front, leaf_width: int = 16, debug: bool = False):
     leaf_rr[0, 1] = num_leaves.to(torch.int32)
     e_ranges[0] = torch.where(root_is_leaf, leaf_rr, e_ranges[root_row])
 
-    p_pad = max(n, leaf_width)
-    pairs = rows_live if p_pad == n else torch.cat(
-        [rows_live, torch.zeros((p_pad - n, 16), dtype=torch.int32, device=dev)])
     split = SplitBVH(inner=inner, num_inner=num_inner, num_leaves=num_leaves,
                      leaf_width=leaf_width, e_ranges=e_ranges, max_slot=max_slot)
-    views = (inner.reshape(icap, width, 8), pairs, stack_cap(width, p_pad))
-    return views, PackedPairs(rows=rows_live), split
+    return split, PackedPairs(rows=rows_live)
+
+
+def build_bucket_split(triangles: torch.Tensor, enable_pairs: bool = False,
+                       leaf_width: int = 16, debug: bool = False):
+    """The leaf-major Morton-bucket split build: ``emit_split`` over
+    ``split_front``; returns (SplitBVH, PackedPairs)."""
+    return emit_split(split_front(triangles, enable_pairs), leaf_width=leaf_width, debug=debug)
+
+
+def split_views(split: SplitBVH, packed: PackedPairs, cap: Optional[int] = None):
+    """K1's views of a split tree and its sorted pair rows (the port's
+    counterpart of ``trace/split_pallas.py:prep_split_views``): (inner
+    [ICAP, 8, 8] i32, pairs [P_pad, 16] i32, stack_cap), sharing the
+    tree's storage. P_pad = max(P, leaf_width): a Tri entry's window starts
+    at min(start, num_leaves - leaf_width), so a scene smaller than one
+    window still reads leaf_width rows. ``cap`` is the tracer's stack bound
+    for the tree; by default the bucket tree's (``stack_cap``)."""
+    icap, row_words = split.inner.shape
+    if row_words != _INNER_WIDTH * 8:
+        raise ValueError(f"split_views: K1 takes 8-wide rows, got {row_words // 8}")
+    rows = packed.rows
+    p = rows.shape[0]
+    p_pad = max(p, split.leaf_width)
+    pairs = rows if p_pad == p else torch.cat(
+        [rows, torch.zeros((p_pad - p, 16), dtype=torch.int32, device=rows.device)])
+    if cap is None:
+        cap = stack_cap(_INNER_WIDTH, p_pad)
+    return split.inner.reshape(icap, _INNER_WIDTH, 8), pairs.contiguous(), cap
+
+
+def emit_split_views(front, leaf_width: int = 16, debug: bool = False):
+    """``emit_split`` and ``split_views`` in one call: ((inner, pairs,
+    stack_cap), packed, split)."""
+    split, packed = emit_split(front, leaf_width=leaf_width, debug=debug)
+    return split_views(split, packed), packed, split
 
 
 def refit_split(split: SplitBVH, packed: PackedPairs) -> SplitBVH:
@@ -388,7 +421,7 @@ def refit_split(split: SplitBVH, packed: PackedPairs) -> SplitBVH:
     current pair rows, keeping metas, windows and row ids. The caller
     animates ``packed.rows`` in sorted-pair order (vertex words 0-11)."""
     if split.e_ranges is None:
-        raise ValueError("refit_split needs e_ranges (build with emit_split_views)")
+        raise ValueError("refit_split needs e_ranges (build with emit_split)")
     icap, row_words = split.inner.shape
     w = row_words // 8
     v = i2f(packed.rows[:, :12]).reshape(-1, 4, 3)

@@ -1,7 +1,9 @@
 """Triangle pairing: shared-edge detection, rotations, quad assembly.
 
 Port of ``tpu_raytracing/bvh/pairing.py`` (``can_form_pair``,
-``should_form_pair``, ``create_pairs``, ``identity_pairs``): exact float
+``should_form_pair``, ``create_pairs``, ``identity_pairs``), and
+``pair_vertices``, which re-assembles stored pairs on other vertex
+positions (the animated app's rest pose): exact float
 vertex equality, edge matching in the reference's iteration order
 (src/Pairing.cuh:1-78), the merge heuristic
 ``sa(pair) * 0.5 < sa(a) + sa(b)`` and quad assembly with rotation
@@ -100,6 +102,20 @@ def create_pairs(a, b, a_id, b_id, is_pair) -> TrianglePairs:
         rot_0=rot_a.to(torch.int32),
         rot_1=rot_b.to(torch.int32),
     )
+
+
+def pair_vertices(triangles, prim_id_0, prim_id_1, rot_0, rot_1) -> torch.Tensor:
+    """The four vertices [P, 4, 3] of pairs assembled by ``create_pairs``,
+    taken from ``triangles`` by the pairs' stored primitive ids and
+    rotations, without a geometric test: A rotated by ``rot_0``, and v3 the
+    vertex ``rot_1`` names of B, or A's v2 where the pair holds one
+    triangle (``prim_id_1 == prim_id_0``)."""
+    a = _rotate_triangle(triangles[prim_id_0.long()], rot_0)
+    b = triangles[prim_id_1.long()]
+    r1 = rot_1[:, None]
+    v3 = torch.where(r1 == 2, b[:, 0], torch.where(r1 == 1, b[:, 1], b[:, 2]))
+    v3 = torch.where((prim_id_1 != prim_id_0)[:, None], v3, a[:, 2])
+    return torch.cat([a, v3[:, None]], dim=1)
 
 
 def identity_pairs(triangles: torch.Tensor) -> TrianglePairs:

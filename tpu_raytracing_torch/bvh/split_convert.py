@@ -2,8 +2,9 @@
 
 Port of ``tpu_raytracing/bvh/split_convert.py`` (``_setup``, ``_split_cap``,
 ``build_sah_split``, ``build_sah_split_auto``, ``check_sah_split_capacity``,
-``_emit_from_arena``), bit-equal to it, and ``sah_split_views``: the
-counterpart of ``trace/split_pallas.py:prep_split_views`` in K1's layout.
+``_emit_from_arena``), bit-equal to it, and ``sah_split_views``: K1's
+views of an SAH tree (``bucket.split_views``) with the tree's own stack
+bound.
 
 The binned-SAH frontier (``bvh/sah.py``) realises every partition with one
 stable sort of the whole primitive axis keyed by (task, bin), so a node's
@@ -31,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpu_raytracing_torch.bvh import sah
-from tpu_raytracing_torch.bvh.bucket import SplitBVH, _empty_entry
+from tpu_raytracing_torch.bvh.bucket import SplitBVH, _empty_entry, split_views
 from tpu_raytracing_torch.bvh.types import CHILD_BOX, CHILD_NONE, CHILD_TRI
 from tpu_raytracing_torch.trace.traverse import _META_CHILD_SHIFT, PackedPairs, f2i, pack_pairs
 
@@ -249,18 +250,7 @@ def sah_stack_cap(levels: int, w: int = WIDE) -> int:
 
 def sah_split_views(split: SplitBVH, packed: PackedPairs):
     """K1's views of an SAH split tree: ((inner [ICAP, 8, 8] i32, pairs
-    [P_pad, 16] i32, stack_cap), packed, split), the same triple as
-    ``bucket.emit_split_views`` plus the tree's own stack bound. P_pad >=
-    max(P, leaf_width): a Tri entry's window starts at
-    min(start, num_leaves - leaf_width), so a scene smaller than one window
-    still reads leaf_width rows."""
-    icap, row_words = split.inner.shape
-    if row_words != WIDE * 8:
-        raise ValueError(f"sah_split_views: K1 takes 8-wide rows, got {row_words // 8}")
-    rows = packed.rows
-    p = rows.shape[0]
-    p_pad = max(p, split.leaf_width)
-    pairs = rows if p_pad == p else torch.cat(
-        [rows, torch.zeros((p_pad - p, 16), dtype=torch.int32, device=rows.device)])
+    [P_pad, 16] i32, stack_cap), packed, split), ``bucket.split_views``
+    with the tree's own stack bound from its depth in rows."""
     cap = sah_stack_cap(row_depth(split.inner, int(split.num_inner)))
-    return (split.inner.reshape(icap, WIDE, 8), pairs.contiguous(), cap), packed, split
+    return split_views(split, packed, cap), packed, split

@@ -1,8 +1,10 @@
 """Procedural test scenes.
 
-Port of ``tpu_raytracing/scene/procedural.py`` (whole module, numpy only):
-the generators are copied verbatim so the port's arrays are byte-equal to
-the reference's, and only the ``Scene`` container comes from the port.
+Port of ``tpu_raytracing/scene/procedural.py`` (whole module): the
+generators are copied verbatim, in numpy, so the port's arrays are
+byte-equal to the reference's, and only the ``Scene`` container comes from
+the port. ``animate_triangles`` runs on torch tensors, so the animated app
+moves its geometry on the card.
 
 The reference ships no assets (scenes are user OBJ files), while the
 benchmark configs (BASELINE.md) need Cornell-box, bunny-scale, Sponza-scale
@@ -13,6 +15,7 @@ triangle count, in the same Scene container the OBJ loader emits.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpu_raytracing_torch.scene.types import Library, Scene
 
@@ -224,17 +227,16 @@ def terrain(num_triangles: int, extent: float = 100.0, height: float = 8.0,
     return _finish(tris, mats, lib, light)
 
 
-def animate_triangles(triangles: np.ndarray, time: float, amplitude: float = 0.05) -> np.ndarray:
+def animate_triangles(triangles: torch.Tensor, time: float,
+                      amplitude: float = 0.05) -> torch.Tensor:
     """Per-frame vertex animation for the animated-rebuild benchmark:
-    a smooth positional wobble that forces a full LBVH rebuild each frame."""
-    t = np.float32(time)
-    phase = triangles[..., 0:1] * 1.7 + triangles[..., 2:3] * 1.3
-    wobble = np.stack(
-        [
-            np.sin(phase[..., 0] * 2.0 + t),
-            np.cos(phase[..., 0] * 3.0 + t * 1.3),
-            np.sin(phase[..., 0] * 2.5 + t * 0.7),
-        ],
-        axis=-1,
-    ).astype(np.float32)
+    a smooth positional wobble that forces a full LBVH rebuild each frame.
+
+    The reference's numpy function on a tensor of vertices ([..., 3]
+    float32; triangles [N, 3, 3] or pair rows' vertices [P, 4, 3]), on the
+    tensor's device, in float32. Each vertex moves by a function of its own
+    position, so equal vertices move alike."""
+    phase = triangles[..., 0] * 1.7 + triangles[..., 2] * 1.3
+    wobble = torch.stack([torch.sin(phase * 2.0 + time), torch.cos(phase * 3.0 + time * 1.3),
+                          torch.sin(phase * 2.5 + time * 0.7)], dim=-1)
     return triangles + amplitude * wobble
