@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k1-only    # phases 1-4 and 12
     python3 chip_smoke.py --app-only   # phases 1, 2 and 13 (with phase 9's fixtures)
     python3 chip_smoke.py --animate-only   # phases 1, 2 and 14
+    python3 chip_smoke.py --tracers-only   # phases 1, 2 and 15
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
@@ -172,6 +173,34 @@ exits non-zero if any phase fails:
    scalar`` (``trace_rays``) on the same SAH tree: modes 0, 3 and 5-8 at
    40 dB or more between the two, the textured modes with more than one
    colour. Images go to ``out/chip_smoke/`` (git-ignored).
+14. The app's animated run (``--animate-only`` runs phases 1, 2 and 14):
+   the refit schedule on the bucket and SAH split trees at 1M through
+   ``app.main.main``, per-frame rebuilds with ``--tracer wide`` and each
+   ``--type`` and with ``--tracer lane``, the hybrid tree's checks,
+   ``--profile-build``, and ``--interactive`` in a pseudo-terminal.
+15. The app's last two tracers and instancing (``--tracers-only`` runs
+   phases 1, 2 and 15, and first renders phase 3's split frame itself):
+   the uniform grid on phase 3's scene with pairs (the build timed, its
+   resolution, refs, big list and overflow), a 1024x1024 1-bounce frame
+   with the grid's closest-hit tracer and its any-hit tracer for the
+   shadows at phase 3's camera and seeds (frame ms, Mrays/s, finite, 40 dB
+   or more from phase 3's split frame), its hits on 4,096 primary and
+   bounce rays against brute force, and 65,536 bounce rays with
+   ``residue_after`` and with ``segments`` equal to the single-phase walk
+   bit for bit; the app's ``--tracer grid`` with ``--grid-scale 0.5`` and
+   with ``--animate`` (3 frames at 1024x768, DIFFUSE, each frame's grid
+   rebuild); the app's ``--tracer packet`` on the Karras tree in DEPTH and
+   DIFFUSE at 1024x768, and the packet tracer against K6's wide tracer on
+   the aerial camera's rays (exact-t ties allowed); config 4 of
+   ``benchmarks/bench_configs.py`` (``sphere_scene(4)`` as the BLAS, 1,000
+   instances from ``default_rng(3)``, 512x512): ``build_instanced`` and
+   ``build_instanced_split`` per frame over jittered transforms, ``k_slots``
+   from ``max_overlap`` and ``item_budget`` from the first trace's guard
+   (an overflow fails the phase), both tracers' frames against each other,
+   1,024 rays against brute force over the 5.1M world triangles, and K1
+   against its plain version bit for bit on every item of the
+   object-space pass. K1's launch count is set to 0 before the instanced
+   frames and read after; its launches go into the ``kernels`` line.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
@@ -218,13 +247,30 @@ from tpu_raytracing_torch.benchmarks import (  # noqa: E402
     probe_lane_machine2,
     probe_lane_machine3,
 )
-from tpu_raytracing_torch.bvh import bucket, hybrid, lbvh, split_convert, treelet, wide  # noqa: E402
+from tpu_raytracing_torch.bvh import (  # noqa: E402
+    bucket,
+    grid,
+    hybrid,
+    lbvh,
+    split_convert,
+    tlas,
+    treelet,
+    wide,
+)
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
 from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
 from tpu_raytracing_torch.scene import camera as cam  # noqa: E402
 from tpu_raytracing_torch.scene import genasset, native_loader, objio, procedural  # noqa: E402
 from tpu_raytracing_torch.scene.types import scene_to_device  # noqa: E402
-from tpu_raytracing_torch.trace import lane_trace, render, split_trace, wide_fat  # noqa: E402
+from tpu_raytracing_torch.trace import (  # noqa: E402
+    grid_trace,
+    instanced,
+    instanced_split,
+    lane_trace,
+    render,
+    split_trace,
+    wide_fat,
+)
 from tpu_raytracing_torch.trace.brute import brute_force_trace  # noqa: E402
 from tpu_raytracing_torch.trace.modes import RenderType  # noqa: E402
 from tpu_raytracing_torch.trace.pathtrace import path_trace  # noqa: E402
@@ -310,6 +356,19 @@ REFIT_INTERVAL = 3
 REBUILD_RUNS = (("wide", "sah"), ("wide", "bottom-up"), ("wide", "hybrid"), ("lane", "bottom-up"))
 REBUILD_FRAMES = 3
 DIFFUSE_MODE = 5
+# Phase 15: the app's last two tracers and instancing. The grid frame and
+# its checks on phase 3's scene; the app's --tracer grid (--grid-scale 0.5,
+# --animate) and --tracer packet at 1024x768; config 4 of
+# benchmarks/bench_configs.py:257-380 (sphere_scene(4) as the BLAS, 1,000
+# instances from default_rng(3), 512x512).
+GRID_SCALE = 0.5
+GRID_RESIDUE_AFTER = 8
+GRID_SEGMENTS = 4
+PACKET_MODES = (0, DIFFUSE_MODE)
+INST_COUNT = 1000
+INST_RES = 512
+INST_SUBDIV = 4
+INST_BRUTE_RAYS = 1024
 INTERACTIVE_W, INTERACTIVE_H = 256, 192
 INTERACTIVE_FIRST_S = 180.0
 INTERACTIVE_READ_S = 30.0
@@ -752,12 +811,13 @@ def same_split(a, b) -> dict:
     }
 
 
-def brute_check(label: str, views, packed, rays, triangles, tree: str = "SAH tree") -> None:
-    """K1's hits on sampled rays against brute force over every triangle:
-    at most 0.5% of the rays may differ on hit, t or the primitive; a
-    different primitive at exactly the same t (either triangle of an exact
-    tie) counts as agreement."""
-    tracer = split_trace.make_split_tracer(RES, RES, sort_mode="presorted")
+def brute_check(label: str, views, packed, rays, triangles, tree: str = "SAH tree",
+                tracer=None) -> None:
+    """K1's hits (or ``tracer``'s) on sampled rays against brute force over
+    every triangle: at most 0.5% of the rays may differ on hit, t or the
+    primitive; a different primitive at exactly the same t (either triangle
+    of an exact tie) counts as agreement."""
+    tracer = tracer or split_trace.make_split_tracer(RES, RES, sort_mode="presorted")
     rec, stats = tracer(views, packed, rays)
     ref = brute_force_trace(triangles, rays, chunk=64)
     num = rays.origin.shape[0]
@@ -771,7 +831,8 @@ def brute_check(label: str, views, packed, rays, triangles, tree: str = "SAH tre
           f"(exact-t ties naming the other triangle: {ties}), overflow {int(stats.overflow)}")
     for what, count in (("hit", bad_hit), ("t", bad_t), ("prim", bad_prim)):
         require(count <= (1.0 - BRUTE_AGREE) * num,
-                f"{tree}: K1 and brute force disagree on {what} for {count} {label} rays")
+                f"{tree}: the tracer and brute force disagree on {what} for {count} "
+                f"{label} rays")
     require(int(stats.overflow) == 0, f"{label} brute-force sample overflowed")
     require(int(ref.hit.sum()) > 0, f"no {label} ray of the brute-force sample hits")
 
@@ -2349,6 +2410,354 @@ def animate_phase(device, card: str, rebuild_ms=None) -> dict:
 
 
 
+def grid_frame(device, card: str, scene, dev_scene, camera, triangles, split_img) -> dict:
+    """Phase 15 (a): the uniform grid on phase 3's scene: its build (one
+    warm, ITERS timed) at ``auto_res3`` over the scene's box, a 1-bounce
+    frame with the grid's closest-hit tracer and its any-hit tracer for the
+    shadows, brute force on sampled primary and bounce rays, and the
+    residue and segment schedules against the single-phase walk."""
+    res3 = grid.auto_res3(scene.aabb_max - scene.aabb_min, scene.num_triangles)
+    tiers = grid.tier_params(1.0)
+
+    def build(tris):
+        return grid.build_grid_from_triangles(tris, True, res=res3, **tiers)
+
+    ugrid, packed = build(triangles)
+    grid.check_grid_capacity(ugrid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ITERS):
+        build(triangles + (i + 1) * 1e-5)
+    build_ms = sync_ms(t0) / ITERS
+    live_refs = int(ugrid.cell_count.sum())
+    print(f"  grid build: {build_ms!r} ms, res {ugrid.res}, refs {live_refs} live of "
+          f"{ugrid.refs.shape[0]}, big list {int(ugrid.num_big)}, overflow "
+          f"{int(ugrid.overflow)}  [{card}]")
+
+    tracers = dict(tracer=grid_trace.make_grid_tracer(),
+                   shadow_tracer=grid_trace.make_grid_tracer(any_hit=True),
+                   bounce_tracer=grid_trace.make_grid_tracer(),
+                   shadow_tracer_bounce=grid_trace.make_grid_tracer(any_hit=True))
+    captured = {k: Capture(v) for k, v in tracers.items()}
+    frame = frame_fn(ugrid, packed, dev_scene, camera, device, **captured)
+    frame(0, 0.0)
+    img, frame_ms, total_rays = timed_frames(frame)
+    require(bool(torch.isfinite(img).all()), "grid frame has non-finite pixels")
+    db = frame_psnr(img, split_img)
+    mrays = total_rays / (frame_ms * ITERS) / 1000.0
+    print(f"  grid frame: {RES}x{RES}, {BOUNCES} bounce, {frame_ms!r} ms, {mrays!r} Mrays/s, "
+          f"{total_rays} rays in {ITERS} frames, {db!r} dB from phase 3's split frame  [{card}]")
+    require(db >= MIN_PSNR, f"grid frame: {db:.2f} dB from the split frame")
+
+    for key, label in (("tracer", "grid primary"), ("bounce_tracer", "grid bounce")):
+        cap = captured[key]
+        rays, _ = live_sample(cap.rays, cap.active, BRUTE_RAYS)
+        brute_check(label, None, packed, rays, triangles, tree="grid",
+                    tracer=lambda v, p, r: grid_trace.trace_rays_grid(ugrid, p, r))
+
+    # the reference's tail cures: the same walk in another schedule, on
+    # SLICE live rays sampled evenly from the bounce pass
+    cap = captured["bounce_tracer"]
+    sample, alive = live_sample(cap.rays, cap.active)
+    n = sample.origin.shape[0] // GRID_SEGMENTS * GRID_SEGMENTS
+    sample = sample.take(torch.arange(n, device=device))
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec, stats = grid_trace.trace_rays_grid(ugrid, packed, sample, **kw)
+        return rec, stats, sync_ms(t0)
+
+    base, base_stats, base_ms = run()
+    print(f"  grid bounce pass: {alive} live rays; a sample of {n}: single phase {base_ms!r} ms, "
+          f"mean steps per ray {float(base_stats.box_tests.float().mean())!r}, most "
+          f"{int(base_stats.box_tests.max())}  [{card}]")
+    for kw in (dict(residue_after=GRID_RESIDUE_AFTER), dict(segments=GRID_SEGMENTS)):
+        rec, stats, ms = run(**kw)
+        bad = {f: int((getattr(rec, f).view(torch.int32) != getattr(base, f).view(torch.int32))
+                      .sum()) if getattr(rec, f).dtype == torch.float32 else
+               int((getattr(rec, f) != getattr(base, f)).sum())
+               for f in ("hit", "t", "prim_id", "tri_id", "bary_u", "bary_v")}
+        bad["steps"] = int((stats.box_tests != base_stats.box_tests).sum())
+        bad["tri_tests"] = int((stats.tri_tests != base_stats.tri_tests).sum())
+        print(f"  grid bounce sample with {kw}: {ms!r} ms, mismatches {bad}  [{card}]")
+        require(sum(bad.values()) == 0, f"grid {kw}: differs from the single phase: {bad}")
+    return dict(build_ms=build_ms, frame_ms=frame_ms, mrays_per_s=mrays, psnr_db=db)
+
+
+def grid_app_runs(card: str) -> None:
+    """Phase 15 (b): the app's --tracer grid at 1M, 1024x768, DIFFUSE:
+    with --grid-scale 0.5, then --animate for REBUILD_FRAMES frames with
+    each frame's grid rebuild."""
+    size = ["--width", str(APP_W), "--height", str(APP_H)]
+    common = ["--scene", f"terrain:{NUM_TRIS}", "--pairs", "--type", "sah", "--tracer", "grid",
+              "--render-mode", str(DIFFUSE_MODE), *size]
+    for tag, extra in ((f"--grid-scale {GRID_SCALE}", ["--grid-scale", str(GRID_SCALE)]),
+                       ("--animate", ["--animate", "--frames", str(REBUILD_FRAMES)])):
+        res, _, wall, _ = run_app(common + extra + ["--output", str(OUT_DIR / "grid_app")])
+        stages = dict(res["stages"])
+        frame_ms = {f: ms for f, _, ms, _ in res["frames"]}
+        print(f"  app --tracer grid {tag}: frame 0 grid build "
+              f"{stages[app_main.REBUILD_STAGES['grid']]!r} ms, res {res['trav'].res}, frame "
+              f"ms {[frame_ms[f] for f in sorted(frame_ms)]!r}, app wall {wall!r} s  [{card}]")
+        for rec in res["animated"]:
+            st = dict(rec["stages"])
+            print(f"    animated frame {rec['frame']}: grid rebuild "
+                  f"{st[app_main.REBUILD_STAGES['grid']]!r} ms  [{card}]")
+        images = mode_images(res)
+        for key, img in images.items():
+            require(img.shape == (APP_H, APP_W, 4) and bool(img[..., :3].any()),
+                    f"grid app {tag} {key}: an empty image")
+        require(len(images) == (REBUILD_FRAMES if "animate" in tag else 1),
+                f"grid app {tag}: {len(images)} images")
+
+
+def packet_runs(card: str, device) -> dict:
+    """Phase 15 (c): the app's --tracer packet at 1M on the Karras tree,
+    DEPTH and DIFFUSE at 1024x768; then the packet tracer against K6's
+    wide tracer on the same tree from phase 3's aerial camera."""
+    out = {}
+    for mode in PACKET_MODES:
+        res, _, wall, _ = run_app(["--scene", f"terrain:{NUM_TRIS}", "--pairs", "--type",
+                                   "bottom-up", "--tracer", "packet", "--render-mode", str(mode),
+                                   "--width", str(APP_W), "--height", str(APP_H), "--output",
+                                   str(OUT_DIR / "packet_app")])
+        (_, _, ms, path), = res["frames"]
+        img = read_png(path)
+        require(img.shape == (APP_H, APP_W, 4) and bool((img[..., 3] == 255).all()),
+                f"packet mode {mode}: image {img.shape}")
+        out[mode] = ms
+        print(f"  app --tracer packet mode {mode}: frame {ms!r} ms, app wall {wall!r} s  "
+              f"[{card}]")
+    bvh, trav, packed = res["bvh"], res["trav"], res["packed"]
+    camera = aerial_camera(procedural.terrain(NUM_TRIS), device)
+    rays = generate_primary_rays(camera, APP_W, APP_H)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, stats = res["tracer"](trav, packed, rays)
+    packet_ms = sync_ms(t0)
+    fat = wide.build_wide_fat(bvh, packed.rows)
+    ref, _ = wide_fat.make_tiled_fat_tracer(None, APP_W, APP_H, 8, 8)(fat, packed, rays)
+    num = rays.origin.shape[0]
+    both = rec.hit & ref.hit
+    bad_hit = int((rec.hit != ref.hit).sum())
+    bad_t = int((both & ((rec.t - ref.t).abs() > T_RTOL * ref.t.abs())).sum())
+    bad_tri = int((both & (rec.tri_id != ref.tri_id) & (rec.t != ref.t)).sum())
+    ties = int((both & (rec.tri_id != ref.tri_id) & (rec.t == ref.t)).sum())
+    print(f"  packet against K6, aerial camera, {num} rays: packet trace {packet_ms!r} ms, "
+          f"{int(ref.hit.sum())} hits, mismatches hit={bad_hit} t={bad_t} tri={bad_tri} "
+          f"(exact-t ties naming the other triangle: {ties}), overflow {int(stats.overflow)}  "
+          f"[{card}]")
+    require(int(stats.overflow) == 0 and int(ref.hit.sum()) > 0, "packet: overflow or no hit")
+    for what, count in (("hit", bad_hit), ("t", bad_t), ("tri", bad_tri)):
+        require(count <= (1.0 - BRUTE_AGREE) * num,
+                f"packet and K6 disagree on {what} for {count} rays")
+    out["aerial_ms"] = packet_ms
+    return out
+
+
+class ItemRecorder:
+    """Wraps ``split_trace.trace_rays_split``: keeps the (views, rays,
+    active) of every call, the instanced tracer's object-space passes."""
+
+    def __init__(self):
+        self.fn = split_trace.trace_rays_split
+        self.calls = []
+
+    def __call__(self, views, packed, rays, active=None, **kw):
+        self.calls.append((views, rays, active))
+        return self.fn(views, packed, rays, active=active, **kw)
+
+
+def instanced_phase(device, card: str) -> dict:
+    """Phase 15 (d): config 4 of benchmarks/bench_configs.py:257-380 on the
+    card. Returns K1's launches in the timed instanced frames."""
+    scene = procedural.sphere_scene(INST_SUBDIV)
+    tris = torch.as_tensor(scene.triangles, device=device)
+    blas, pairs = lbvh.build_lbvh(tris, True)
+    packed = pack_pairs(pairs)
+    rng = np.random.default_rng(3)
+    base_t = rng.uniform(-40, 40, (INST_COUNT, 3)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, (INST_COUNT, 1, 1)).astype(np.float32)
+    mats = (np.broadcast_to(np.eye(3, dtype=np.float32), (INST_COUNT, 3, 3)) * scale)
+    transforms = torch.as_tensor(np.concatenate([mats, base_t[:, :, None]], axis=2)
+                                 .astype(np.float32), device=device)
+    wmin, wmax = tlas.instance_world_aabbs(blas.node_min[blas.root.long()],
+                                           blas.node_max[blas.root.long()], transforms)
+    lo, hi = wmin.amin(dim=0).cpu().numpy(), wmax.amax(dim=0).cpu().numpy()
+    camera = cam.camera_to_device(cam.update_camera(cam.initialise_camera(lo, hi)), device)
+    rays = generate_primary_rays(camera, INST_RES, INST_RES)
+
+    views, packed_s, split = bucket.emit_split_views(bucket.split_front(tris, True),
+                                                     leaf_width=split_trace.LEAFW)
+    bucket.check_split_capacity(split, tris.shape[0])
+    blas_lo, blas_hi = tris.reshape(-1, 3).amin(dim=0), tris.reshape(-1, 3).amax(dim=0)
+
+    def jitter(j):
+        tf = transforms.clone()
+        tf[:, :, 3] += j
+        return tf
+
+    def build_ms(fn):
+        fn(jitter(0.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ITERS):
+            out = fn(jitter((i + 1) * 1e-3))
+        return sync_ms(t0) / ITERS, out
+
+    stack_build_ms, _ = build_ms(lambda tf: tlas.build_instanced(blas, tf))
+    split_build_ms, _ = build_ms(lambda tf: instanced_split.build_instanced_split(
+        views, packed_s, blas_lo, blas_hi, tf))
+    ias = tlas.build_instanced(blas, transforms)
+    ias_s = instanced_split.build_instanced_split(views, packed_s, blas_lo, blas_hi, transforms)
+    mo = instanced_split.max_overlap(ias_s, rays)
+    k_slots = max(4, -(-(mo + 2) // 4) * 4)
+    _, _, _, guard0 = instanced_split.trace_rays_instanced_split(ias_s, rays, k_slots=k_slots)
+    instanced_split.check_candidate_capacity(guard0, k_slots)
+    budget = -(-int(guard0[1]) * 13 // (10 * 256)) * 256
+    print(f"  config 4: {INST_COUNT} instances of {scene.num_triangles} tris, {INST_RES}x"
+          f"{INST_RES}; max overlap {mo} -> k_slots {k_slots}; {int(guard0[1])} live items -> "
+          f"item_budget {budget}; build_instanced {stack_build_ms!r} ms, "
+          f"build_instanced_split {split_build_ms!r} ms  [{card}]")
+
+    # the main path: the split-kernel instanced frames, K1's launches counted
+    recorder = ItemRecorder()
+    split_trace.trace_rays_split = recorder
+    try:
+        split_trace.launch_count = 0
+
+        def split_frame(j):
+            ias_j = instanced_split.build_instanced_split(views, packed_s, blas_lo, blas_hi,
+                                                          jitter(j))
+            return instanced_split.trace_rays_instanced_split(ias_j, rays, k_slots=k_slots,
+                                                              item_budget=budget)
+
+        split_frame(0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ITERS):
+            out = split_frame((i + 1) * 1e-3)
+        split_frame_ms = sync_ms(t0) / ITERS
+        launches = split_trace.launch_count
+        # the last timed frame's guard (the reference drops it)
+        instanced_split.check_candidate_capacity(out[3], k_slots, budget)
+        rec_s, inst_s, stats_s, guard = instanced_split.trace_rays_instanced_split(
+            ias_s, rays, k_slots=k_slots, item_budget=budget)
+    finally:
+        split_trace.trace_rays_split = recorder.fn
+    instanced_split.check_candidate_capacity(guard, k_slots, budget)
+    require(launches >= ITERS + 1, f"config 4: K1 launched {launches} times")
+    split_trace.check_overflow(stats_s.overflow)
+
+    def stack_frame(j):
+        return instanced.trace_rays_instanced(tlas.build_instanced(blas, jitter(j)), packed,
+                                              rays)
+
+    stack_frame(0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ITERS):
+        stack_frame((i + 1) * 1e-3)
+    stack_frame_ms = sync_ms(t0) / ITERS
+    rec, inst, stats = instanced.trace_rays_instanced(ias, packed, rays)
+    split_trace.check_overflow(stats.overflow)
+    num = rays.origin.shape[0]
+    both = rec.hit & rec_s.hit
+    bad_hit = int((rec.hit != rec_s.hit).sum())
+    bad_t = int((both & ((rec.t - rec_s.t).abs() > T_RTOL * rec.t.abs())).sum())
+    bad_inst = int((both & (inst != inst_s) & (rec.t != rec_s.t)).sum())
+    ties = int((both & (inst != inst_s) & (rec.t == rec_s.t)).sum())
+    print(f"  config 4 frame (TLAS rebuild and trace): split kernel {split_frame_ms!r} ms, "
+          f"stack tracer {stack_frame_ms!r} ms; {int(rec.hit.sum())} hits; stack against "
+          f"split mismatches hit={bad_hit} t={bad_t} instance={bad_inst} (exact-t ties "
+          f"naming another instance: {ties})  [{card}]")
+    for what, count in (("hit", bad_hit), ("t", bad_t), ("instance", bad_inst)):
+        require(count <= (1.0 - BRUTE_AGREE) * num,
+                f"config 4: the two instanced tracers disagree on {what} for {count} rays")
+
+    # brute force over the flattened world triangles
+    world = (torch.einsum("ijk,tvk->itvj", transforms[:, :, :3], tris)
+             + transforms[:, None, None, :, 3]).reshape(-1, 3, 3)
+    pick = torch.linspace(0, num - 1, INST_BRUTE_RAYS, device=device).round().long()
+    sample = rays.take(pick)
+    ref = brute_force_trace(world, sample, chunk=16)
+    got = rec_s.hit[pick]
+    both = got & ref.hit
+    ref_inst = ref.prim_id // scene.num_triangles
+    bad_hit = int((got != ref.hit).sum())
+    bad_t = int((both & ((rec_s.t[pick] - ref.t).abs() > 1e-4 * ref.t.abs())).sum())
+    bad_inst = int((both & (inst_s[pick] != ref_inst)
+                    & ((rec_s.t[pick] - ref.t).abs() > 1e-4 * ref.t.abs())).sum())
+    print(f"  config 4 brute force, {INST_BRUTE_RAYS} rays over {world.shape[0]} world tris: "
+          f"{int(ref.hit.sum())} hits, mismatches hit={bad_hit} t={bad_t} instance={bad_inst}")
+    require(int(ref.hit.sum()) > 0, "config 4: no brute-force hit")
+    for what, count in (("hit", bad_hit), ("t", bad_t), ("instance", bad_inst)):
+        require(count <= (1.0 - BRUTE_AGREE) * INST_BRUTE_RAYS,
+                f"config 4: split tracer and brute force disagree on {what} for {count} rays")
+    del world, ref
+
+    # K1 on the object-space pass as the tracer launched it: timed, held
+    # to its plain version bit for bit on every item, with its bound
+    (inner, pairs, stack_cap), r, act = recorder.calls[-1]
+    ops = split_trace.kernel_operands(r, act)
+    kw = dict(leafw=split_trace.LEAFW, any_hit=False, stack_cap=stack_cap)
+    ms, kout = event_ms(lambda: split_trace.split_traverse(inner, pairs, *ops, **kw), 5)
+    visited = {}
+    t0 = time.perf_counter()
+    pout = split_trace.trace_split_plain(inner, pairs, *ops, **kw, visited=visited)
+    plain_ms = sync_ms(t0)
+    bad = k1_mismatches(kout, pout)
+    hits = int((kout[1] >= 0).sum())
+    require(sum(bad.values()) == 0 and int(kout[4]) == 0 and hits > 0,
+            f"config 4 object-space pass: K1 and plain disagree ({bad}), overflow "
+            f"{int(kout[4])} or no hit")
+    w = inner.shape[1]
+    n_items, n_live = ops[0].shape[0], int(act.sum())
+    n_inner, n_pairs = int(visited["inner"].sum()), int(visited["pairs"].sum())
+    n_ops = (float(kout[2].sum()) * w * SLAB_OPS
+             + float(kout[3].sum()) * 2 * split_trace.LEAFW * MT_OPS)
+    b = bound(n_ops, n_items * (32 + 16) + n_inner * w * 32 + n_pairs * 64)
+    print(f"  config 4 object-space pass: {n_items} items ({n_live} live, {hits} with a "
+          f"triangle), K1 {ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}), pops per "
+          f"live item inner {float(kout[2][act].float().mean())!r} leaf "
+          f"{float(kout[3][act].float().mean())!r}, plain {plain_ms!r} ms; mismatches {bad}  "
+          f"[{card}]")
+    max_err = float((kout[0] - pout[0]).abs().max())
+    return dict(launches=launches, split_frame_ms=split_frame_ms, stack_frame_ms=stack_frame_ms,
+                build_ms=stack_build_ms, split_build_ms=split_build_ms, k1_ms=ms,
+                plain_ms=plain_ms, max_abs_err=max_err, items=n_items, **b)
+
+
+def tracers_phase(device, card: str, scene=None, dev_scene=None, camera=None, triangles=None,
+                  split_img=None) -> dict:
+    """Phase 15: the app's last two tracers and instancing. Without phase
+    3's scene and frame (``--tracers-only``), builds them here first."""
+    print("phase 15: the grid tracer, the packet tracer and instancing")
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    if scene is None:
+        scene = procedural.terrain(NUM_TRIS)
+        dev_scene = scene_to_device(scene, device)
+        camera = aerial_camera(scene, device)
+        triangles = torch.as_tensor(scene.triangles, device=device)
+        front = bucket.split_front(triangles, True)
+        views, packed, _ = bucket.emit_split_views(front, leaf_width=split_trace.LEAFW)
+        frame = frame_fn(views, packed, dev_scene, camera, device,
+                         **split_trace.make_frame_tracers(RES, RES))
+        # phase 3's last timed frame: its seed, jitter and tid bounce sort
+        split_img, _ = frame(ITERS, ITERS * 1e-4, pair_loc=treelet.build_pair_tid(front))
+        del views, packed, front
+    out = dict(grid=grid_frame(device, card, scene, dev_scene, camera, triangles, split_img))
+    del scene, dev_scene, triangles
+    grid_app_runs(card)
+    out["packet"] = packet_runs(card, device)
+    out["instanced"] = instanced_phase(device, card)
+    print(f"  phase 15: {time.perf_counter() - t_phase:.2f} s, K1 launches "
+          f"{out['instanced']['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     parser.add_argument("--k1-only", action="store_true",
@@ -2362,6 +2771,9 @@ def main(argv=None) -> int:
                         help="run phases 1, 2 and 14 only (the app's animated run: the refit "
                              "schedule, per-frame rebuilds, --profile-build, --interactive); "
                              "prints no summary lines")
+    parser.add_argument("--tracers-only", action="store_true",
+                        help="run phases 1, 2 and 15 only (the grid and packet tracers and "
+                             "instancing); prints no summary lines")
     parser.add_argument("--k5-baseline", type=Path, metavar="SOURCE",
                         help="an earlier csrc/lane_trace.cu (the same C interface over the "
                              "reference's tables layout) to build, check against K5 and time "
@@ -2414,6 +2826,10 @@ def main(argv=None) -> int:
         animate_phase(device, card)
         print("chip_smoke: stopped after phase 14 (--animate-only)")
         return 0
+    if args.tracers_only:
+        tracers_phase(device, card)
+        print("chip_smoke: stopped after phase 15 (--tracers-only)")
+        return 0
     scene = procedural.terrain(NUM_TRIS)
     dev_scene = scene_to_device(scene, device)
     camera = aerial_camera(scene, device)
@@ -2436,9 +2852,11 @@ def main(argv=None) -> int:
     k1_launches = split["launches"] + sah_frame["launches"]
     binary_launches = binary["launches"]
     rebuild_ms = split["rebuild_ms"]
+    split_img = split["img"]
     del split, binary, sah_frame
     app = app_phase(device, card)
     anim = animate_phase(device, card, rebuild_ms)
+    tracers = tracers_phase(device, card, scene, dev_scene, camera, triangles, split_img)
 
     def entry(name, source, replaces, launches, res):
         # no single PyTorch call traces rays through a BVH: library_ms is null
@@ -2450,9 +2868,10 @@ def main(argv=None) -> int:
     # kernel_v only changes what the wrapper reports, so K1's measurements
     # on the bounce pass (phase 4) serve the versions it stands in for
     sp = "tpu_raytracing/trace/split_pallas.py"
+    print(f"chip_smoke: full run {time.perf_counter() - T_PROCESS0:.2f} s of command time")
     print(json.dumps({"kernels": [
         entry("split_trace", "split_trace.cu", f"{sp}:143",
-              k1_launches + anim["k1"], k1),
+              k1_launches + anim["k1"] + tracers["instanced"]["launches"], k1),
         entry("split_trace kernel_v=4", "split_trace.cu", f"{sp}:541", versions[4], k1),
         entry("split_trace kernel_v=5", "split_trace.cu", f"{sp}:898", versions[5], k1),
         entry("split_trace kernel_v=2", "split_trace.cu", f"{sp}:1250", versions[2], k1),

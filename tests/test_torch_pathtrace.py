@@ -237,11 +237,17 @@ def test_app_renders_and_refuses_unported_flags(tmp_path):
               "--debug-checks", "--output", str(tmp_path)])
     img = read_png(str(tmp_path / "frame0000_pt.png"))
     assert img.shape == (10, 24, 4) and img[..., :3].max() > 0
-    for extra in (["--tracer", "packet"], ["--tracer", "grid"], ["--grid-scale", "2"]):
+    # the flags the app once refused now render
+    assert not hasattr(app, "_require_ported")
+    for extra in (["--tracer", "packet"], ["--tracer", "grid"],
+                  ["--tracer", "grid", "--grid-scale", "2"]):
+        out = tmp_path / extra[-1]
         argv = ["--scene", "cornell", "--type", "bottom-up", "--tracer", "split", "--bounces",
-                "1", "--device", "cpu", "--output", str(tmp_path)] + extra
-        with pytest.raises(NotImplementedError, match=f"not yet ported: .*{extra[0]}"):
-            app.main(argv)
+                "1", "--width", "16", "--height", "8", "--device", "cpu",
+                "--output", str(out)] + extra
+        app.main(argv)
+        img = read_png(str(out / "frame0000_pt.png"))
+        assert img.shape == (8, 16, 4) and img[..., :3].max() > 0
 
 
 @pytest.mark.parametrize("build_type,tracer", [

@@ -194,7 +194,7 @@ def test_plain_matches_pallas_kernel(sphere, pallas_sp, kernel_v):
 def test_kernel_v2_stats_and_refusals(sphere):
     """v2's statistics: the launch's total pops in box_tests[0], zeros
     elsewhere, as split_pallas.py:1865-1869; v2 refuses packet_tags and raw
-    (:1816-1817), and the other versions do not take them yet."""
+    (:1816-1817); the other versions take raw but not yet packet_tags."""
     views, packed = _port_tree(sphere, True)
     _, tr = _both(*_camera_rays(sphere, 16, 8))
     rec3, st3 = st.trace_rays_split(views, packed, tr)
@@ -214,7 +214,10 @@ def test_kernel_v2_stats_and_refusals(sphere):
     with pytest.raises(ValueError, match="v3 kernel"):
         st.trace_rays_split(views, packed, tr, kernel_v=1, packet_tags=torch.zeros(1))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        st.trace_rays_split(views, packed, tr, kernel_v=5, raw=True)
+        st.trace_rays_split(views, packed, tr, kernel_v=5, packet_tags=torch.zeros(1))
+    (t5, tri5), _ = st.trace_rays_split(views, packed, tr, kernel_v=5, raw=True)
+    np.testing.assert_array_equal(tri5.numpy() >= 0, rec3.hit.numpy())
+    np.testing.assert_array_equal(t5.numpy()[rec3.hit.numpy()], rec3.t.numpy()[rec3.hit.numpy()])
 
 
 def test_stack_overflow_flag_raises(sphere):
@@ -262,7 +265,9 @@ def test_plain_matches_pallas_on_exact_ties(pallas_sp):
     window, so the TPU's packet order cannot matter. 96 camera rays hit
     copies; 32 rays start on the box's top face, point up and have tmax =
     F32_MAX, so they enter the window, miss every triangle and still take
-    its all-miss slot, 2 * LEAFW - 1, as the reference does. The copies do
+    its all-miss slot, 2 * LEAFW - 1, as the reference does (K1's raw output;
+    the port's closest-hit record calls that a miss, ``traverse.reconstruct``,
+    and its any-hit record a hit, as the reference's). The copies do
     not pair, so pairs on builds the tree that pairs off would. One packet
     needs one of the kernel's slots (``c_slots=1`` keeps interpret mode
     short)."""
@@ -289,9 +294,16 @@ def test_plain_matches_pallas_on_exact_ties(pallas_sp):
         ref, _ = pallas_sp.trace_rays_split_pallas(jviews, jpacked, jr, any_hit=any_hit,
                                                    c_slots=1)
         rec, _ = st.trace_rays_split(views, packed, tr, any_hit=any_hit)
+        (_, raw_tri), _ = st.trace_rays_split(views, packed, tr, any_hit=any_hit, raw=True)
         ref_tri = np.asarray(ref.tri_id)
-        np.testing.assert_array_equal(rec.hit.numpy(), np.asarray(ref.hit))
-        np.testing.assert_array_equal(rec.tri_id.numpy(), ref_tri)
+        # K1 keeps the all-miss slot; a closest-hit record calls it a miss
+        # (t = F32_MAX), where the reference's calls it a hit
+        assert (raw_tri.numpy()[96:] == 2 * st.LEAFW - 1).all()
+        want_hit, want_tri = np.asarray(ref.hit).copy(), ref_tri.copy()
+        if not any_hit:
+            want_hit[96:], want_tri[96:] = False, 0
+        np.testing.assert_array_equal(rec.hit.numpy(), want_hit)
+        np.testing.assert_array_equal(rec.tri_id.numpy(), want_tri)
         # XLA's CPU compiler contracts Möller-Trumbore differently: t only
         # agrees to a few ulps here (bit for bit on the card, K1 to plain)
         np.testing.assert_allclose(rec.t.numpy(), np.asarray(ref.t), rtol=1e-5)

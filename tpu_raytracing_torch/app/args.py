@@ -1,11 +1,7 @@
 """CLI argument parsing (reference: src/Arguments.cpp:42-63).
 
-Port of ``tpu_raytracing/app/args.py``: every flag of the reference but
-``--grid-scale``, with its defaults and confirmation printout, plus
-``--device``. ``--grid-scale`` is accepted only to be refused: it is
-recorded in ``args.unported``, and ``app/main.py`` raises "not yet ported"
-for it and for the ``--tracer`` values the port does not have (``packet``,
-``grid``).
+Port of ``tpu_raytracing/app/args.py``: every flag of the reference, with
+its defaults and confirmation printout, plus ``--device``.
 """
 
 from __future__ import annotations
@@ -13,15 +9,6 @@ from __future__ import annotations
 import argparse
 
 from tpu_raytracing_torch.trace.modes import BuildType, RenderType
-
-# Reference flags whose paths are not ported yet, with the number of values
-# each takes.
-UNPORTED_FLAGS = {"--grid-scale": 1}
-
-
-class _Unported(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        namespace.unported = namespace.unported + [option_string]
 
 
 def parse_cmd(argv=None) -> argparse.Namespace:
@@ -65,7 +52,13 @@ def parse_cmd(argv=None) -> argparse.Namespace:
     p.add_argument("--output", default="out", help="PNG output directory")
     p.add_argument("--tracer", default="wide",
                    choices=["scalar", "packet", "wide", "split", "grid", "lane"],
-                   help="traversal kernel (the port has: scalar, wide, split, lane)")
+                   help="traversal kernel: scalar (the reference's exact order), packet "
+                        "(one stack per 8x8 tile), wide (K6 over fat 8-wide rows), split "
+                        "(K1 over the split BVH), grid (uniform-grid DDA) or lane (K5 over "
+                        "treelets)")
+    p.add_argument("--grid-scale", type=float, default=1.0,
+                   help="with --tracer grid: cell-size scale (< 1: finer cells; the "
+                        "footprint tiers widen with it, bvh/grid.py:tier_params)")
     p.add_argument("--profile-build", action="store_true",
                    help="time each build stage separately (the run() report)")
     p.add_argument("--debug-checks", action="store_true",
@@ -76,9 +69,6 @@ def parse_cmd(argv=None) -> argparse.Namespace:
     p.add_argument("--interactive", action="store_true",
                    help="live frames in the terminal: WASD/QE and arrows move the camera, 'm' "
                         "cycles the mode, 'p' saves a PNG, 'x' quits (app/interactive.py)")
-    p.set_defaults(unported=[])
-    for flag, nargs in UNPORTED_FLAGS.items():
-        p.add_argument(flag, action=_Unported, nargs=nargs, help="not yet ported")
     args = p.parse_args(argv)
     args.build_type = BuildType(args.build_type)
     args.render_type = RenderType(args.render_mode)

@@ -2,13 +2,12 @@
 -> PNG output.
 
 Port of ``tpu_raytracing/app/main.py`` (``load_scene``, ``build_accel``,
-``_profile_split_stages``, ``orbit_camera``, ``main``) for ``--tracer
-scalar``, ``wide``, ``split`` or ``lane``, every ``--type``, ``--pairs``,
-``--splits``, ``--render-mode``, ``--cycle-modes``, ``--bounces N``,
-``--animate`` with ``--refit``, ``--profile-build``, ``--interactive`` and a
-positional OBJ file (``scene/objio.py:load_obj``). ``--tracer packet`` and
-``grid`` and ``--grid-scale`` raise "not yet ported"; nothing falls back to
-another path.
+``_profile_split_stages``, ``orbit_camera``, ``main``) with every flag:
+``--tracer scalar``, ``packet``, ``wide``, ``split``, ``grid`` or ``lane``,
+every ``--type``, ``--pairs``, ``--splits``, ``--grid-scale``,
+``--render-mode``, ``--cycle-modes``, ``--bounces N``, ``--animate`` with
+``--refit``, ``--profile-build``, ``--interactive`` and a positional OBJ
+file (``scene/objio.py:load_obj``).
 
     python -m tpu_raytracing_torch.app.main      # the reference's defaults:
         # cornell, --type sah, --tracer wide, --bounces 0, --render-mode 0,
@@ -28,8 +27,13 @@ default) collapses that tree to fat 8-wide rows (``bvh/wide.py:
 build_wide_fat``, after ``ops/fat_traverse.py:check_stack_depth``) and
 traces them with K6's counting instantiation over 8 x 8 screen tiles
 (``trace/wide_fat.py:make_tiled_fat_tracer``). ``--tracer scalar`` traces
-that tree with ``trace_rays``. ``--tracer split`` traces its own build
-with K1: with ``--type sah`` the SAH tree in the split format
+that tree with ``trace_rays``, ``--tracer packet`` with one stack per 8 x 8
+screen tile (``trace/packet.py:make_tiled_packet_tracer``). ``--tracer
+grid`` builds a uniform grid (``bvh/grid.py:build_grid``) over the
+``--type`` build's pair rows, with ``auto_res3`` over the scene's box and
+``tier_params(--grid-scale)``, checks its capacity, and traces it with the
+DDA tracer (``trace/grid_trace.py``) on every pass. ``--tracer split``
+traces its own build with K1: with ``--type sah`` the SAH tree in the split format
 (``bvh/split_convert.py:build_sah_split_auto``), otherwise the bucket
 build (``bvh/bucket.py:build_bucket_split``). ``--tracer lane`` traces a
 treelet BVH over the bucket front (``bvh/treelet.py:build_treelet_auto``)
@@ -38,16 +42,19 @@ as the reference does. With ``--bounces 0`` each frame renders
 ``--render-mode`` (every mode with ``--cycle-modes``) through
 ``trace/render.py:render_frame`` and the tracer's closest-hit form, and
 prints the first frame's "Total number of box tests"; with ``--bounces N``
-it path-traces (``trace/pathtrace.py``). The wide and scalar tracers need
-8-divisible frames: otherwise the app warns and traces with ``scalar``, as
-the reference does. ``--splits`` reaches both SAH builds; with
+it path-traces (``trace/pathtrace.py``). The wide, packet and scalar
+tracers need 8-divisible frames: otherwise the app warns and traces with
+``scalar``, as the reference does; the split, lane and grid tracers take
+any frame. ``--splits`` reaches both SAH builds; with
 ``--debug-checks`` every build runs its invariants on the host.
 
 ``--animate`` moves the geometry every frame after frame 0 by the
 reference's wobble at t = 0.1 * frame (``scene/procedural.py:
 animate_triangles``, on the device) and rebuilds what the tracer traces:
-the ``--type`` tree and its collapse for ``wide`` and ``scalar``, the
-treelets for ``lane``, the split tree for ``split``. ``--tracer split
+the ``--type`` tree and its collapse for ``wide``, ``packet`` and
+``scalar``, the treelets for ``lane``, the split tree for ``split``, and
+for ``grid`` only the grid, from the moved triangles
+(``build_grid_from_triangles``, at frame 0's resolution). ``--tracer split
 --refit`` runs the quality-guarded refit schedule
 (``bvh/refit_schedule.py``) instead, seeded by frame 0's tree: the last
 rebuild's pair rows, in their sorted order and at rest (``rest_rows``),
@@ -72,7 +79,7 @@ import numpy as np
 import torch
 
 from tpu_raytracing_torch.app.args import parse_cmd
-from tpu_raytracing_torch.bvh import bucket, build, lbvh, sah, split_convert, wide
+from tpu_raytracing_torch.bvh import bucket, build, grid, lbvh, sah, split_convert, wide
 from tpu_raytracing_torch.bvh.pairing import pair_vertices
 from tpu_raytracing_torch.bvh.refit_schedule import GuardedRefit
 from tpu_raytracing_torch.bvh.treelet import build_treelet_auto
@@ -82,8 +89,10 @@ from tpu_raytracing_torch.scene import camera as cam
 from tpu_raytracing_torch.scene import procedural
 from tpu_raytracing_torch.scene.objio import load_obj
 from tpu_raytracing_torch.scene.types import scene_to_device
+from tpu_raytracing_torch.trace.grid_trace import make_grid_tracer
 from tpu_raytracing_torch.trace.lane_trace import make_lane_tracer
 from tpu_raytracing_torch.trace.modes import BuildType, RenderType
+from tpu_raytracing_torch.trace.packet import make_tiled_packet_tracer
 from tpu_raytracing_torch.trace.pathtrace import path_trace
 from tpu_raytracing_torch.trace.render import render_frame
 from tpu_raytracing_torch.trace.split_trace import LEAFW, make_frame_tracers
@@ -96,8 +105,9 @@ from tpu_raytracing_torch.utils.timing import FPSCounter, StageTimer, block_unti
 BUILD_STAGES = {BuildType.SAH: "SharedTaskBuild     ",
                 BuildType.BOTTOM_UP: "BottomUpBuild       ",
                 BuildType.HYBRID: "HybridBuild         "}
-# The split and lane tracers' builds of their own trees.
-REBUILD_STAGES = {"split": "SplitBuild          ", "lane": "TreeletBuild        "}
+# The split, lane and grid tracers' builds of their own structures.
+REBUILD_STAGES = {"split": "SplitBuild          ", "lane": "TreeletBuild        ",
+                  "grid": "GridBuild           "}
 # Seconds of animation a frame (the reference's frame * 0.1).
 ANIMATE_DT = 0.1
 
@@ -118,18 +128,6 @@ def load_scene(args):
         n = int(spec.split(":")[1]) if ":" in spec else 1_000_000
         return procedural.terrain(n)
     raise SystemExit(f"unknown scene '{spec}'")
-
-
-PORTED_TRACERS = ("scalar", "wide", "split", "lane")
-
-
-def _require_ported(args) -> None:
-    """Raise for every flag whose path the port does not have yet."""
-    missing = list(args.unported)
-    if args.tracer not in PORTED_TRACERS:
-        missing.append(f"--tracer {args.tracer}")
-    if missing:
-        raise NotImplementedError(f"not yet ported: {', '.join(missing)}")
 
 
 def orbit_camera(camera, scene, frame, num_frames):
@@ -285,16 +283,21 @@ def build_trav(args, triangles, bvh=None, pairs=None, timer: StageTimer = None,
                sched: GuardedRefit = None):
     """The traversal structure for ``args.tracer`` and the tracers that
     serve it: (trav, packed, ``path_trace`` keyword arguments; ``tracer``
-    is the closest-hit tracer the render modes use). The scalar and wide
-    tracers take the ``--type`` tree (``bvh``, ``pairs``); the split and
-    lane tracers build their own. ``timer`` times the wide tracer's
-    collapse and the split and lane builds, and a quiet one keeps the
-    structure's printout quiet too. ``sched`` is seeded with the split
-    tracer's tree."""
+    is the closest-hit tracer the render modes use). The scalar, packet and
+    wide tracers take the ``--type`` tree (``bvh``, ``pairs``), the grid
+    tracer its pair rows (``grid_trav``); the split and lane tracers build
+    their own. ``timer`` times the wide tracer's collapse and the split,
+    lane and grid builds, and a quiet one keeps the structure's printout
+    quiet too. ``sched`` is seeded with the split tracer's tree."""
     say = print if timer is None or timer.should_print else (lambda *a, **k: None)
     timer = timer or StageTimer()
     if args.tracer == "scalar":
         return pack_bvh(bvh), pack_pairs(pairs), dict(tracer=trace_rays)
+    if args.tracer == "packet":
+        return pack_bvh(bvh), pack_pairs(pairs), dict(
+            tracer=make_tiled_packet_tracer(args.width, args.height, 8, 8))
+    if args.tracer == "grid":
+        return grid_trav(args, triangles, pairs, timer, say)
     if args.tracer == "wide":
         check_stack_depth(bvh)
         packed = pack_pairs(pairs)
@@ -323,6 +326,33 @@ def build_trav(args, triangles, bvh=None, pairs=None, timer: StageTimer = None,
     if args.debug_checks:
         say("debug checks: build invariants OK")
     return views, packed, make_frame_tracers(args.width, args.height)
+
+
+def grid_trav(args, triangles, pairs, timer: StageTimer, say=print):
+    """The grid tracer's structure: a uniform grid over the ``--type``
+    build's pair rows (``pairs``, all rows taken as live, as the reference
+    app does) on frame 0, or from ``triangles`` alone
+    (``build_grid_from_triangles``) on an animated frame (``pairs`` None),
+    at ``args.grid_res`` with ``tier_params(args.grid_scale)``; its capacity
+    checked. Returns (grid, packed, ``path_trace`` keyword arguments): one
+    closest-hit tracer serves every pass, as in the reference app."""
+    tiers = grid.tier_params(args.grid_scale)
+
+    def build_it():
+        if pairs is None:
+            return grid.build_grid_from_triangles(triangles, args.pairs, res=args.grid_res,
+                                                  **tiers)
+        packed = pack_pairs(pairs)
+        return grid.build_grid(packed.rows, packed.rows.shape[0], res=args.grid_res,
+                               **tiers), packed
+
+    ugrid, packed = timer.run(REBUILD_STAGES["grid"], build_it)
+    grid.check_grid_capacity(ugrid)
+    say("Uniform grid")
+    say(f"  resolution:     {ugrid.res[0]}x{ugrid.res[1]}x{ugrid.res[2]}")
+    say(f"  refs:           {ugrid.refs.shape[0]}")
+    say(f"  big-list rows:  {int(ugrid.num_big)}")
+    return ugrid, packed, dict(tracer=make_grid_tracer())
 
 
 def animated_trees(args, triangles0, t: float, views, sched: GuardedRefit, rest: dict):
@@ -361,7 +391,7 @@ def animated_trees(args, triangles0, t: float, views, sched: GuardedRefit, rest:
                 trav = bucket.split_views(split, packed, views[2])
                 record.update(kind="refit", sa_ratio=sched.pending_sa / max(sched.sa0, 1e-30))
             out["value"] = trav
-    elif args.tracer in ("split", "lane"):
+    elif args.tracer in ("split", "lane", "grid"):
         trav, packed, _ = build_trav(args, triangles, timer=timer)
     else:
         bvh, pairs = build_accel(triangles, args, timer)
@@ -398,9 +428,12 @@ def main(argv=None) -> dict:
     ``tracer`` (the closest-hit tracer) and ``sched`` (``--refit``'s
     schedule, or None)."""
     args = parse_cmd(argv)
-    _require_ported(args)
     device = torch.device(args.device)
     scene = load_scene(args)
+    # the grid's resolution, from the scene's box on frame 0 (animated
+    # frames keep it)
+    args.grid_res = grid.auto_res3(scene.aabb_max - scene.aabb_min, scene.num_triangles,
+                                   scale=args.grid_scale)
     print("Geometry")
     print(f"  faces:        {scene.num_triangles}")
 
@@ -413,9 +446,10 @@ def main(argv=None) -> dict:
 
     bvh, pairs = build_accel(triangles, args, timer)
     report_hierarchy(bvh)
-    # The split and lane tracers pad any resolution to their tiles; the wide
-    # (and the reference's packet) tracer needs 8-divisible frames.
-    if (args.width % 8 or args.height % 8) and args.tracer not in ("split", "lane"):
+    # The split and lane tracers pad any resolution to their tiles and the
+    # grid tracer takes any order; the wide and packet tracers need
+    # 8-divisible frames.
+    if (args.width % 8 or args.height % 8) and args.tracer not in ("grid", "split", "lane"):
         if args.tracer != "scalar":
             print(f"WARNING: {args.width}x{args.height} is not 8-divisible; "
                   f"downgrading --tracer {args.tracer} -> scalar (slow path). "

@@ -5,7 +5,8 @@ Port of ``tpu_raytracing/bvh/lbvh.py``: ``scene_aabb``, ``_pair_assembly``,
 ``fused_sorted_pairs``, ``generate_morton_codes(_pairs)``, ``sort_codes``,
 ``_cpl``, ``generate_hierarchy``, ``refit_ranges``, ``tree_height``,
 ``generate_triangles``, ``refit``, ``_leaf_slots_from_hierarchy`` and
-``build_lbvh``. ``build_lbvh_from_aabbs`` (the TLAS) waits.
+``build_lbvh``, and ``build_lbvh_from_aabbs``, the LBVH over arbitrary leaf
+boxes that ``bvh/tlas.py`` builds its TLAS with.
 
 Morton codes are uint32 values held in int64 tensors; invalid entries get
 the key ``0xFFFFFFFF`` and sort to the end. The reference's stable
@@ -30,6 +31,7 @@ from tpu_raytracing_torch.bvh.types import (
     CHILD_NONE,
     CHILD_TRI,
     TrianglePairs,
+    empty_bvh,
 )
 from tpu_raytracing_torch.ops.intersect import triangle_aabb
 from tpu_raytracing_torch.ops.morton import morton3d
@@ -401,3 +403,46 @@ def build_lbvh(triangles: torch.Tensor, enable_pairs: bool = False):
     lo = torch.minimum(torch.minimum(pairs.v0, pairs.v1), torch.minimum(pairs.v2, pairs.v3))
     hi = torch.maximum(torch.maximum(pairs.v0, pairs.v1), torch.maximum(pairs.v2, pairs.v3))
     return refit_ranges(bvh, range_lo, range_hi, lo, hi), pairs
+
+
+def build_lbvh_from_aabbs(leaf_min: torch.Tensor, leaf_max: torch.Tensor,
+                          leaf_payload: torch.Tensor, leaf_type: int = CHILD_TRI,
+                          leaf_count: int = 1) -> BVH:
+    """LBVH over arbitrary leaf boxes ([L, 3] float32 each): Morton codes of
+    the box centres over their own bounds, the stable sort, the Karras
+    hierarchy and the range refit. The leaf slots carry ``leaf_payload``
+    ([L] int) in their child field, ``leaf_count`` and ``leaf_type`` (the
+    TLAS: instance ids with ChildType_Inst, which the reference declares
+    but never builds, src/Common.cuh:40). The root is the slot pair 0..1.
+
+    One leaf has no internal node, so its tree is the root pair built
+    directly: slot 0 the leaf, slot 1 NONE (an inverted box)."""
+    num = leaf_min.shape[0]
+    dev = leaf_min.device
+    if num == 0:
+        raise ValueError("build_lbvh_from_aabbs needs at least one leaf")
+    if num == 1:
+        bvh = empty_bvh(2, device=dev)
+        bvh.node_min[0] = leaf_min[0]
+        bvh.node_max[0] = leaf_max[0]
+        bvh.child[0] = leaf_payload[0].to(torch.int32)
+        bvh.count[0] = leaf_count
+        bvh.type[0] = leaf_type
+        bvh.root_count = torch.tensor(2, dtype=torch.int32, device=dev)
+        return bvh
+    centre = (leaf_min + leaf_max) * 0.5
+    cmin = centre.amin(dim=0)
+    cmax = centre.amax(dim=0)
+    norm = ((centre - cmin) / torch.clamp(cmax - cmin, min=1e-30)).clamp(0.0, 1.0)
+    codes = morton3d(norm)
+    values = torch.arange(num, dtype=torch.int64, device=dev)
+    sorted_codes, sorted_values = sort_codes(codes, values)
+    bvh, range_lo, range_hi = generate_hierarchy(sorted_codes, num)
+    is_leaf = bvh.type == CHILD_TRI
+    payload = leaf_payload[sorted_values[bvh.child.to(torch.int64).clamp(0, num - 1)]]
+    bvh = dataclasses.replace(
+        bvh,
+        child=torch.where(is_leaf, payload.to(torch.int32), bvh.child),
+        count=torch.where(is_leaf, leaf_count, bvh.count).to(torch.int32),
+        type=torch.where(is_leaf, leaf_type, bvh.type).to(torch.int32))
+    return refit_ranges(bvh, range_lo, range_hi, leaf_min[sorted_values], leaf_max[sorted_values])

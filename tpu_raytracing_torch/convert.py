@@ -15,10 +15,13 @@ import numpy as np
 import torch
 
 from tpu_raytracing_torch.bvh.bucket import SplitBVH, stack_cap
+from tpu_raytracing_torch.bvh.grid import UniformGrid
+from tpu_raytracing_torch.bvh.tlas import InstancedAS
 from tpu_raytracing_torch.bvh.treelet import TreeletBVH
 from tpu_raytracing_torch.bvh.types import BVH
 from tpu_raytracing_torch.bvh.wide import FatWideBVH, WideBVH
 from tpu_raytracing_torch.scene.types import DeviceMaterials, DeviceScene, TexturePool
+from tpu_raytracing_torch.trace.instanced_split import InstancedSplitAS
 from tpu_raytracing_torch.trace.traverse import PackedPairs, TraversalBVH
 
 
@@ -131,3 +134,40 @@ def fat_from_numpy(rows, num_nodes, device) -> FatWideBVH:
     rows with ``ops/fat_traverse.pad_rows_256`` for K6."""
     return FatWideBVH(rows=_t(np.asarray(rows, np.int32), device),
                       num_nodes=_t(np.asarray(num_nodes, np.int64), device))
+
+
+def grid_from_numpy(fields: Mapping, device) -> UniformGrid:
+    """``tpu_raytracing.bvh.grid.UniformGrid`` as a mapping of numpy arrays
+    (``cell_start``, ``cell_count``, ``refs``, ``big``, ``num_big``,
+    ``overflow``, ``grid_min``, ``grid_max``, ``cell_size``, ``cell_word``)
+    and its host tuple ``res`` -> the port's ``UniformGrid``."""
+    f32 = {"grid_min", "grid_max", "cell_size"}
+    return UniformGrid(res=tuple(int(r) for r in fields["res"]), **{
+        k: _t(np.asarray(fields[k], np.float32 if k in f32 else np.int32), device)
+        for k in ("cell_start", "cell_count", "refs", "big", "num_big", "overflow",
+                  "grid_min", "grid_max", "cell_size", "cell_word")})
+
+
+def instanced_from_numpy(fields: Mapping, device) -> InstancedAS:
+    """``tpu_raytracing.bvh.tlas.InstancedAS`` as a mapping of numpy arrays
+    (``rows``, ``root``, ``root_count`` of its ``trav``;
+    ``inv_transforms``; ``blas_entry``) -> the port's ``InstancedAS``."""
+    return InstancedAS(
+        trav=traversal_from_numpy(fields["rows"], fields["root"], fields["root_count"],
+                                  device),
+        inv_transforms=_t(np.asarray(fields["inv_transforms"], np.float32), device),
+        blas_entry=_t(np.asarray(fields["blas_entry"], np.int32), device))
+
+
+def instanced_split_from_numpy(fields: Mapping, device) -> InstancedSplitAS:
+    """``tpu_raytracing.trace.instanced_split.InstancedSplitAS`` as a
+    mapping of numpy arrays (``views``, the reference's ``(inner_i,
+    inner_v, pairs_f)``; ``rows``, its ``packed`` rows; ``wmin``, ``wmax``,
+    ``inv_transforms``) -> the port's, with K1's views of the BLAS as
+    ``split_views_from_numpy`` makes them."""
+    return InstancedSplitAS(
+        views=split_views_from_numpy(*fields["views"], device),
+        packed=packed_from_numpy(fields["rows"], device),
+        wmin=_t(np.asarray(fields["wmin"], np.float32), device),
+        wmax=_t(np.asarray(fields["wmax"], np.float32), device),
+        inv_transforms=_t(np.asarray(fields["inv_transforms"], np.float32), device))

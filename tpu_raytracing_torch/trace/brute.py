@@ -1,7 +1,7 @@
 """Brute-force O(rays x triangles) reference intersector — the CPU oracle.
 
 Port of ``tpu_raytracing/trace/brute.py`` (``HitRecord``,
-``brute_force_trace``). It shares the traversal's Möller-Trumbore
+``make_brute_tracer``, ``brute_force_trace``). It shares the traversal's Möller-Trumbore
 semantics (src/Tracer.cu:256-291) but needs no acceleration structure;
 equal-t ties go to the highest triangle index, the reference loop's
 sequential-overwrite behaviour.
@@ -27,6 +27,22 @@ class HitRecord:
     tri_id: torch.Tensor  # [R] int32 — (pair_id << 1) | second_tri
     bary_u: torch.Tensor  # [R] float32
     bary_v: torch.Tensor  # [R] float32
+
+
+def make_brute_tracer(triangles: torch.Tensor, chunk: int = 1024):
+    """Tracer with the BVH tracers' ``(trav, pairs, rays)`` signature over no
+    structure at all, so the render pipeline can swap in the oracle (with
+    identity pairs: pair i is triangle i). Its statistics are zero."""
+    from tpu_raytracing_torch.trace.traverse import TraceStats
+
+    def tracer(trav, pairs, rays):
+        rec = brute_force_trace(triangles, rays, chunk=chunk)
+        zeros = torch.zeros_like(rec.prim_id)
+        return rec, TraceStats(box_tests=zeros, tri_tests=zeros.clone(),
+                               overflow=torch.zeros((1,), dtype=torch.int32,
+                                                    device=zeros.device))
+
+    return tracer
 
 
 def brute_force_trace(triangles: torch.Tensor, rays: Rays, chunk: int = 1024) -> HitRecord:

@@ -63,8 +63,8 @@ from tpu_raytracing_torch.bvh.treelet import TreeletBVH
 from tpu_raytracing_torch.ops import _cuda_build
 from tpu_raytracing_torch.ops.intersect import safe_inverse
 from tpu_raytracing_torch.trace.ray import Rays
-from tpu_raytracing_torch.trace.split_trace import _map, _reconstruct
-from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, f2i, i2f
+from tpu_raytracing_torch.trace.split_trace import _map
+from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, f2i, i2f, reconstruct
 
 # Per-ray stack depth. A ray whose depth watermark passes STACK - 8 may
 # have dropped far entries (pushes past STACK drop the deepest ones); it is
@@ -454,7 +454,7 @@ def trace_rays_lane(tb: TreeletBVH, packed: PackedPairs, rays: Rays, active=None
         t = rays.tmax
     if raw:
         return (t, tri), stats, out, state_out
-    return _reconstruct(packed, rays, t, tri), stats
+    return reconstruct(packed, rays, t, tri, any_hit=any_hit), stats
 
 
 def _finish(packed, rays, t, tri, box, trit, want, any_hit, raw):
@@ -463,7 +463,7 @@ def _finish(packed, rays, t, tri, box, trit, want, any_hit, raw):
         t = rays.tmax
     if raw:
         return (t, tri), stats, want
-    return _reconstruct(packed, rays, t, tri), stats
+    return reconstruct(packed, rays, t, tri, any_hit=any_hit), stats
 
 
 def trace_rays_lane_restart(tb: TreeletBVH, packed: PackedPairs, rays: Rays, active=None,

@@ -4,8 +4,7 @@ tracer front end.
 Port of ``tpu_raytracing/trace/split_pallas.py`` (``LEAFW``,
 ``trace_rays_split_pallas`` -> ``trace_rays_split``,
 ``make_split_pallas_tracer`` -> ``make_split_tracer`` with ``sort_mode``
-None and ``"presorted"``) and of ``tpu_raytracing/trace/wide_fat.py:
-_reconstruct``. The Pallas kernels ``_kernel_v3``, ``_kernel_v4``,
+None and ``"presorted"``). The Pallas kernels ``_kernel_v3``, ``_kernel_v4``,
 ``_kernel_v5`` and ``_kernel`` (v2) compute one function and differ only in
 how they schedule DMAs and scalar work on the TPU; on the card one CUDA
 kernel, ``csrc/split_trace.cu``, serves all four (closest-hit and any-hit
@@ -30,9 +29,10 @@ take v2's shape: ``box_tests[0]`` holds the launch's total pops (here the
 sum of every ray's inner and leaf pops, which is not comparable with the
 TPU's packet pops), every other entry is 0, and ``tri_tests`` is 0.
 
-The per-packet start tags (``packet_tags``) and ``raw`` output of the
-reference serve the binned and instanced tracers and wait with them: every
-ray starts at the root.
+``trace_rays_split(raw=True)`` returns K1's (t, tri) before the hit
+record is rebuilt, for ``trace/instanced_split.py``. The reference's
+per-packet start tags (``packet_tags``) serve ``trace/binned.py`` and wait
+with it: every ray starts at the root.
 """
 
 from __future__ import annotations
@@ -44,8 +44,6 @@ import torch
 
 from tpu_raytracing_torch.bvh.types import CHILD_TRI
 from tpu_raytracing_torch.ops import _cuda_build
-from tpu_raytracing_torch.ops.intersect import cross, dot
-from tpu_raytracing_torch.trace.brute import HitRecord
 from tpu_raytracing_torch.trace.packet import (
     crop_frame,
     pad_frame,
@@ -54,7 +52,7 @@ from tpu_raytracing_torch.trace.packet import (
     tile_restore,
 )
 from tpu_raytracing_torch.trace.ray import Rays
-from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, i2f
+from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, i2f, reconstruct
 
 # Rays per screen tile for the tiled tracers (16 x K/16 pixels).
 K = 256
@@ -318,35 +316,6 @@ def check_overflow(overflow: torch.Tensor) -> None:
             "(trace/lane_trace.py)")
 
 
-def _reconstruct(pairs: PackedPairs, rays: Rays, t_flat, tri_flat) -> HitRecord:
-    """Full hit record from the winning tri id: one pair gather and one
-    Möller-Trumbore per ray (wide_fat.py:_reconstruct)."""
-    hit = tri_flat >= 0
-    second = (tri_flat & 1).to(torch.bool)
-    num_pairs = pairs.rows.shape[0]
-    prow = pairs.rows[(tri_flat >> 1).clamp(0, num_pairs - 1).to(torch.int64)]
-    v = i2f(prow[:, :12]).reshape(-1, 4, 3)
-    v0, v1, v2, v3 = v[:, 0], v[:, 1], v[:, 2], v[:, 3]
-    a = torch.where(second[:, None], v2, v0)
-    c = torch.where(second[:, None], v3, v2)
-    e1 = v1 - a
-    e2 = c - a
-    h = cross(rays.direction, e2)
-    f = 1.0 / dot(e1, h)
-    sv = rays.origin - a
-    bu = f * dot(sv, h)
-    bv = f * dot(rays.direction, cross(sv, e1))
-    prim = torch.where(second, prow[:, 13], prow[:, 12])
-    return HitRecord(
-        hit=hit,
-        t=torch.where(hit, t_flat, rays.tmax),
-        prim_id=torch.where(hit, prim, 0),
-        tri_id=torch.where(hit, tri_flat, 0),
-        bary_u=torch.where(hit, bu, 0.0),
-        bary_v=torch.where(hit, bv, 0.0),
-    )
-
-
 def kernel_operands(rays: Rays, active=None):
     """(origin, direction, tmin, tmax) as K1 takes them.
 
@@ -376,13 +345,17 @@ def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
     ``leaf_width=LEAFW``. See ``kernel_operands`` for dead rays and
     direction sanitising. Any-hit records carry ``rays.tmax`` as
     t. ``kernel_v`` names the reference kernel (see the module docstring).
-    Returns (HitRecord, TraceStats).
+    Returns (HitRecord, TraceStats); with ``raw`` (``kernel_v >= 3``),
+    ((t, tri), TraceStats): K1's winning t and encoded triangle per ray
+    (tri -1 for none), before the reconstruction, as
+    ``split_pallas.py:1746-1749`` returns them.
     """
     if kernel_v < 3 and (packet_tags is not None or raw):
         raise ValueError("packet_tags/raw need the v3 kernel (kernel_v >= 3)")
-    if packet_tags is not None or raw:
-        raise NotImplementedError("packet_tags and raw (the binned and instanced tracers' "
-                                  "inputs) are not yet ported")
+    if packet_tags is not None:
+        raise NotImplementedError("packet_tags (per-packet start rows, the input of "
+                                  "trace/binned.py) is not yet ported: it comes with "
+                                  "trace/binned.py in the next slice")
     inner, pairs, stack_cap = views
     w = inner.shape[1]
     t, tri, ipops, lpops, overflow = split_traverse(
@@ -397,7 +370,9 @@ def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
     else:
         stats = TraceStats(box_tests=ipops * w, tri_tests=lpops * (2 * LEAFW),
                            overflow=overflow)
-    return _reconstruct(packed, rays, t, tri), stats
+    if raw:
+        return (t, tri), stats
+    return reconstruct(packed, rays, t, tri, any_hit=any_hit), stats
 
 
 def _map(fn, obj):

@@ -3,7 +3,9 @@ packed node and pair rows, and trace statistics.
 
 Port of ``tpu_raytracing/trace/traverse.py`` (the ``_META_*`` and entry
 constants, ``TraversalBVH``, ``PackedPairs``, ``TraceStats``, ``pack_bvh``,
-``pack_pairs``, ``trace_rays``). ``trace_rays`` is the scalar tracer, the
+``pack_pairs``, ``trace_rays``) and of ``tpu_raytracing/trace/wide_fat.py:
+_reconstruct`` (``reconstruct``, which the split, lane, grid and
+instanced tracers share). ``trace_rays`` is the scalar tracer, the
 reference-exact oracle: every ray pops one (index, count) stack entry per
 step, with near-child buffering and ties to the higher child id, triangle
 A then B, and per-ray box-test and triangle-test counts. Each step runs
@@ -32,7 +34,12 @@ from tpu_raytracing_torch.bvh.types import (
     STACK_DEPTH,
     TrianglePairs,
 )
-from tpu_raytracing_torch.ops.intersect import intersect_ray_aabb, intersect_ray_triangle
+from tpu_raytracing_torch.ops.intersect import (
+    cross,
+    dot,
+    intersect_ray_aabb,
+    intersect_ray_triangle,
+)
 from tpu_raytracing_torch.trace.brute import HitRecord
 from tpu_raytracing_torch.trace.ray import Rays
 
@@ -40,6 +47,8 @@ from tpu_raytracing_torch.trace.ray import Rays
 # bitfields (src/Common.cuh:152-159).
 _ENTRY_SHIFT = 3
 _COUNT_MASK = 7
+
+_F32_MAX = float(torch.finfo(torch.float32).max)
 
 # Node meta word: child << 5 | count << 2 | type.
 _META_TYPE_MASK = 3
@@ -215,3 +224,42 @@ def trace_rays(trav: TraversalBVH, pairs: PackedPairs, rays: Rays, max_width: in
     rec = HitRecord(hit=hit, t=tmax, prim_id=prim_id, tri_id=tri_id, bary_u=bary_u,
                     bary_v=bary_v)
     return rec, TraceStats(box_tests=box_tests, tri_tests=tri_tests, overflow=overflow)
+
+
+def reconstruct(pairs: PackedPairs, rays: Rays, t_flat, tri_flat,
+                any_hit: bool = False) -> HitRecord:
+    """Full hit record from a tracer's winning (t, tri) per ray: one pair
+    gather and one Möller-Trumbore per ray (wide_fat.py:_reconstruct).
+
+    A closest hit also needs t < F32_MAX. A split or lane window none of
+    whose triangles hits still names its last slot when the ray's t is
+    F32_MAX (K1 and K5 keep that, bit-equal to the reference kernels); the
+    reference calls it a hit at t = F32_MAX, this record a miss. An any-hit
+    record (``any_hit``) carries ``rays.tmax`` as t, so it keeps tri >= 0
+    as its hit."""
+    hit = tri_flat >= 0
+    if not any_hit:
+        hit = hit & (t_flat < _F32_MAX)
+    second = (tri_flat & 1).to(torch.bool)
+    num_pairs = pairs.rows.shape[0]
+    prow = pairs.rows[(tri_flat >> 1).clamp(0, num_pairs - 1).to(torch.int64)]
+    v = i2f(prow[:, :12]).reshape(-1, 4, 3)
+    v0, v1, v2, v3 = v[:, 0], v[:, 1], v[:, 2], v[:, 3]
+    a = torch.where(second[:, None], v2, v0)
+    c = torch.where(second[:, None], v3, v2)
+    e1 = v1 - a
+    e2 = c - a
+    h = cross(rays.direction, e2)
+    f = 1.0 / dot(e1, h)
+    sv = rays.origin - a
+    bu = f * dot(sv, h)
+    bv = f * dot(rays.direction, cross(sv, e1))
+    prim = torch.where(second, prow[:, 13], prow[:, 12])
+    return HitRecord(
+        hit=hit,
+        t=torch.where(hit, t_flat, rays.tmax),
+        prim_id=torch.where(hit, prim, 0),
+        tri_id=torch.where(hit, tri_flat, 0),
+        bary_u=torch.where(hit, bu, 0.0),
+        bary_v=torch.where(hit, bv, 0.0),
+    )
