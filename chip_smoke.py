@@ -6,6 +6,7 @@
     python3 chip_smoke.py --app-only   # phases 1, 2 and 13 (with phase 9's fixtures)
     python3 chip_smoke.py --animate-only   # phases 1, 2 and 14
     python3 chip_smoke.py --tracers-only   # phases 1, 2 and 15
+    python3 chip_smoke.py --modes-only     # phases 1, 2 and 16
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
@@ -201,6 +202,30 @@ exits non-zero if any phase fails:
    against its plain version bit for bit on every item of the
    object-space pass. K1's launch count is set to 0 before the instanced
    frames and read after; its launches go into the ``kernels`` line.
+16. The reference's remaining tracers (``--modes-only`` runs phases 1, 2
+   and 16, and first renders phase 3's split frame itself), on phase 3's
+   scene, bucket tree, camera and seeds: the 1024x1024 1-bounce frame with
+   the bounce and bounce-shadow passes through the binned tracer
+   (``make_split_tracer(sort_mode="binned")``, ``cell`` bounce sort): frame
+   ms, items per live ray, the item slots needed against the cap, overflow
+   0, finite and 40 dB or more from phase 3's frame; K1 with start tags
+   against its plain version bit for bit on 65,536 live items sampled from
+   each binned pass with their own tags (every leaf-window item too, where
+   the root has Tri children), then with leaf-window and inner-row tags;
+   K1 timed on both binned passes and on the same frame's presorted
+   passes, each with its bound, held to plain on every ray; the binned
+   hits against the presorted ones; the ``origin``, ``cell_octant`` and
+   ``sort_origin`` modes on the bounce rays in a random order against the
+   presorted pass, closest-hit and any-hit; the BFS tracer on the primary
+   and bounce passes with caps of ``BFS_CAP_FACTOR`` x R (the reference's
+   default 3.0 overflows at 1M; visits per level, against K1 on every ray
+   and brute force on 4,096); config 4 on
+   the instanced grid against the split-kernel instanced tracer on every
+   ray; the wide packet tracer on the Karras ``WideBVH`` from the aerial
+   camera at 1024x768 against K6 (at most 0.5% of the rays may differ: its
+   Möller-Trumbore rounds as the reference's XLA code, K6's as its plain
+   version). K1's launch count is set to 0 before the
+   binned frames and read after; its launches go into the ``kernels`` line.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
@@ -257,19 +282,24 @@ from tpu_raytracing_torch.bvh import (  # noqa: E402
     treelet,
     wide,
 )
+from tpu_raytracing_torch.bvh.types import CHILD_TRI  # noqa: E402
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
 from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
 from tpu_raytracing_torch.scene import camera as cam  # noqa: E402
 from tpu_raytracing_torch.scene import genasset, native_loader, objio, procedural  # noqa: E402
 from tpu_raytracing_torch.scene.types import scene_to_device  # noqa: E402
 from tpu_raytracing_torch.trace import (  # noqa: E402
+    binned,
+    grid_instanced,
     grid_trace,
     instanced,
     instanced_split,
     lane_trace,
     render,
     split_trace,
+    wavefront_bfs,
     wide_fat,
+    wide_packet,
 )
 from tpu_raytracing_torch.trace.brute import brute_force_trace  # noqa: E402
 from tpu_raytracing_torch.trace.modes import RenderType  # noqa: E402
@@ -369,6 +399,12 @@ INST_COUNT = 1000
 INST_RES = 512
 INST_SUBDIV = 4
 INST_BRUTE_RAYS = 1024
+# The BFS tracer's visit caps in phase 16, a multiple of the ray count per
+# level: the reference's default (3.0) overflows on the 1M passes, whose
+# largest lists need 3.4 (primary) and 4.5 (bounce) times the ray count on
+# an H100 (PERF.md), so phase 16 passes these.
+BFS_CAP_FACTOR = 6.0
+BFS_LEAF_FACTOR = 6.0
 INTERACTIVE_W, INTERACTIVE_H = 256, 192
 INTERACTIVE_FIRST_S = 180.0
 INTERACTIVE_READ_S = 30.0
@@ -691,52 +727,63 @@ def pass_operands(key: str, cap: Capture):
     return split_trace.kernel_operands(rays, active), active
 
 
-def time_passes(views, captured: dict, card: str, label: str = "1M") -> dict:
-    """K1 on each of a frame's four passes, as the frame launches it:
-    CUDA-event ms (mean of 5 launches after a warm one), bit-equal to the
-    plain version on every ray, the bound from the plain version's counts
-    and the mean inner and leaf pops per live ray. Then the plain version
-    is timed on the bounce pass (one run). Returns the bounce pass's
-    numbers, which stand for K1 in the kernels line, and each pass's."""
+def k1_pass(label: str, views, ops, any_hit: bool, card: str, start=None) -> dict:
+    """K1 on one whole pass as its tracer launched it (from ``start`` tags
+    or from the root): CUDA-event ms (mean of 5 launches after a warm
+    one), bit-equal to the plain version on every ray, the bound from the
+    plain version's counts and visited rows, the mean inner and leaf pops
+    per live ray (tmax > tmin), and the plain version's ms (it marks the
+    visited rows too)."""
     inner, pairs, stack_cap = views
     w = inner.shape[1]
-    kw = dict(leafw=split_trace.LEAFW, stack_cap=stack_cap)
-    out, total_ms = {}, 0.0
-    for (key, any_hit), name in zip(FRAME_TRACERS, PASSES):
-        ops, live = pass_operands(key, captured[key])
-        ms, kout = event_ms(
-            lambda: split_trace.split_traverse(inner, pairs, *ops, any_hit=any_hit, **kw), 5)
-        visited = {}
-        pout = split_trace.trace_split_plain(inner, pairs, *ops, any_hit=any_hit, **kw,
-                                             visited=visited)
-        bad = k1_mismatches(kout, pout)
-        require(sum(bad.values()) == 0 and int(kout[4]) == 0,
-                f"{label} {name} pass: K1 and plain disagree ({bad}) or overflow {int(kout[4])}")
-        # bound: every inner pop tests w boxes, every leaf pop 2 * LEAFW
-        # triangles; rays in (32 B), results out (16 B), each inner row
-        # (w * 32 B) and pair row (64 B) visited once
-        num = ops[0].shape[0]
-        n_inner, n_pairs = int(visited["inner"].sum()), int(visited["pairs"].sum())
-        n_ops = (float(kout[2].sum()) * w * SLAB_OPS
-                 + float(kout[3].sum()) * 2 * split_trace.LEAFW * MT_OPS)
-        nbytes = num * (32 + 16) + n_inner * w * 32 + n_pairs * 64
-        b = bound(n_ops, nbytes)
-        ipops = float(kout[2][live].float().mean())
-        lpops = float(kout[3][live].float().mean())
-        total_ms += ms
-        print(f"  {label} {name} pass: {num} rays ({int(live.sum())} live), "
-              f"any_hit={int(any_hit)}: "
-              f"K1 {ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, "
-              f"{nbytes} bytes: {n_inner} inner rows, {n_pairs} pair rows); pops per live ray "
-              f"inner {ipops!r} leaf {lpops!r}; bit-equal to plain  [{card}]")
-        out[name] = dict(ms=ms, inner_pops=ipops, leaf_pops=lpops, **b)
-    print(f"  K1 on the four passes: {total_ms!r} ms a frame  [{card}]")
+    kw = dict(leafw=split_trace.LEAFW, stack_cap=stack_cap, any_hit=any_hit, start=start)
+    ms, kout = event_ms(lambda: split_trace.split_traverse(inner, pairs, *ops, **kw), 5)
+    visited = {}
+    t0 = time.perf_counter()
+    pout = split_trace.trace_split_plain(inner, pairs, *ops, **kw, visited=visited)
+    plain_ms = sync_ms(t0)
+    bad = k1_mismatches(kout, pout)
+    require(sum(bad.values()) == 0 and int(kout[4]) == 0,
+            f"{label}: K1 and plain disagree ({bad}) or overflow {int(kout[4])}")
+    # bound: every inner pop tests w boxes, every leaf pop 2 * LEAFW
+    # triangles; rays in (32 B, and a 4 B start tag), results out (16 B),
+    # each inner row (w * 32 B) and pair row (64 B) visited once
+    num = ops[0].shape[0]
+    live = ops[3] > ops[2]
+    n_inner, n_pairs = int(visited["inner"].sum()), int(visited["pairs"].sum())
+    n_ops = (float(kout[2].sum()) * w * SLAB_OPS
+             + float(kout[3].sum()) * 2 * split_trace.LEAFW * MT_OPS)
+    nbytes = num * (32 + 16 + (0 if start is None else 4)) + n_inner * w * 32 + n_pairs * 64
+    b = bound(n_ops, nbytes)
+    ipops = float(kout[2][live].float().mean())
+    lpops = float(kout[3][live].float().mean())
+    print(f"  {label}: {num} rays ({int(live.sum())} live), any_hit={int(any_hit)}: "
+          f"K1 {ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}; {n_ops:.4g} ops, "
+          f"{nbytes} bytes: {n_inner} inner rows, {n_pairs} pair rows); pops per live ray "
+          f"inner {ipops!r} leaf {lpops!r}; bit-equal to plain ({plain_ms!r} ms with the row "
+          f"marking)  [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, inner_pops=ipops, leaf_pops=lpops,
+                max_abs_err=float((kout[0] - pout[0]).abs().max()) if num else 0.0, **b)
+
+
+def time_passes(views, captured: dict, card: str, label: str = "1M") -> dict:
+    """K1 on each of a frame's four passes, as the frame launches it
+    (``k1_pass``). Then the plain version is timed on the bounce pass (one
+    run). Returns the bounce pass's numbers, which stand for K1 in the
+    kernels line, and each pass's."""
+    inner, pairs, stack_cap = views
+    out = {name: k1_pass(f"{label} {name} pass", views,
+                         pass_operands(key, captured[key])[0], any_hit, card)
+           for (key, any_hit), name in zip(FRAME_TRACERS, PASSES)}
+    print(f"  K1 on the four passes: {sum(r['ms'] for r in out.values())!r} ms a frame  "
+          f"[{card}]")
     ops, _ = pass_operands("bounce_tracer", captured["bounce_tracer"])
     plain_ms, _ = event_ms(
-        lambda: split_trace.trace_split_plain(inner, pairs, *ops, any_hit=False, **kw), 1,
+        lambda: split_trace.trace_split_plain(inner, pairs, *ops, any_hit=False,
+                                              leafw=split_trace.LEAFW, stack_cap=stack_cap), 1,
         warm=False)
     print(f"  plain version on the {label} bounce pass: {plain_ms!r} ms  [{card}]")
-    return dict(plain_ms=plain_ms, passes=out, **out["bounce"])
+    return dict(out["bounce"], plain_ms=plain_ms, passes=out)
 
 
 def tie_fixtures(device, agree: Agreement, rng) -> None:
@@ -791,7 +838,7 @@ def k1_checks(device, card: str, split: dict) -> dict:
     timing = time_passes(split["views"], cap, card)
     print(f"  K1 launch count after the comparisons = {split_trace.launch_count} "
           f"(main path: {split['launches']})")
-    return dict(max_abs_err=agree.max_abs_err, **timing)
+    return dict(timing, max_abs_err=agree.max_abs_err)
 
 
 def same_split(a, b) -> dict:
@@ -1113,7 +1160,7 @@ def lane_checks(device, card: str, lane: dict, triangles, baseline=None) -> dict
         time_drivers(tb, packed, lane["passes"][2], card, label, fn)
     print(f"  K5 launch count after the comparisons = {lane_trace.launch_count} "
           f"(lane path: {lane['launches']})")
-    return dict(max_abs_err=agree.max_abs_err, **timing)
+    return dict(timing, max_abs_err=agree.max_abs_err)
 
 
 class BaselineK5:
@@ -1470,7 +1517,7 @@ def fat_checks(device, card: str, binary: dict, triangles, baselines=()) -> dict
     timing = time_fat_passes(rows256, binary["passes"], card, baselines)
     print(f"  K6 launch count after the comparisons = {fat_traverse.launch_count} "
           f"(binary path: {binary['launches']})")
-    return dict(max_abs_err=agree.max_abs_err, **timing)
+    return dict(timing, max_abs_err=agree.max_abs_err)
 
 
 class BaselineK6:
@@ -2569,13 +2616,13 @@ class ItemRecorder:
         return self.fn(views, packed, rays, active=active, **kw)
 
 
-def instanced_phase(device, card: str) -> dict:
-    """Phase 15 (d): config 4 of benchmarks/bench_configs.py:257-380 on the
-    card. Returns K1's launches in the timed instanced frames."""
+def config4(device) -> dict:
+    """Config 4 of benchmarks/bench_configs.py:257-380: ``sphere_scene(4)``
+    as the BLAS (its Karras tree and its bucket split tree), INST_COUNT
+    instances from ``default_rng(3)``, primary rays at INST_RES²."""
     scene = procedural.sphere_scene(INST_SUBDIV)
     tris = torch.as_tensor(scene.triangles, device=device)
     blas, pairs = lbvh.build_lbvh(tris, True)
-    packed = pack_pairs(pairs)
     rng = np.random.default_rng(3)
     base_t = rng.uniform(-40, 40, (INST_COUNT, 3)).astype(np.float32)
     scale = rng.uniform(0.5, 1.5, (INST_COUNT, 1, 1)).astype(np.float32)
@@ -2586,12 +2633,42 @@ def instanced_phase(device, card: str) -> dict:
                                            blas.node_max[blas.root.long()], transforms)
     lo, hi = wmin.amin(dim=0).cpu().numpy(), wmax.amax(dim=0).cpu().numpy()
     camera = cam.camera_to_device(cam.update_camera(cam.initialise_camera(lo, hi)), device)
-    rays = generate_primary_rays(camera, INST_RES, INST_RES)
-
     views, packed_s, split = bucket.emit_split_views(bucket.split_front(tris, True),
                                                      leaf_width=split_trace.LEAFW)
     bucket.check_split_capacity(split, tris.shape[0])
-    blas_lo, blas_hi = tris.reshape(-1, 3).amin(dim=0), tris.reshape(-1, 3).amax(dim=0)
+    return dict(scene=scene, tris=tris, blas=blas, packed=pack_pairs(pairs),
+                transforms=transforms, rays=generate_primary_rays(camera, INST_RES, INST_RES),
+                views=views, packed_s=packed_s, num_leaves=int(split.num_leaves),
+                blas_lo=tris.reshape(-1, 3).amin(dim=0), blas_hi=tris.reshape(-1, 3).amax(dim=0))
+
+
+def instanced_split_frame(c4: dict, transforms):
+    """The split-kernel instanced tracer on config 4's rays, ``k_slots``
+    from ``max_overlap`` and ``item_budget`` from a first trace's guard (a
+    candidate overflow raises): (k_slots, budget, guard of the first
+    trace, (record, instance, stats, guard))."""
+    ias_s = instanced_split.build_instanced_split(c4["views"], c4["packed_s"], c4["blas_lo"],
+                                                  c4["blas_hi"], transforms)
+    mo = instanced_split.max_overlap(ias_s, c4["rays"])
+    k_slots = max(4, -(-(mo + 2) // 4) * 4)
+    _, _, _, guard0 = instanced_split.trace_rays_instanced_split(ias_s, c4["rays"],
+                                                                 k_slots=k_slots)
+    instanced_split.check_candidate_capacity(guard0, k_slots)
+    budget = -(-int(guard0[1]) * 13 // (10 * 256)) * 256
+    out = instanced_split.trace_rays_instanced_split(ias_s, c4["rays"], k_slots=k_slots,
+                                                     item_budget=budget)
+    instanced_split.check_candidate_capacity(out[3], k_slots, budget)
+    split_trace.check_overflow(out[2].overflow)
+    return mo, k_slots, budget, guard0, out
+
+
+def instanced_phase(device, card: str) -> dict:
+    """Phase 15 (d): config 4 of benchmarks/bench_configs.py:257-380 on the
+    card. Returns K1's launches in the timed instanced frames."""
+    c4 = config4(device)
+    scene, tris, blas, packed = c4["scene"], c4["tris"], c4["blas"], c4["packed"]
+    transforms, rays, views, packed_s = c4["transforms"], c4["rays"], c4["views"], c4["packed_s"]
+    blas_lo, blas_hi = c4["blas_lo"], c4["blas_hi"]
 
     def jitter(j):
         tf = transforms.clone()
@@ -2611,11 +2688,7 @@ def instanced_phase(device, card: str) -> dict:
         views, packed_s, blas_lo, blas_hi, tf))
     ias = tlas.build_instanced(blas, transforms)
     ias_s = instanced_split.build_instanced_split(views, packed_s, blas_lo, blas_hi, transforms)
-    mo = instanced_split.max_overlap(ias_s, rays)
-    k_slots = max(4, -(-(mo + 2) // 4) * 4)
-    _, _, _, guard0 = instanced_split.trace_rays_instanced_split(ias_s, rays, k_slots=k_slots)
-    instanced_split.check_candidate_capacity(guard0, k_slots)
-    budget = -(-int(guard0[1]) * 13 // (10 * 256)) * 256
+    mo, k_slots, budget, guard0, _ = instanced_split_frame(c4, transforms)
     print(f"  config 4: {INST_COUNT} instances of {scene.num_triangles} tris, {INST_RES}x"
           f"{INST_RES}; max overlap {mo} -> k_slots {k_slots}; {int(guard0[1])} live items -> "
           f"item_budget {budget}; build_instanced {stack_build_ms!r} ms, "
@@ -2758,6 +2831,352 @@ def tracers_phase(device, card: str, scene=None, dev_scene=None, camera=None, tr
     return out
 
 
+class StartRecorder:
+    """Wraps ``split_trace.split_traverse``: keeps the operands of the last
+    launch with start tags (a binned pass) for each of closest-hit and
+    any-hit."""
+
+    def __init__(self):
+        self.fn = split_trace.split_traverse
+        self.calls = {}
+
+    def __call__(self, inner, pairs, origin, direction, tmin, tmax, *, start=None, **kw):
+        if start is not None:
+            self.calls[kw["any_hit"]] = ((inner, pairs, kw["stack_cap"]),
+                                         (origin, direction, tmin, tmax), start)
+        return self.fn(inner, pairs, origin, direction, tmin, tmax, start=start, **kw)
+
+
+def tag_checks(views, recorder: StartRecorder) -> float:
+    """K1 with start tags against its plain version, bit for bit, on
+    SLICE live items sampled evenly from each binned pass with their own
+    tags (and every item with a leaf-window tag, where the root has Tri
+    children); then on the same items started at the leaf window that
+    holds the triangle their own tags found and at the inner row holding
+    that window's entry (items without a triangle cycle through the
+    tree's windows and rows), so the leaf-start path runs on the card
+    whatever the root holds. Returns the largest |t| difference (0)."""
+    inner, pairs, stack_cap = views
+    meta = inner[..., 6]
+    root_tri = bool(((meta[0] & 3) == CHILD_TRI).any())
+    rows_e, _ = torch.nonzero((meta & 3) == CHILD_TRI, as_tuple=True)
+    starts = (meta >> 5)[(meta & 3) == CHILD_TRI]
+    order = torch.argsort(starts)
+    starts, rows_e = starts[order], rows_e[order]
+    max_err = 0.0
+
+    def check(label, name, sub, tags, any_hit):
+        kw = dict(leafw=split_trace.LEAFW, any_hit=any_hit, stack_cap=stack_cap,
+                  start=tags.to(torch.int32).contiguous())
+        kout = split_trace.split_traverse(inner, pairs, *sub, **kw)
+        pout = split_trace.trace_split_plain(inner, pairs, *sub, **kw)
+        bad = k1_mismatches(kout, pout)
+        hits = int((kout[1] >= 0).sum())
+        print(f"    {label}: {tags.numel()} items, {hits} with a triangle, mismatches {bad}")
+        require(sum(bad.values()) == 0 and int(kout[4]) == 0,
+                f"binned {name} {label}: K1 and plain disagree ({bad})")
+        require(hits > 0, f"binned {name} {label}: no item hits, so it checks nothing")
+        return kout, float((kout[0] - pout[0]).abs().max())
+
+    for any_hit in (False, True):
+        _, (o, d, tmin, tmax), start = recorder.calls[any_hit]
+        live = torch.nonzero(tmax > tmin).reshape(-1)
+        pick = live[torch.linspace(0, live.numel() - 1, min(SLICE, live.numel()),
+                                   device=live.device).round().long()]
+        leaf_items = live[(start[live] & 1) == 1]
+        if root_tri:
+            pick = torch.unique(torch.cat([pick, leaf_items]))
+        name = "bounce shadow" if any_hit else "bounce"
+        n_leaf = int((start[pick] & 1).sum())
+        print(f"  binned {name} pass: {pick.numel()} of {live.numel()} live items sampled, "
+              f"{n_leaf} with a leaf-window start tag (the root has "
+              f"{'Tri children' if root_tri else 'no Tri child: no item starts at a leaf window'})")
+        if root_tri:
+            require(n_leaf == leaf_items.numel(), "the sample lost leaf-window items")
+        sub = [a[pick] for a in (o, d, tmin, tmax)]
+        kout, err = check("own tags", name, sub, start[pick], any_hit)
+        max_err = max(max_err, err)
+        # the window (and its row) that holds each item's triangle
+        cyc = torch.arange(pick.numel(), device=pick.device) % starts.numel()
+        j = torch.searchsorted(starts, (kout[1] >> 1).clamp(min=0), right=True) - 1
+        j = torch.where(kout[1] >= 0, j, cyc)
+        for label, tags in (("leaf-window tags", (starts[j] << 1) | 1),
+                            ("inner-row tags", rows_e[j] << 1)):
+            max_err = max(max_err, check(label, name, sub, tags, any_hit)[1])
+    return max_err
+
+
+def hit_mismatches(rec, ref) -> dict:
+    """Rays on which two closest-hit records differ: hit, tri (at different
+    t: a different triangle at exactly the same t is an exact tie, counted
+    apart) and t where the triangle is the same (bit for bit)."""
+    both = rec.hit & ref.hit
+    return dict(hit=int((rec.hit != ref.hit).sum()),
+                tri=int((both & (rec.tri_id != ref.tri_id) & (rec.t != ref.t)).sum()),
+                ties=int((both & (rec.tri_id != ref.tri_id) & (rec.t == ref.t)).sum()),
+                t=int((both & (rec.tri_id == ref.tri_id) & (rec.t != ref.t)).sum()))
+
+
+def binned_frame(device, card: str, dev_scene, camera, views, packed, split_img) -> dict:
+    """Phase 16 (a-c): the 1-bounce frame with the binned bounce and
+    bounce-shadow passes (``cell`` bounce sort), K1's start tags against
+    the plain version, K1 timed on the binned and presorted passes, and the
+    binned hits against the presorted ones."""
+    tracers = dict(
+        tracer=split_trace.make_split_tracer(RES, RES),
+        shadow_tracer=split_trace.make_split_tracer(RES, RES, any_hit=True),
+        bounce_tracer=split_trace.make_split_tracer(RES, RES, sort_mode="binned"),
+        shadow_tracer_bounce=split_trace.make_split_tracer(RES, RES, any_hit=True,
+                                                           sort_mode="binned"))
+    captured = {k: Capture(v) for k, v in tracers.items()}
+    recorder = StartRecorder()
+    split_trace.split_traverse = recorder
+    try:
+        split_trace.launch_count = 0
+        frame = frame_fn(views, packed, dev_scene, camera, device, **captured)
+        frame(0, 0.0, sort_kind="cell")
+        img, frame_ms, total_rays = timed_frames(frame, sort_kind="cell")
+        launches = split_trace.launch_count
+    finally:
+        split_trace.split_traverse = recorder.fn
+    require(launches >= 4 * (ITERS + 1),
+            f"binned frame: K1 launched {launches} times in {ITERS + 1} frames")
+    require(sorted(recorder.calls) == [False, True], "a binned pass launched no tagged K1")
+    require(bool(torch.isfinite(img).all()), "binned frame has non-finite pixels")
+    db = frame_psnr(img, split_img)
+    mrays = total_rays / (frame_ms * ITERS) / 1000.0
+    print(f"  binned frame: {RES}x{RES}, {BOUNCES} bounce, cell bounce sort, {frame_ms!r} ms, "
+          f"{mrays!r} Mrays/s, {db!r} dB from phase 3's split frame, K1 launches {launches}  "
+          f"[{card}]")
+    require(db >= MIN_PSNR, f"binned frame: {db:.2f} dB from the split frame")
+
+    out = dict(frame_ms=frame_ms, mrays_per_s=mrays, psnr_db=db, launches=launches)
+    for key, any_hit in (("bounce_tracer", False), ("shadow_tracer_bounce", True)):
+        cap = captured[key]
+        _, stats, needed = binned.trace_rays_binned(views, packed, cap.rays, cap.active,
+                                                    any_hit=any_hit, return_needed=True)
+        _, (o, d, tmin, tmax), _ = recorder.calls[any_hit]
+        items = int((tmax > tmin).sum())
+        live = int((cap.active & (cap.rays.tmax > cap.rays.tmin)).sum())
+        slots = binned.item_capacity(cap.rays.origin.shape[0], split_trace.K, 2.0)
+        print(f"  binned {key}: {live} live rays, {items} items ({items / live!r} a live ray), "
+              f"needed {int(needed)} of {slots} slots, overflow {int(stats.overflow)}")
+        require(int(stats.overflow) == 0 and int(needed) <= slots, f"binned {key}: overflow")
+        out[f"{key}_items_per_ray"] = items / live
+    out["max_abs_err"] = tag_checks(views, recorder)
+
+    for key, any_hit in (("bounce_tracer", False), ("shadow_tracer_bounce", True)):
+        cap = captured[key]
+        _, item_ops, start = recorder.calls[any_hit]
+        name = "bounce shadow" if any_hit else "bounce"
+        out[f"binned {name}"] = k1_pass(f"K1, binned {name} pass", views, item_ops, any_hit,
+                                        card, start=start)
+        ops = split_trace.kernel_operands(cap.rays, cap.active)
+        out[f"presorted {name}"] = k1_pass(f"K1, presorted {name} pass", views, ops, any_hit,
+                                           card)
+
+    cap = captured["bounce_tracer"]
+    rec_b, _ = tracers["bounce_tracer"](views, packed, cap.rays, cap.active)
+    rec_p, _ = split_trace.trace_rays_split(views, packed, cap.rays, cap.active)
+    bad = hit_mismatches(rec_b, rec_p)
+    print(f"  binned against presorted, bounce pass: {int(rec_p.hit.sum())} hits, mismatches {bad}")
+    require(bad["hit"] == bad["tri"] == bad["t"] == 0, f"binned and presorted differ: {bad}")
+    cap = captured["shadow_tracer_bounce"]
+    occl_b, _ = tracers["shadow_tracer_bounce"](views, packed, cap.rays, cap.active)
+    occl_p, _ = split_trace.trace_rays_split(views, packed, cap.rays, cap.active, any_hit=True)
+    n_bad = int((occl_b.hit != occl_p.hit).sum())
+    print(f"  binned against presorted, bounce shadow pass: {int(occl_p.hit.sum())} occluded, "
+          f"mismatches {n_bad}")
+    require(n_bad == 0, f"binned and presorted shadow passes differ on {n_bad} rays")
+    return dict(captured=captured, **out)
+
+
+def sort_mode_runs(views, packed, captured: dict, card: str) -> dict:
+    """Phase 16 (d): the sort modes on the bounce rays in a random order:
+    each mode's hits against the presorted tracer's, closest-hit and
+    any-hit, with its host-timed ms."""
+    cap = captured["bounce_tracer"]
+    gen = torch.Generator(device=cap.rays.origin.device).manual_seed(16)
+    perm = torch.randperm(cap.rays.origin.shape[0], device=gen.device, generator=gen)
+    rays, active = cap.rays.take(perm), cap.active[perm]
+    out = {}
+    for any_hit in (False, True):
+        ref, _ = split_trace.trace_rays_split(views, packed, rays, active, any_hit=any_hit)
+        for mode, sort_origin in (("origin", False), ("cell_octant", False), (None, True)):
+            tracer = split_trace.make_split_tracer(RES, RES, any_hit=any_hit, sort_mode=mode,
+                                                   sort_origin=sort_origin)
+            tracer(views, packed, rays, active)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec, _ = tracer(views, packed, rays, active)
+            ms = sync_ms(t0)
+            name = "sort_origin=True" if sort_origin else mode
+            bad = int((rec.hit != ref.hit).sum())
+            extra = ""
+            if not (any_hit or sort_origin):
+                m = hit_mismatches(rec, ref)
+                extra = f", closest-hit record {m}"
+                require(m["tri"] == m["t"] == 0, f"sort mode {name}: {m}")
+            print(f"  sort mode {name}, any_hit={int(any_hit)}: {ms!r} ms, {int(ref.hit.sum())} "
+                  f"hits, hit mismatches {bad}{extra}  [{card}]")
+            require(bad == 0, f"sort mode {name}: {bad} hits differ from the presorted pass")
+            out[(name, any_hit)] = ms
+    return out
+
+
+def bfs_runs(views, packed, captured: dict, triangles, card: str) -> dict:
+    """Phase 16 (e): the BFS tracer on the primary and bounce passes with
+    BFS_CAP_FACTOR and BFS_LEAF_FACTOR (the reference's 3.0 overflows at
+    1M): ms, overflow, visits per level and what the reference's default
+    caps would have needed, hits against K1's on the same rays and
+    against brute force on BRUTE_RAYS rays."""
+    bviews = wavefront_bfs.BFSViews(inner=views[0], pair_rows=packed.rows,
+                                    leaf_width=split_trace.LEAFW)
+    kw = dict(cap_factor=BFS_CAP_FACTOR, leaf_factor=BFS_LEAF_FACTOR)
+    out = {}
+    for key, name in (("tracer", "primary"), ("bounce_tracer", "bounce")):
+        cap = captured[key]
+        rays, active = cap.rays, cap.active
+        num = rays.origin.shape[0]
+        wavefront_bfs.trace_rays_bfs(bviews, packed, rays, active, **kw)  # warm
+        levels = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec, stats, ov = wavefront_bfs.trace_rays_bfs(bviews, packed, rays, active,
+                                                      level_visits=levels, **kw)
+        ms = sync_ms(t0)
+        need = max(max(n, lv) for _, n, lv in levels) / num
+        print(f"  BFS {name} pass: {num} rays, caps {BFS_CAP_FACTOR} and {BFS_LEAF_FACTOR} "
+              f"x R a level, {ms!r} ms, overflow {int(ov)}, {len(levels)} levels; (visits, "
+              f"next-level visits, leaf visits) per level {levels}; the largest list "
+              f"{need!r} x R, {need / 3.0!r} x the reference's default cap  [{card}]")
+        require(not bool(ov), f"BFS {name} pass overflows caps of {BFS_CAP_FACTOR} x R: a "
+                              f"level needs {need!r} x R")
+        ref, _ = split_trace.trace_rays_split(views, packed, rays, active)
+        bad = hit_mismatches(rec, ref)
+        print(f"  BFS {name} pass against K1: {int(ref.hit.sum())} hits, mismatches {bad}")
+        require(bad["hit"] == bad["tri"] == bad["t"] == 0, f"BFS {name} against K1: {bad}")
+        sample, _ = live_sample(rays, active, BRUTE_RAYS)
+        brute_check(f"BFS {name}", None, packed, sample, triangles, tree="BFS",
+                    tracer=lambda v, p, r: wavefront_bfs.trace_rays_bfs(bviews, p, r, **kw)[:2])
+        out[name] = dict(ms=ms, levels=len(levels), need=need)
+    return out
+
+
+def instanced_grid_run(device, card: str) -> dict:
+    """Phase 16 (f): config 4 on the instanced grid: the build and the
+    trace timed, the work list against its cap, and the hits against the
+    split-kernel instanced tracer on every ray."""
+    c4 = config4(device)
+    rays, transforms = c4["rays"], c4["transforms"]
+    rows = PackedPairs(rows=c4["packed_s"].rows[:c4["num_leaves"]])
+    grid_instanced.build_instanced_grid(rows, transforms)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ITERS):
+        ias = grid_instanced.build_instanced_grid(rows, transforms)
+    build_ms = sync_ms(t0) / ITERS
+    grid.check_grid_capacity(ias.blas_grid)
+    grid_instanced.trace_rays_instanced_grid(ias, rows, rays)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, inst, stats, ov = grid_instanced.trace_rays_instanced_grid(ias, rows, rays)
+    trace_ms = sync_ms(t0)
+    grid_instanced.check_instanced_grid_capacity(ov)
+    split_trace.check_overflow(stats.overflow)
+    num = rays.origin.shape[0]
+    items = int(grid_instanced.candidate_mask(ias, rays).sum())
+    print(f"  config 4 instanced grid: res {ias.blas_grid.res}, build_instanced_grid "
+          f"{build_ms!r} ms, trace {trace_ms!r} ms, {items} work items against "
+          f"work_factor * R = {4 * num}, overflow {int(ov)}  [{card}]")
+    _, _, _, _, (rec_s, inst_s, _, _) = instanced_split_frame(c4, transforms)
+    both = rec.hit & rec_s.hit
+    near = (rec.t - rec_s.t).abs() <= T_RTOL * rec_s.t.abs()
+    bad = dict(hit=int((rec.hit != rec_s.hit).sum()),
+               t=int((both & ~near).sum()),
+               tri=int((both & (rec.tri_id != rec_s.tri_id) & ~near).sum()),
+               instance=int((both & (inst != inst_s) & ~near).sum()),
+               tri_ties=int((both & (rec.tri_id != rec_s.tri_id) & near).sum()),
+               instance_ties=int((both & (inst != inst_s) & near).sum()))
+    print(f"  config 4 instanced grid against the split-kernel tracer, {num} rays: "
+          f"{int(rec_s.hit.sum())} hits, mismatches {bad}")
+    for what in ("hit", "t", "tri", "instance"):
+        require(bad[what] <= (1.0 - BRUTE_AGREE) * num,
+                f"config 4: the instanced grid and the split tracer disagree on {what}: {bad}")
+    return dict(build_ms=build_ms, trace_ms=trace_ms, items=items)
+
+
+def wide_packet_run(device, card: str, triangles) -> dict:
+    """Phase 16 (g): the wide packet tracer on the Karras ``WideBVH`` of
+    phase 3's scene, the aerial primary pass at APP_W x APP_H, against K6's
+    tiled tracer on the same tree. The packet tracer's Möller-Trumbore
+    rounds as the reference's XLA code (one rounding per fused
+    multiply-add) and K6 as its plain version, so a grazing hit's t may
+    move past T_RTOL and an edge ray flip: at most 0.5% of the rays may
+    differ on hit, t or the triangle (not counting another triangle at the
+    same t within T_RTOL), as phase 15 holds the packet tracer."""
+    bvh, pairs = lbvh.build_lbvh(triangles, True)
+    packed = pack_pairs(pairs)
+    wbvh = wide.build_wide(bvh)
+    camera = aerial_camera(procedural.terrain(NUM_TRIS), device)
+    rays = generate_primary_rays(camera, APP_W, APP_H)
+    tracer = wide_packet.make_tiled_wide_tracer(wbvh, APP_W, APP_H)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, stats = tracer(None, packed, rays)
+    ms = sync_ms(t0)
+    fat = wide.build_wide_fat(bvh, packed.rows)
+    ref, _ = wide_fat.make_tiled_fat_tracer(None, APP_W, APP_H, 8, 8)(fat, packed, rays)
+    num = rays.origin.shape[0]
+    both = rec.hit & ref.hit
+    near = (rec.t - ref.t).abs() <= T_RTOL * ref.t.abs()
+    exact = rec.t == ref.t
+    bad = dict(hit=int((rec.hit != ref.hit).sum()), t=int((both & ~near).sum()),
+               tri=int((both & (rec.tri_id != ref.tri_id) & ~near).sum()),
+               ties=int((both & (rec.tri_id != ref.tri_id) & near).sum()),
+               t_inexact=int((both & ~exact).sum()))
+    print(f"  wide packet tracer, aerial camera, {APP_W}x{APP_H} ({num} rays, 16x8 packets): "
+          f"{ms!r} ms, {int(ref.hit.sum())} K6 hits, mismatches against K6 {bad} (t to rtol "
+          f"{T_RTOL}; ties: another triangle within it; t_inexact: t not bit-equal), overflow "
+          f"{int(stats.overflow)}  [{card}]")
+    require(int(stats.overflow) == 0 and int(ref.hit.sum()) > 0, "wide packet: overflow or no hit")
+    for what in ("hit", "t", "tri"):
+        require(bad[what] <= (1.0 - BRUTE_AGREE) * num,
+                f"wide packet and K6 disagree on {what} for {bad[what]} rays")
+    return dict(ms=ms)
+
+
+def modes_phase(device, card: str, scene=None, dev_scene=None, camera=None, triangles=None,
+                views=None, packed=None, split_img=None) -> dict:
+    """Phase 16: the reference's remaining tracers. Without phase 3's
+    scene, tree and frame (``--modes-only``), builds them here first."""
+    print("phase 16: the binned tracer and K1's start tags, the sort modes, the BFS tracer, "
+          "the instanced grid and the wide packet tracer")
+    t_phase = time.perf_counter()
+    if scene is None:
+        scene = procedural.terrain(NUM_TRIS)
+        dev_scene = scene_to_device(scene, device)
+        camera = aerial_camera(scene, device)
+        triangles = torch.as_tensor(scene.triangles, device=device)
+        front = bucket.split_front(triangles, True)
+        views, packed, _ = bucket.emit_split_views(front, leaf_width=split_trace.LEAFW)
+        frame = frame_fn(views, packed, dev_scene, camera, device,
+                         **split_trace.make_frame_tracers(RES, RES))
+        # phase 3's last timed frame: its seed, jitter and tid bounce sort
+        split_img, _ = frame(ITERS, ITERS * 1e-4, pair_loc=treelet.build_pair_tid(front))
+        del front
+    out = dict(binned=binned_frame(device, card, dev_scene, camera, views, packed, split_img))
+    captured = out["binned"].pop("captured")
+    out["sort_modes"] = sort_mode_runs(views, packed, captured, card)
+    out["bfs"] = bfs_runs(views, packed, captured, triangles, card)
+    del captured
+    out["instanced_grid"] = instanced_grid_run(device, card)
+    out["wide_packet"] = wide_packet_run(device, card, triangles)
+    print(f"  phase 16: {time.perf_counter() - t_phase:.2f} s, K1 launches "
+          f"{out['binned']['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     parser.add_argument("--k1-only", action="store_true",
@@ -2774,6 +3193,10 @@ def main(argv=None) -> int:
     parser.add_argument("--tracers-only", action="store_true",
                         help="run phases 1, 2 and 15 only (the grid and packet tracers and "
                              "instancing); prints no summary lines")
+    parser.add_argument("--modes-only", action="store_true",
+                        help="run phases 1, 2 and 16 only (the binned tracer and K1's start "
+                             "tags, the sort modes, the BFS, instanced-grid and wide packet "
+                             "tracers); prints no summary lines")
     parser.add_argument("--k5-baseline", type=Path, metavar="SOURCE",
                         help="an earlier csrc/lane_trace.cu (the same C interface over the "
                              "reference's tables layout) to build, check against K5 and time "
@@ -2830,6 +3253,10 @@ def main(argv=None) -> int:
         tracers_phase(device, card)
         print("chip_smoke: stopped after phase 15 (--tracers-only)")
         return 0
+    if args.modes_only:
+        modes_phase(device, card)
+        print("chip_smoke: stopped after phase 16 (--modes-only)")
+        return 0
     scene = procedural.terrain(NUM_TRIS)
     dev_scene = scene_to_device(scene, device)
     camera = aerial_camera(scene, device)
@@ -2853,10 +3280,13 @@ def main(argv=None) -> int:
     binary_launches = binary["launches"]
     rebuild_ms = split["rebuild_ms"]
     split_img = split["img"]
+    split_views, split_packed = split["views"], split["packed"]
     del split, binary, sah_frame
     app = app_phase(device, card)
     anim = animate_phase(device, card, rebuild_ms)
     tracers = tracers_phase(device, card, scene, dev_scene, camera, triangles, split_img)
+    modes = modes_phase(device, card, scene, dev_scene, camera, triangles, split_views,
+                        split_packed, split_img)
 
     def entry(name, source, replaces, launches, res):
         # no single PyTorch call traces rays through a BVH: library_ms is null
@@ -2871,7 +3301,8 @@ def main(argv=None) -> int:
     print(f"chip_smoke: full run {time.perf_counter() - T_PROCESS0:.2f} s of command time")
     print(json.dumps({"kernels": [
         entry("split_trace", "split_trace.cu", f"{sp}:143",
-              k1_launches + anim["k1"] + tracers["instanced"]["launches"], k1),
+              k1_launches + anim["k1"] + tracers["instanced"]["launches"]
+              + modes["binned"]["launches"], k1),
         entry("split_trace kernel_v=4", "split_trace.cu", f"{sp}:541", versions[4], k1),
         entry("split_trace kernel_v=5", "split_trace.cu", f"{sp}:898", versions[5], k1),
         entry("split_trace kernel_v=2", "split_trace.cu", f"{sp}:1250", versions[2], k1),

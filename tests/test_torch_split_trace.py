@@ -194,7 +194,8 @@ def test_plain_matches_pallas_kernel(sphere, pallas_sp, kernel_v):
 def test_kernel_v2_stats_and_refusals(sphere):
     """v2's statistics: the launch's total pops in box_tests[0], zeros
     elsewhere, as split_pallas.py:1865-1869; v2 refuses packet_tags and raw
-    (:1816-1817); the other versions take raw but not yet packet_tags."""
+    (:1816-1817); the other versions take both, and root tags (0) for
+    every packet trace as no tags."""
     views, packed = _port_tree(sphere, True)
     _, tr = _both(*_camera_rays(sphere, 16, 8))
     rec3, st3 = st.trace_rays_split(views, packed, tr)
@@ -213,11 +214,16 @@ def test_kernel_v2_stats_and_refusals(sphere):
         st.trace_rays_split(views, packed, tr, kernel_v=2, raw=True)
     with pytest.raises(ValueError, match="v3 kernel"):
         st.trace_rays_split(views, packed, tr, kernel_v=1, packet_tags=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="packets of 256"):
         st.trace_rays_split(views, packed, tr, kernel_v=5, packet_tags=torch.zeros(1))
     (t5, tri5), _ = st.trace_rays_split(views, packed, tr, kernel_v=5, raw=True)
     np.testing.assert_array_equal(tri5.numpy() >= 0, rec3.hit.numpy())
     np.testing.assert_array_equal(t5.numpy()[rec3.hit.numpy()], rec3.t.numpy()[rec3.hit.numpy()])
+    (t5t, tri5t), st5t = st.trace_rays_split(views, packed, tr, kernel_v=5, raw=True, k=128,
+                                             packet_tags=torch.zeros(1, dtype=torch.int32))
+    np.testing.assert_array_equal(t5t.numpy(), t5.numpy())
+    np.testing.assert_array_equal(tri5t.numpy(), tri5.numpy())
+    np.testing.assert_array_equal(st5t.box_tests.numpy(), st3.box_tests.numpy())
 
 
 def test_stack_overflow_flag_raises(sphere):

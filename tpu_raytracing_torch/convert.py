@@ -21,7 +21,9 @@ from tpu_raytracing_torch.bvh.treelet import TreeletBVH
 from tpu_raytracing_torch.bvh.types import BVH
 from tpu_raytracing_torch.bvh.wide import FatWideBVH, WideBVH
 from tpu_raytracing_torch.scene.types import DeviceMaterials, DeviceScene, TexturePool
+from tpu_raytracing_torch.trace.grid_instanced import InstancedGridAS
 from tpu_raytracing_torch.trace.instanced_split import InstancedSplitAS
+from tpu_raytracing_torch.trace.wavefront_bfs import BFSViews
 from tpu_raytracing_torch.trace.traverse import PackedPairs, TraversalBVH
 
 
@@ -171,3 +173,24 @@ def instanced_split_from_numpy(fields: Mapping, device) -> InstancedSplitAS:
         wmin=_t(np.asarray(fields["wmin"], np.float32), device),
         wmax=_t(np.asarray(fields["wmax"], np.float32), device),
         inv_transforms=_t(np.asarray(fields["inv_transforms"], np.float32), device))
+
+
+def bfs_views_from_numpy(inner_i, pair_rows, leaf_width: int, device) -> BFSViews:
+    """``tpu_raytracing.trace.wavefront_bfs.BFSViews`` (its ``inner_i``
+    [icap, w*8] int32 rows, ``pair_rows`` [P, 16] and ``leaf_width``) ->
+    the port's ``BFSViews``; the reference's ``inner_f`` is the same rows
+    bit-cast, which the port reads from ``inner``."""
+    inner = np.asarray(inner_i, np.int32)
+    return BFSViews(inner=_t(inner.reshape(inner.shape[0], -1, 8), device),
+                    pair_rows=_t(np.asarray(pair_rows, np.int32), device),
+                    leaf_width=int(leaf_width))
+
+
+def instanced_grid_from_numpy(fields: Mapping, device) -> InstancedGridAS:
+    """``tpu_raytracing.trace.grid_instanced.InstancedGridAS`` as a mapping
+    (``blas_grid``, a mapping as ``grid_from_numpy`` takes it; ``inst_min``,
+    ``inst_max``, ``inv_transforms``) -> the port's ``InstancedGridAS``."""
+    return InstancedGridAS(
+        blas_grid=grid_from_numpy(fields["blas_grid"], device),
+        **{k: _t(np.asarray(fields[k], np.float32), device)
+           for k in ("inst_min", "inst_max", "inv_transforms")})

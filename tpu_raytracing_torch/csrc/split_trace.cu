@@ -8,7 +8,11 @@
 // kernel serves them all, in a closest-hit and an any-hit instantiation.
 //
 // What it computes (per ray, rays in the order given):
-//   * depth-first traversal of SplitBVH inner rows from the root (row 0);
+//   * depth-first traversal of SplitBVH inner rows from the ray's start tag:
+//     the root (row 0, tag 0) when ``start`` is null, else start[ray], the
+//     reference's per-packet ``ptag`` (_kernel_v3's init_slot, line 191)
+//     expanded to one tag per ray: an even tag 2 r starts at inner row r, an
+//     odd tag 2 s + 1 at the leaf window from pair s;
 //     a row holds kWidth = 8 entries of (lo xyz, hi xyz, meta, pad), meta =
 //     child << 5 | type. Type 0 entries are skipped; a box child is an inner
 //     row, a tri child the start of a leafw-pair window in the sorted pairs.
@@ -161,7 +165,8 @@ split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pair
                    const float* __restrict__ tmin, const float* __restrict__ tmax,
                    float* __restrict__ t_out, int* __restrict__ tri_out,
                    int* __restrict__ ipops_out, int* __restrict__ lpops_out,
-                   int* __restrict__ overflow, int num_rays, int leafw, int stack_cap) {
+                   int* __restrict__ overflow, const int* __restrict__ start_tags, int num_rays,
+                   int leafw, int stack_cap) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x % kWarp;
   const bool live = ray < num_rays;  // a lane past num_rays only serves the warp
@@ -182,7 +187,8 @@ split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pair
 
   int stack[kMaxStack];
   int sp = 0;
-  if (live) stack[sp++] = 0;  // root: inner row 0
+  // the start tag; a leaf tag tops the stack and goes straight to step 2
+  if (live) stack[sp++] = start_tags ? start_tags[ray] : 0;
   while (__any_sync(kFull, sp > 0)) {
     // 1. inner rows, each lane on its own, until a leaf tag tops its stack
     while (sp > 0) {
@@ -302,50 +308,53 @@ split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pair
 template <bool ANY_HIT, int SLOTS>
 void launch(const void* inner, const void* pairs, const void* origin, const void* dir,
             const void* tmin, const void* tmax, void* t_out, void* tri_out, void* ipops,
-            void* lpops, void* overflow, int num_rays, int leafw, int stack_cap,
-            cudaStream_t stream) {
+            void* lpops, void* overflow, const void* start, int num_rays, int leafw,
+            int stack_cap, cudaStream_t stream) {
   const int blocks = (num_rays + kThreads - 1) / kThreads;
   split_trace_kernel<ANY_HIT, SLOTS><<<blocks, kThreads, 0, stream>>>(
       static_cast<const int4*>(inner), static_cast<const int4*>(pairs),
       static_cast<const float*>(origin), static_cast<const float*>(dir),
       static_cast<const float*>(tmin), static_cast<const float*>(tmax),
       static_cast<float*>(t_out), static_cast<int*>(tri_out), static_cast<int*>(ipops),
-      static_cast<int*>(lpops), static_cast<int*>(overflow), num_rays, leafw, stack_cap);
+      static_cast<int*>(lpops), static_cast<int*>(overflow), static_cast<const int*>(start),
+      num_rays, leafw, stack_cap);
 }
 
 template <bool ANY_HIT>
 void launch_slots(const void* inner, const void* pairs, const void* origin, const void* dir,
                   const void* tmin, const void* tmax, void* t_out, void* tri_out, void* ipops,
-                  void* lpops, void* overflow, int num_rays, int leafw, int stack_cap,
-                  cudaStream_t s) {
+                  void* lpops, void* overflow, const void* start, int num_rays, int leafw,
+                  int stack_cap, cudaStream_t s) {
   switch ((leafw + kWarp - 1) / kWarp) {
     case 1:
       launch<ANY_HIT, 1>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                         overflow, num_rays, leafw, stack_cap, s);
+                         overflow, start, num_rays, leafw, stack_cap, s);
       break;
     case 2:
       launch<ANY_HIT, 2>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                         overflow, num_rays, leafw, stack_cap, s);
+                         overflow, start, num_rays, leafw, stack_cap, s);
       break;
     case 3:
       launch<ANY_HIT, 3>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                         overflow, num_rays, leafw, stack_cap, s);
+                         overflow, start, num_rays, leafw, stack_cap, s);
       break;
     default:
       launch<ANY_HIT, kMaxSlots>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops,
-                                 lpops, overflow, num_rays, leafw, stack_cap, s);
+                                 lpops, overflow, start, num_rays, leafw, stack_cap, s);
   }
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes. Pointers are device pointers;
-// ``stream`` is a cudaStream_t. Returns the cudaError_t of the launch.
+// ``start`` ([num_rays] int32 start tags) may be null: every ray starts at
+// the root. ``stream`` is a cudaStream_t. Returns the cudaError_t of the
+// launch.
 extern "C" int split_trace_launch(const void* inner, const void* pairs, const void* origin,
                                   const void* dir, const void* tmin, const void* tmax,
                                   void* t_out, void* tri_out, void* ipops, void* lpops,
-                                  void* overflow, int num_rays, int width, int leafw,
-                                  int any_hit, int stack_cap, void* stream) {
+                                  void* overflow, const void* start, int num_rays, int width,
+                                  int leafw, int any_hit, int stack_cap, void* stream) {
   if (num_rays <= 0) return 0;
   if (width != kWidth || leafw < 1 || leafw > kMaxSlots * kWarp || stack_cap <= 0 ||
       stack_cap > kMaxStack)
@@ -353,9 +362,9 @@ extern "C" int split_trace_launch(const void* inner, const void* pairs, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit)
     launch_slots<true>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                       overflow, num_rays, leafw, stack_cap, s);
+                       overflow, start, num_rays, leafw, stack_cap, s);
   else
     launch_slots<false>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                        overflow, num_rays, leafw, stack_cap, s);
+                        overflow, start, num_rays, leafw, stack_cap, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from tpu_raytracing_torch.bvh.sah import _fma
 from tpu_raytracing_torch.bvh.tlas import InstancedAS
 from tpu_raytracing_torch.bvh.types import CHILD_BOX, CHILD_INST, CHILD_NONE, CHILD_TRI, STACK_DEPTH
 from tpu_raytracing_torch.ops.intersect import intersect_ray_aabb, intersect_ray_triangle
@@ -39,14 +40,21 @@ from tpu_raytracing_torch.trace.traverse import (
 )
 
 
-def transform_rays(tf: torch.Tensor, origin: torch.Tensor, direction: torch.Tensor):
+def transform_rays(tf: torch.Tensor, origin: torch.Tensor, direction: torch.Tensor,
+                   fused: bool = False):
     """Origins and directions ([R, 3]) through per-ray affine maps
-    ``tf`` ([R, 3, 4]): (M o + t, M d), each row summed left to right."""
-    o = (tf[:, :, 0] * origin[:, 0:1] + tf[:, :, 1] * origin[:, 1:2]
-         + tf[:, :, 2] * origin[:, 2:3] + tf[:, :, 3])
-    d = (tf[:, :, 0] * direction[:, 0:1] + tf[:, :, 1] * direction[:, 1:2]
-         + tf[:, :, 2] * direction[:, 2:3])
-    return o, d
+    ``tf`` ([R, 3, 4]): (M o + t, M d), each row summed left to right.
+    With ``fused`` each row's sum rounds as XLA's CPU compiler contracts
+    the reference's einsum outside a loop (``grid_instanced.py:150-153``):
+    fma(m2, v2, fma(m1, v1, m0 v0)); inside ``instanced.py``'s while loop
+    it does not."""
+    def row_sum(v):
+        if fused:
+            return _fma(tf[:, :, 2], v[:, 2:3], _fma(tf[:, :, 1], v[:, 1:2],
+                                                     tf[:, :, 0] * v[:, 0:1]))
+        return tf[:, :, 0] * v[:, 0:1] + tf[:, :, 1] * v[:, 1:2] + tf[:, :, 2] * v[:, 2:3]
+
+    return row_sum(origin) + tf[:, :, 3], row_sum(direction)
 
 
 def trace_rays_instanced(inst_as: InstancedAS, pairs: PackedPairs, rays: Rays,

@@ -30,9 +30,20 @@ sum of every ray's inner and leaf pops, which is not comparable with the
 TPU's packet pops), every other entry is 0, and ``tri_tests`` is 0.
 
 ``trace_rays_split(raw=True)`` returns K1's (t, tri) before the hit
-record is rebuilt, for ``trace/instanced_split.py``. The reference's
-per-packet start tags (``packet_tags``) serve ``trace/binned.py`` and wait
-with it: every ray starts at the root.
+record is rebuilt, for ``trace/instanced_split.py`` and
+``trace/binned.py``. ``packet_tags`` (``split_pallas.py:1585``) gives
+each packet of ``k`` consecutive rays a start tag, the reference's
+``ptag``: an even tag 2 r starts the packet's rays at inner row r, an odd
+tag 2 s + 1 at the leaf window from pair s. The wrapper expands them to one
+tag per ray (``split_traverse(start=...)``); without them every ray starts
+at the root, tag 0.
+
+``make_split_tracer``'s sort modes (``split_pallas.py:1873-2020``):
+``"presorted"`` traces the caller's order; ``"binned"`` calls
+``trace/binned.py:trace_rays_binned`` on it; ``"origin"`` and
+``"cell_octant"`` sort the rays by a Morton key of their origins (and
+their direction octant), dead rays last, trace, and restore the order;
+``sort_origin=True`` (with ``sort_mode`` None) sorts as ``"origin"``.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import torch
 
 from tpu_raytracing_torch.bvh.types import CHILD_TRI
 from tpu_raytracing_torch.ops import _cuda_build
+from tpu_raytracing_torch.ops.morton import morton3d
 from tpu_raytracing_torch.trace.packet import (
     crop_frame,
     pad_frame,
@@ -96,7 +108,7 @@ def _mt(a, b, c, o, d, tmn, t_cur):
     return torch.where(acc, tt, _F32_MAX)
 
 
-def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, leafw, any_hit,
+def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, start, leafw, any_hit,
                  stack_cap, out, visited):
     """trace_split_plain on one chunk of rays; writes into ``out``."""
     dev = origin.device
@@ -107,7 +119,9 @@ def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, leafw, any_hit,
     ipops = torch.zeros((num,), dtype=torch.int32, device=dev)
     lpops = torch.zeros((num,), dtype=torch.int32, device=dev)
     stack = torch.zeros((num, stack_cap), dtype=torch.int32, device=dev)
-    sp = torch.ones((num,), dtype=torch.int64, device=dev)  # root tag 0 at slot 0
+    if start is not None:
+        stack[:, 0] = start
+    sp = torch.ones((num,), dtype=torch.int64, device=dev)  # the start tag (root: 0) at slot 0
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     slots = torch.arange(leafw, device=dev)
     enc0 = (slots * 2)[None, :]
@@ -201,12 +215,13 @@ def _plain_chunk(inner, pairs, origin, direction, tmin, tmax, leafw, any_hit,
 
 
 def trace_split_plain(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
-                      any_hit: bool, stack_cap: int, visited=None):
+                      any_hit: bool, stack_cap: int, start=None, visited=None):
     """K1's plain PyTorch version: the kernel's per-ray algorithm,
-    vectorised over rays. Each iteration pops one tag per live ray, runs the
-    slab test on rays at inner rows and Möller-Trumbore on rays at leaf
-    windows, with explicit [R, stack_cap] stacks. Rays run in chunks of
-    ``_PLAIN_CHUNK`` to bound memory.
+    vectorised over rays. Each ray's stack starts with its tag in ``start``
+    ([R] int32; None: the root, tag 0). Each iteration pops one tag per live
+    ray, runs the slab test on rays at inner rows and Möller-Trumbore on
+    rays at leaf windows, with explicit [R, stack_cap] stacks. Rays run in
+    chunks of ``_PLAIN_CHUNK`` to bound memory.
 
     Returns (t f32 [R], tri i32 [R] (-1 = miss), inner_pops i32 [R],
     leaf_pops i32 [R], overflow i32 [1]). With ``visited`` (a dict), also
@@ -226,20 +241,22 @@ def trace_split_plain(inner, pairs, origin, direction, tmin, tmax, *, leafw: int
     for s in range(0, num, _PLAIN_CHUNK):
         e = min(s + _PLAIN_CHUNK, num)
         _plain_chunk(inner, pairs, origin[s:e], direction[s:e], tmin[s:e], tmax[s:e],
-                     leafw, any_hit, stack_cap,
+                     None if start is None else start[s:e], leafw, any_hit, stack_cap,
                      (t[s:e], tri[s:e], ipops[s:e], lpops[s:e], overflow), visited)
     return t, tri, ipops, lpops, overflow
 
 
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw: int,
-                    stack_cap: int) -> None:
+                    stack_cap: int, start=None) -> None:
     dev = origin.device
     specs = [("inner", inner, torch.int32, 3), ("pairs", pairs, torch.int32, 2),
              ("origin", origin, torch.float32, 2), ("direction", direction, torch.float32, 2),
              ("tmin", tmin, torch.float32, 1), ("tmax", tmax, torch.float32, 1)]
+    if start is not None:
+        specs.append(("start", start, torch.int32, 1))
     for name, x, dtype, ndim in specs:
         if x.device != dev or x.dtype != dtype or x.dim() != ndim or not x.is_contiguous():
             raise ValueError(
@@ -252,7 +269,7 @@ def _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw: int,
         raise ValueError(f"split_traverse: the kernel takes inner [ICAP, 8, 8] and pairs "
                          f"[P_pad, 16], got {tuple(inner.shape)}, {tuple(pairs.shape)}")
     if direction.shape != (num, 3) or origin.shape != (num, 3) or tmin.shape != (num,) \
-            or tmax.shape != (num,):
+            or tmax.shape != (num,) or (start is not None and start.shape != (num,)):
         raise ValueError("split_traverse: ray arrays disagree in shape")
     if not 0 < stack_cap <= 256:
         raise ValueError(f"split_traverse: stack_cap {stack_cap} outside (0, 256]")
@@ -261,13 +278,14 @@ def _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw: int,
 
 
 def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
-                   any_hit: bool, stack_cap: int):
+                   any_hit: bool, stack_cap: int, start=None):
     """K1: traverse a split BVH for every ray (see the module docstring).
 
     inner [ICAP, 8, 8] i32 (8-wide rows only), pairs [P_pad, 16] i32 with P_pad >= every window
     end, origin/direction [R, 3] f32 (direction already sanitised), tmin/
-    tmax [R] f32; the kernel takes windows of 1 <= leafw <= MAX_LEAFW
-    pairs. Returns (t, tri, inner_pops, leaf_pops, overflow [1]).
+    tmax [R] f32, start [R] i32 start tags or None (the root); the kernel
+    takes windows of 1 <= leafw <= MAX_LEAFW pairs. Returns (t, tri,
+    inner_pops, leaf_pops, overflow [1]).
 
     CPU tensors run ``trace_split_plain``; CUDA tensors launch the kernel
     or raise.
@@ -275,10 +293,10 @@ def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
     global launch_count
     if origin.device.type == "cpu":
         return trace_split_plain(inner, pairs, origin, direction, tmin, tmax,
-                                 leafw=leafw, any_hit=any_hit, stack_cap=stack_cap)
+                                 leafw=leafw, any_hit=any_hit, stack_cap=stack_cap, start=start)
     if origin.device.type != "cuda":
         raise ValueError(f"split_traverse: unsupported device {origin.device}")
-    _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw, stack_cap)
+    _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw, stack_cap, start)
     lib = _cuda_build.load_library("split_trace")
     fn = lib.split_trace_launch
     fn.argtypes = _ARGTYPES
@@ -296,6 +314,7 @@ def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
     err = fn(inner.data_ptr(), pairs.data_ptr(), origin.data_ptr(), direction.data_ptr(),
              tmin.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
              ipops.data_ptr(), lpops.data_ptr(), overflow.data_ptr(),
+             None if start is None else start.data_ptr(),
              num, inner.shape[1], leafw, int(any_hit), stack_cap, stream)
     if err != 0:
         raise RuntimeError(f"split_trace kernel launch failed: cudaError {err}")
@@ -310,10 +329,13 @@ def check_overflow(overflow: torch.Tensor) -> None:
         raise RuntimeError(
             "traversal stack overflow: a split-BVH ray needed more than the stack "
             "bound its views carry (bvh/bucket.py:stack_cap, "
-            "bvh/split_convert.py:sah_stack_cap), a scalar or fat wide-BVH ray more "
-            "than its stack (trace/traverse.py, ops/fat_traverse.py), and was stopped, or "
-            "a lane ray was still unfinished after its recovery rounds "
-            "(trace/lane_trace.py)")
+            "bvh/split_convert.py:sah_stack_cap), a scalar, packet or fat wide-BVH ray more "
+            "than its stack (trace/traverse.py, trace/packet.py, trace/wide_packet.py, "
+            "ops/fat_traverse.py), and was stopped, or a lane ray was still unfinished "
+            "after its recovery rounds (trace/lane_trace.py); or a static capacity was "
+            "too small: the binned tracer's items (trace/binned.py, cap_factor), the BFS "
+            "tracer's visits or levels (trace/wavefront_bfs.py) or the instanced grid's "
+            "work list (trace/grid_instanced.py, work_factor)")
 
 
 def kernel_operands(rays: Rays, active=None):
@@ -339,28 +361,33 @@ KERNEL_V = 3
 
 def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
                      any_hit: bool = False, kernel_v: int = KERNEL_V, packet_tags=None,
-                     raw: bool = False):
+                     raw: bool = False, k: int = K):
     """Trace against a SplitBVH: ``views`` (inner, pairs, stack bound) from
     bucket.emit_split_views or split_convert.sah_split_views, with
     ``leaf_width=LEAFW``. See ``kernel_operands`` for dead rays and
     direction sanitising. Any-hit records carry ``rays.tmax`` as
     t. ``kernel_v`` names the reference kernel (see the module docstring).
-    Returns (HitRecord, TraceStats); with ``raw`` (``kernel_v >= 3``),
-    ((t, tri), TraceStats): K1's winning t and encoded triangle per ray
-    (tri -1 for none), before the reconstruction, as
+    ``packet_tags`` ([R / k] int32, ``kernel_v >= 3``) starts each packet of
+    ``k`` consecutive rays at its tag; the ray count must then be a multiple
+    of ``k``. Returns (HitRecord, TraceStats); with ``raw`` (``kernel_v >=
+    3``), ((t, tri), TraceStats): K1's winning t and encoded triangle per
+    ray (tri -1 for none), before the reconstruction, as
     ``split_pallas.py:1746-1749`` returns them.
     """
     if kernel_v < 3 and (packet_tags is not None or raw):
         raise ValueError("packet_tags/raw need the v3 kernel (kernel_v >= 3)")
-    if packet_tags is not None:
-        raise NotImplementedError("packet_tags (per-packet start rows, the input of "
-                                  "trace/binned.py) is not yet ported: it comes with "
-                                  "trace/binned.py in the next slice")
     inner, pairs, stack_cap = views
     w = inner.shape[1]
+    start = None
+    if packet_tags is not None:
+        num = rays.origin.shape[0]
+        if num % k or packet_tags.shape != (num // k,):
+            raise ValueError(f"packet_tags: {tuple(packet_tags.shape)} tags for {num} rays "
+                             f"in packets of {k}")
+        start = packet_tags.to(torch.int32).repeat_interleave(k)
     t, tri, ipops, lpops, overflow = split_traverse(
         inner, pairs, *kernel_operands(rays, active), leafw=LEAFW, any_hit=any_hit,
-        stack_cap=stack_cap)
+        stack_cap=stack_cap, start=start)
     if any_hit:
         t = rays.tmax
     if kernel_v < 3:
@@ -382,25 +409,86 @@ def _map(fn, obj):
         if isinstance(getattr(obj, f.name), torch.Tensor) and f.name != "overflow"})
 
 
+# Morton bits below the cell of the "cell_octant" key (the reference's
+# default cell_shift, the only value its callers pass)
+CELL_SHIFT = 9
+
+
+def sort_keys(rays: Rays, active=None, sort_mode: str = "origin") -> torch.Tensor:
+    """The sort key of ``make_split_tracer``'s ``"origin"`` and
+    ``"cell_octant"`` modes (``split_pallas.py:1928-1946``), int64 [R]:
+    the 30-bit Morton code of each origin in the origins' bounding box,
+    shifted right by 2 (``"origin"``), or by ``CELL_SHIFT`` above the
+    direction octant (``"cell_octant"``); dead rays (``active`` False)
+    get bit 28, so they sort last."""
+    o = rays.origin
+    lo = o.amin(dim=0)
+    hi = o.amax(dim=0)
+    cell = morton3d((o - lo) / torch.clamp(hi - lo, min=1e-20))
+    if sort_mode == "cell_octant":
+        d = rays.direction
+        octant = ((d[:, 0] > 0).to(torch.int64) | ((d[:, 1] > 0).to(torch.int64) << 1)
+                  | ((d[:, 2] > 0).to(torch.int64) << 2))
+        key = ((cell >> CELL_SHIFT) << 3) | octant
+    elif sort_mode == "origin":
+        key = cell >> 2
+    else:
+        raise ValueError(f"no sort key for sort_mode {sort_mode!r}")
+    if active is not None:
+        key = key | ((~active).to(torch.int64) << 28)
+    return key
+
+
+_SORT_MODES = (None, "presorted", "binned", "origin", "cell_octant")
+
+
 def make_split_tracer(width: int, height: int, any_hit: bool = False,
-                      sort_mode: str = None, kernel_v: int = KERNEL_V):
+                      sort_mode: str = None, kernel_v: int = KERNEL_V,
+                      sort_origin: bool = False):
     """Tracer ``(views, packed, rays, active=None) -> (HitRecord,
     TraceStats)`` over 16 x (K/16) screen tiles.
 
     sort_mode None tile-orders a row-major frame (edge-padded to the tile
     grid, pad rays dead, then cropped back); ``"presorted"`` feeds rays in
-    the caller's order. The reference's other sort modes wait. With
-    ``kernel_v < 3`` the statistics are v2's (the module docstring), which
-    a tile order does not permute.
+    the caller's order; ``"binned"`` feeds them in the caller's order to
+    ``trace/binned.py:trace_rays_binned`` with packets of K items.
+    ``"origin"`` and ``"cell_octant"`` sort the rays by ``sort_keys`` with a
+    stable sort, trace them and restore the caller's order: the whole
+    record and the statistics for a closest-hit tracer, only ``.hit`` for
+    an any-hit tracer (its record's other fields and its statistics stay in
+    the sorted order, as the reference's). ``sort_origin`` with sort_mode
+    None sorts as ``"origin"`` and restores only ``.hit``, for any-hit
+    consumers. With ``kernel_v < 3`` the statistics are v2's (the module
+    docstring), which a tile order does not permute.
     """
-    if sort_mode not in (None, "presorted"):
-        raise NotImplementedError(f"split tracer sort_mode {sort_mode!r} is not yet ported")
+    if sort_mode not in _SORT_MODES:
+        raise ValueError(f"unknown split tracer sort_mode {sort_mode!r}; choose from "
+                         f"{_SORT_MODES}")
     tw, th = 16, K // 16
+
+    def sorted_trace(views, packed, rays, active, key_mode, hit_only):
+        perm = torch.argsort(sort_keys(rays, active, key_mode), stable=True)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+        srt = rays.take(perm)
+        act = None if active is None else active[perm]
+        rec, stats = trace_rays_split(views, packed, srt, active=act, any_hit=any_hit,
+                                      kernel_v=kernel_v)
+        if hit_only:
+            return dataclasses.replace(rec, hit=rec.hit[inv]), stats
+        return _map(lambda a: a[inv], rec), _map(lambda a: a[inv], stats)
 
     def tracer(views, packed, rays, active=None):
         if sort_mode == "presorted":
             return trace_rays_split(views, packed, rays, active=active, any_hit=any_hit,
                                     kernel_v=kernel_v)
+        if sort_mode == "binned":
+            from tpu_raytracing_torch.trace.binned import trace_rays_binned
+            return trace_rays_binned(views, packed, rays, active=active, any_hit=any_hit)
+        if sort_mode is not None:
+            return sorted_trace(views, packed, rays, active, sort_mode, any_hit)
+        if sort_origin:
+            return sorted_trace(views, packed, rays, active, "origin", True)
         dev = rays.origin.device
         pw = -(-width // tw) * tw
         ph = -(-height // th) * th
