@@ -7,6 +7,8 @@
     python3 chip_smoke.py --animate-only   # phases 1, 2 and 14
     python3 chip_smoke.py --tracers-only   # phases 1, 2 and 15
     python3 chip_smoke.py --modes-only     # phases 1, 2 and 16
+    python3 chip_smoke.py --builds-only    # phases 1, 2 and 17
+    python3 chip_smoke.py --multi-only     # phases 1, 2 and 18
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
@@ -226,6 +228,44 @@ exits non-zero if any phase fails:
    Möller-Trumbore rounds as the reference's XLA code, K6's as its plain
    version). K1's launch count is set to 0 before the
    binned frames and read after; its launches go into the ``kernels`` line.
+17. The remaining builds (``--builds-only`` runs phases 1, 2 and 17, and
+   first renders phase 3's frame and builds phase 8's Karras rows itself),
+   on phase 3's scene with pairs: the 16-wide bucket tree
+   (``emit_split_views(inner_width=16)``, timed; its rows, levels and stack
+   bound against what the tree needs), the bench frame on it with K1's
+   16-wide instantiation on all four passes (K1's launch count set to 0
+   before the frame and read after; 40 dB or more from phase 3's frame),
+   each pass timed by CUDA events with its bound and pops per live ray
+   against the 8-wide tree's on the same rays, K1 bit-equal to plain on
+   every ray of the bounce pass and on 65,536 sampled live rays of the
+   others, brute force on 4,096 primary and bounce rays;
+   ``build_bucket_split_v1`` at widths 8 and 16, timed and bit-equal to
+   ``build_bucket_split``; ``build_bucket_fat`` and
+   ``build_implicit_wide_fat``, timed, their live rows and levels, the frame
+   on each with K6 on every pass (40 dB or more from phase 3's), each pass
+   timed against phase 8's Karras rows on the same rays, with its bound and
+   box tests per live ray against the Karras rows' (the counting
+   instantiation); on the bucket fat tree K6 is held to plain on 65,536
+   sampled live rays a pass, with pops per live ray against the Karras
+   rows'; the implicit tree's padding-subtree walk makes a plain pass
+   minutes long at 1M, so K6 meets plain on every primary ray of a 128²
+   frame over ``terrain(IMPLICIT_CHECK_TRIS)``'s implicit tree; ``with_trips=True`` on phase 8's rows at
+   1024² in 8x8 packets (``benchmarks/profile_trips.py``'s statistics and
+   the loop's ms); ``segmented_scan`` on the card against the CPU.
+18. The multi-device renderers (``--multi-only`` runs phases 1, 2 and 18
+   on its own copies of phase 3's inputs): a world of 1 on NCCL runs the
+   split ``path_trace_sharded`` at 1024², 1 bounce (timed after a warm
+   call), ``render_frame_sharded_split`` lit at 1024²,
+   ``trace_instanced_split_sharded`` on config 4, the megakernel
+   ``render_frame_sharded`` lit at ``MULTI_MEGA_RES``² on phase 8's Karras
+   tree and the grid ``path_trace_sharded`` at ``MULTI_GRID_RES``² (both
+   host-loop tracers), each held to its single-device function (bit-equal,
+   the path traces 40 dB or more); then two processes of this script
+   (``--multi-rank``) form a world of 2 on the one card over gloo (NCCL
+   refuses two ranks on one device; the collectives take host copies) and
+   must return the world of 1's results bit for bit, the instanced
+   guard aside (a band maximum). K1's launch count is set to 0 before the
+   phase and read after; its launches go into K1's ``kernels`` entry.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
@@ -276,6 +316,7 @@ from tpu_raytracing_torch.bvh import (  # noqa: E402
     bucket,
     grid,
     hybrid,
+    implicit,
     lbvh,
     split_convert,
     tlas,
@@ -285,6 +326,7 @@ from tpu_raytracing_torch.bvh import (  # noqa: E402
 from tpu_raytracing_torch.bvh.types import CHILD_TRI  # noqa: E402
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
 from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
+from tpu_raytracing_torch.ops.scan import segmented_scan  # noqa: E402
 from tpu_raytracing_torch.scene import camera as cam  # noqa: E402
 from tpu_raytracing_torch.scene import genasset, native_loader, objio, procedural  # noqa: E402
 from tpu_raytracing_torch.scene.types import scene_to_device  # noqa: E402
@@ -405,6 +447,14 @@ INST_BRUTE_RAYS = 1024
 # an H100 (PERF.md), so phase 16 passes these.
 BFS_CAP_FACTOR = 6.0
 BFS_LEAF_FACTOR = 6.0
+# Phase 18: the megakernel and grid legs' frame sides (their tracers are
+# PyTorch host loops), and the time a rank of the world of 2 may take.
+MULTI_MEGA_RES = 128
+MULTI_GRID_RES = 256
+MULTI_WORKER_S = 400
+# Phase 17: the terrain whose implicit tree K6 is held to plain on (the 1M
+# tree's padding-subtree walk makes a plain pass minutes long), at RES/8².
+IMPLICIT_CHECK_TRIS = 64_000
 INTERACTIVE_W, INTERACTIVE_H = 256, 192
 INTERACTIVE_FIRST_S = 180.0
 INTERACTIVE_READ_S = 30.0
@@ -684,16 +734,20 @@ def fixture_rays(scene, device, rng) -> dict:
             "random": (rays(rand_o, rand_d), None), "half-dead": (primary, half_dead)}
 
 
+def sample_idx(live: torch.Tensor, size: int = SLICE) -> torch.Tensor:
+    """Up to ``size`` live positions, evenly spaced over the live ones."""
+    idx = torch.nonzero(live).reshape(-1)
+    if idx.shape[0] <= size:
+        return idx
+    return idx[torch.linspace(0, idx.shape[0] - 1, size, device=idx.device).round().long()]
+
+
 def live_sample(rays: Rays, active, size: int = SLICE):
     """Up to ``size`` live rays of a pass, evenly spaced over the live ones
     in the pass's own order; returns (rays, number of live rays)."""
-    num = rays.origin.shape[0]
-    live = (torch.arange(num, device=rays.origin.device) if active is None
-            else torch.nonzero(active).reshape(-1))
-    n_live = live.shape[0]
-    pick = live if n_live <= size else live[
-        torch.linspace(0, n_live - 1, size, device=live.device).round().long()]
-    return rays.take(pick), n_live
+    if active is None:
+        active = torch.ones(rays.origin.shape[0], dtype=torch.bool, device=rays.origin.device)
+    return rays.take(sample_idx(active, size)), int(active.sum())
 
 
 def event_ms(fn, reps, warm: bool = True):
@@ -3177,6 +3231,626 @@ def modes_phase(device, card: str, scene=None, dev_scene=None, camera=None, tria
     return out
 
 
+# --- phase 17: the remaining builds (16-wide rows, bucket fat and v1, the
+# implicit heap, packet trip counts, segmented scan) ---
+
+
+def split_depth(inner: torch.Tensor) -> int:
+    """Inner-row levels of a split tree: a walk from row 0 down Box entries."""
+    rows, depth = torch.zeros(1, dtype=torch.int64, device=inner.device), 0
+    while rows.numel():
+        depth += 1
+        meta = inner[rows][..., 6]
+        child = meta[(meta & 3) == 1] >> 5
+        rows = torch.unique(child.to(torch.int64))
+    return depth
+
+
+def fat_depth(rows: torch.Tensor) -> int:
+    """Row levels of a fat wide tree: a walk from row 0 down Box entries."""
+    cur, depth = torch.zeros(1, dtype=torch.int64, device=rows.device), 0
+    while cur.numel():
+        depth += 1
+        meta = rows[cur][:, 6:64:8]
+        cur = torch.unique((meta[(meta & 3) == 1] >> 5).to(torch.int64))
+    return depth
+
+
+def k1_wide_pass(label: str, views, ops, any_hit: bool, card: str, views8, live_rows: int,
+                 whole: bool) -> dict:
+    """K1 on one pass of the 16-wide frame as its tracer launched it:
+    CUDA-event ms (mean of 5 after a warm launch), bit-equal to the plain
+    version on 65,536 sampled live rays (``whole``: on every ray, timing
+    the plain version and marking the rows it visits), pops per live ray
+    against the 8-wide tree's on the same rays. The bound counts K1's own
+    per-ray pops (equal to the plain version's where checked); its bytes
+    take every row the plain version visited (``whole``), else every live
+    row of the tree once (``live_rows`` inner rows and their windows)."""
+    inner, pairs, stack_cap = views
+    w = inner.shape[1]
+    kw = dict(leafw=split_trace.LEAFW, stack_cap=stack_cap, any_hit=any_hit)
+    ms, kout = event_ms(lambda: split_trace.split_traverse(inner, pairs, *ops, **kw), 5)
+    num = ops[0].shape[0]
+    live = ops[3] > ops[2]
+    plain_ms = None
+    if whole:
+        visited = {}
+        t0 = time.perf_counter()
+        pout = split_trace.trace_split_plain(inner, pairs, *ops, **kw, visited=visited)
+        plain_ms = sync_ms(t0)
+        bad = k1_mismatches(kout, pout)
+        checked = num
+        n_rows = int(visited["inner"].sum()) * w * 32 + int(visited["pairs"].sum()) * 64
+    else:
+        pick = sample_idx(live)
+        pout = split_trace.trace_split_plain(inner, pairs, *(o[pick] for o in ops), **kw)
+        bad = k1_mismatches(tuple(k[pick] for k in kout[:4]) + (kout[4],), pout)
+        checked = pick.shape[0]
+        n_rows = live_rows * w * 32 + int(pairs.shape[0]) * 64
+    require(sum(bad.values()) == 0 and int(kout[4]) == 0,
+            f"{label}: 16-wide K1 and plain disagree ({bad}) or overflow {int(kout[4])}")
+    n_ops = (float(kout[2].sum()) * w * SLAB_OPS
+             + float(kout[3].sum()) * 2 * split_trace.LEAFW * MT_OPS)
+    b = bound(n_ops, num * 48 + n_rows)
+    i8, p8, s8 = views8
+    ms8, k8 = event_ms(lambda: split_trace.split_traverse(
+        i8, p8, *ops, leafw=split_trace.LEAFW, stack_cap=s8, any_hit=any_hit), 5)
+    pops = [float(x[live].float().mean()) for x in (kout[2], kout[3], k8[2], k8[3])]
+    print(f"  {label}: {num} rays ({int(live.sum())} live), any_hit={int(any_hit)}: 16-wide K1 "
+          f"{ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}); pops per live ray inner "
+          f"{pops[0]!r} leaf {pops[1]!r} against the 8-wide tree's {pops[2]!r} / {pops[3]!r} "
+          f"({ms8!r} ms on the same rays); bit-equal to plain on {checked} rays"
+          + (f" ({plain_ms!r} ms)" if plain_ms is not None else "") + f"  [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, ms8=ms8, inner_pops=pops[0], leaf_pops=pops[1],
+                max_abs_err=float((kout[0][:pout[0].shape[0]] - pout[0]).abs().max())
+                if whole else float((kout[0][pick] - pout[0]).abs().max()), **b)
+
+
+def wide16_tree(device, card: str, front, dev_scene, camera, triangles, views8, pair_loc,
+                split_img) -> dict:
+    """Phase 17 (a): the 16-wide bucket tree at 1M and the bench frame on
+    it, K1's 16-wide instantiation on all four passes."""
+    def build():
+        return bucket.emit_split_views(front, leaf_width=split_trace.LEAFW, inner_width=16)
+
+    views, packed, split = build()
+    bucket.check_split_capacity(split, triangles.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        build()
+    build_ms = sync_ms(t0) / ITERS
+    depth = split_depth(views[0])
+    need = 15 * depth + 1  # w - 1 siblings left a level, w pushed by the deepest row
+    print(f"  16-wide emit_split_views: {build_ms!r} ms  [{card}]; {int(split.num_inner)} inner "
+          f"rows (8-wide: {int((views8[0][..., 6] != 0).any(dim=1).sum())} non-empty), "
+          f"{depth} levels, stack bound {views[2]} (the tree needs at most {need}; K1 holds "
+          f"256)")
+    require(need <= views[2] <= 256, f"16-wide stack bound {views[2]} against need {need}")
+
+    tracers = split_trace.make_frame_tracers(RES, RES)
+    captured = {k: Capture(v) for k, v in tracers.items()}
+    frame = frame_fn(views, packed, dev_scene, camera, device, **captured)
+    split_trace.launch_count = 0
+    t0 = time.perf_counter()
+    img, rays_traced = frame(ITERS, ITERS * 1e-4, pair_loc=pair_loc)  # phase 3's last frame
+    frame_ms = sync_ms(t0)
+    launches = split_trace.launch_count
+    require(launches >= 4, f"the 16-wide frame launched K1 {launches} times (< 4)")
+    require(bool(torch.isfinite(img).all()), "16-wide frame has non-finite pixels")
+    db = frame_psnr(img, split_img)
+    print(f"  16-wide frame: {RES}x{RES}, {BOUNCES} bounce, tid sort: {frame_ms!r} ms (one "
+          f"frame, host clock), {int(rays_traced)} rays, {db!r} dB from phase 3's frame, K1 "
+          f"launches {launches}  [{card}]")
+    require(db >= MIN_PSNR, f"16-wide frame {db:.2f} dB from phase 3's (< {MIN_PSNR})")
+    live_rows = int(split.num_inner)
+    passes = {}
+    for (key, any_hit), name in zip(FRAME_TRACERS, PASSES):
+        ops, _ = pass_operands(key, captured[key])
+        passes[name] = k1_wide_pass(f"1M 16-wide {name} pass", views, ops, any_hit, card,
+                                    views8, live_rows, whole=name == "bounce")
+    print(f"  16-wide K1 on the four passes: {sum(r['ms'] for r in passes.values())!r} ms a "
+          f"frame, the 8-wide tree on the same rays {sum(r['ms8'] for r in passes.values())!r}"
+          f"  [{card}]")
+    for key, label in (("tracer", "primary"), ("bounce_tracer", "bounce")):
+        cap = captured[key]
+        rays, n_live = live_sample(cap.rays, cap.active, BRUTE_RAYS)
+        brute_check(label, views, packed, rays, triangles, tree="16-wide bucket tree")
+    return dict(launches=launches, build_ms=build_ms, frame_ms=frame_ms, psnr_db=db,
+                **passes["bounce"])
+
+
+def wide16_tie_check(device) -> None:
+    """Phase 17 (a): 16-wide K1 on an exact distance tie. Row 0 holds Tri
+    entries 7 and 15 with one box over 16-pair windows of one triangle, so
+    the higher id (15) pops first: an any-hit ray ends in its window (tri
+    2 * 16 + 30) and a closest-hit ray takes entry 7's, popped last, on the
+    t tie (tri 30). K1 equal to plain and to those ids on 128 rays."""
+    empty = torch.cat([f2i(torch.tensor([F32_MAX] * 3 + [-F32_MAX] * 3)),
+                       torch.zeros(2, dtype=torch.int32)])
+    inner = empty.repeat(8, 16, 1)
+    box = f2i(torch.tensor([-1.0, -1.0, -0.5, 1.0, 1.0, 0.5]))
+    for e, first in ((7, 0), (15, 16)):
+        inner[0, e] = torch.cat([box, torch.tensor([(first << 5) | 2, 0], dtype=torch.int32)])
+    tri = torch.tensor([-1.0, -1.0, 0.0, 1.0, -1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0])
+    pairs = torch.cat([f2i(tri), torch.zeros(4, dtype=torch.int32)]).repeat(32, 1)
+    gen = torch.Generator().manual_seed(3)
+    xy = torch.rand((128, 2), generator=gen) * 0.6 - 0.3
+    ops = (torch.cat([xy, torch.full((128, 1), -2.0)], dim=1),
+           torch.tensor([0.0, 0.0, 1.0]).repeat(128, 1), torch.zeros(128),
+           torch.full((128,), 10.0))
+    for any_hit, want in ((False, 30), (True, 2 * 16 + 30)):
+        kw = dict(leafw=16, stack_cap=64, any_hit=any_hit)
+        kout = split_trace.split_traverse(inner.to(device), pairs.to(device),
+                                          *(o.to(device) for o in ops), **kw)
+        pout = split_trace.trace_split_plain(inner, pairs, *ops, **kw)
+        bad = k1_mismatches(tuple(k.cpu() for k in kout), pout)
+        require(sum(bad.values()) == 0 and bool((kout[1] == want).all()),
+                f"16-wide K1 on the entry-id tie, any_hit={int(any_hit)}: {bad}, tri "
+                f"{sorted(set(kout[1].tolist()))} (want {want})")
+    print("  16-wide K1 on an exact entry-distance tie: the higher id pops first, equal to "
+          "plain (closest-hit and any-hit)")
+
+
+def v1_builds(card: str, triangles) -> None:
+    """Phase 17 (b): ``build_bucket_split_v1`` at widths 8 and 16, timed,
+    and equal to ``build_bucket_split`` bit for bit."""
+    for w in (8, 16):
+        def build():
+            return bucket.build_bucket_split_v1(triangles, True, split_trace.LEAFW, w)
+        v1, packed = build()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            build()
+        ms = sync_ms(t0) / ITERS
+        split, spacked = bucket.build_bucket_split(triangles, True, split_trace.LEAFW, w)
+        same = {f: bool(torch.equal(getattr(v1, f), getattr(split, f)))
+                for f in ("inner", "num_inner", "num_leaves")}
+        same["pairs"] = bool(torch.equal(packed.rows, spacked.rows))
+        print(f"  build_bucket_split_v1 width {w}: {ms!r} ms  [{card}]; {int(v1.num_inner)} "
+              f"inner rows; equal to build_bucket_split: {same}")
+        require(all(same.values()), f"v1 width {w} differs from build_bucket_split: {same}")
+
+
+def k6_sample_pass(label: str, rows256, call, card: str, karras256, live_rows: int,
+                   sample: int) -> dict:
+    """K6 on one pass of a fat-tree frame as the tiled tracer launched it:
+    CUDA-event ms (mean of 5 after a warm launch); the counting
+    instantiation's box and triangle-entry tests over every ray, for the
+    bound (bytes: rays in and out, each live row once) and for box tests
+    per live ray against phase 8's Karras rows on the same rays; then, on
+    ``sample`` sampled live rays (0: none), K6 bit-equal to the plain
+    version and the plain version's pops per live ray on both trees."""
+    ops, live = fat_pass_operands(call)
+    num, n_live = ops[0].shape[0], int(live.sum())
+    ms, kout = event_ms(lambda: fat_traverse.fat_traverse(rows256, *ops), 5)
+    karras_ms, _ = event_ms(lambda: fat_traverse.fat_traverse(karras256, *ops), 5)
+    require(int(kout[6]) == 0, f"{label}: a K6 stack overflowed")
+    kc = fat_traverse.fat_traverse(rows256, *ops, count=True)
+    kk = fat_traverse.fat_traverse(karras256, *ops, count=True)
+    require(torch.equal(kc[0], kout[0]), f"{label}: the counting instantiation's hits differ")
+    n_ops = float(kc[7].sum()) * SLAB_OPS + float(kc[8].sum()) * MT_OPS
+    b = bound(n_ops, num * (32 + 24) + live_rows * 256)
+    box, kbox = (float(x[7][live].float().mean()) for x in (kc, kk))
+    line = (f"  {label}: {num} rays ({n_live} live): K6 {ms!r} ms (the Karras tree on the "
+            f"same rays {karras_ms!r}), bound {b['bound_ms']!r} ms ({b['bound_by']}); box tests "
+            f"per live ray {box!r} against the Karras tree's {kbox!r} ({box / kbox:.2f}x)")
+    pops = None
+    if sample:
+        pick = sample_idx(live, sample)
+        sub = tuple(o[pick] for o in ops)
+        counts, kcounts = {}, {}
+        t0 = time.perf_counter()
+        pout = fat_traverse.trace_fat_plain(rows256, *sub, counts=counts)
+        plain_ms = sync_ms(t0)
+        bad = fat_mismatches(tuple(k[pick] for k in kout[:6]) + (kout[6],), pout)
+        require(sum(bad) == 0, f"{label}: K6 and plain disagree on {bad}")
+        fat_traverse.trace_fat_plain(karras256, *sub, counts=kcounts)
+        pops = float(counts["pops"].float().mean())
+        kpops = float(kcounts["pops"].float().mean())
+        line += (f"; on {pick.shape[0]} sampled live rays: pops {pops!r} against the Karras "
+                 f"tree's {kpops!r} ({pops / kpops:.2f}x), K6 bit-equal to plain ({plain_ms!r} "
+                 f"ms)")
+    print(line + f"  [{card}]")
+    return dict(ms=ms, karras_ms=karras_ms, box_per_ray=box, karras_box_per_ray=kbox, pops=pops,
+                **b)
+
+
+def fat_tree_frame(label: str, device, card: str, fat, packed, dev_scene, camera,
+                   split_img, karras256, samples) -> dict:
+    """Phase 17 (c): the bench frame on a fat tree with K6 on every pass
+    (``make_fat_tracer``, the ``leaf`` sort, phase 3's last seed), and K6
+    on each of its passes (``k6_sample_pass``, with ``samples[i]`` rays of
+    pass i held to plain)."""
+    live_rows = int(fat.num_nodes)
+    rows256 = wide_fat.live_rows256(fat)
+    depth = fat_depth(rows256)
+    recorder = PassRecorder(fat_traverse.make_fat_tracer(None, RES, RES), fat_traverse)
+    frame = frame_fn(rows256, packed, dev_scene, camera, device, tracer=recorder)
+    fat_traverse.launch_count = 0
+    t0 = time.perf_counter()
+    img, rays_traced = frame(ITERS, ITERS * 1e-4, sort_kind="leaf")
+    frame_ms = sync_ms(t0)
+    launches = fat_traverse.launch_count
+    require(len(recorder.calls) == 4 and all(c["launches"] > 0 for c in recorder.calls),
+            f"{label}: a pass launched no K6")
+    require(all(int(c["overflow"].sum()) == 0 for c in recorder.calls),
+            f"{label}: a K6 stack overflowed")
+    require(bool(torch.isfinite(img).all()), f"{label} frame has non-finite pixels")
+    db = frame_psnr(img, split_img)
+    print(f"  {label} frame: {live_rows} live rows, {depth} levels; {frame_ms!r} ms (one frame, "
+          f"host clock), {int(rays_traced)} rays, {db!r} dB from phase 3's frame, K6 launches "
+          f"{launches}  [{card}]")
+    require(db >= MIN_PSNR, f"{label} frame {db:.2f} dB from phase 3's (< {MIN_PSNR})")
+    res = {name: k6_sample_pass(f"1M {label} {name} pass", rows256, call, card, karras256,
+                                live_rows, n)
+           for name, call, n in zip(PASSES, recorder.calls, samples)}
+    print(f"  K6 on the {label} tree's four passes: {sum(r['ms'] for r in res.values())!r} ms a "
+          f"frame  [{card}]")
+    return dict(launches=launches, frame_ms=frame_ms, psnr_db=db, passes=res)
+
+
+def implicit_plain_check(device, card: str) -> None:
+    """Phase 17 (c'): K6 against its plain version, bit for bit, on every
+    ray of a (RES/8)² aerial frame's primary pass over the implicit tree of
+    ``terrain(IMPLICIT_CHECK_TRIS)``, closest-hit, with pops per ray."""
+    scene = procedural.terrain(IMPLICIT_CHECK_TRIS)
+    tris = torch.as_tensor(scene.triangles, device=device)
+    fat, _, _ = implicit.build_implicit_wide_fat(tris)
+    rows256 = wide_fat.live_rows256(fat)
+    side = RES // 8
+    rays = generate_primary_rays(aerial_camera(scene, device), side, side)
+    ops = fat_traverse.kernel_operands(Rays(*(tile_reorder(getattr(rays, f), side, side, 16, 8)
+                                              for f in ("origin", "direction", "tmin", "tmax"))))
+    kout = fat_traverse.fat_traverse(rows256, *ops)
+    counts = {}
+    t0 = time.perf_counter()
+    pout = fat_traverse.trace_fat_plain(rows256, *ops, counts=counts)
+    plain_ms = sync_ms(t0)
+    bad = fat_mismatches(kout, pout)
+    live = pout[0] != 0
+    print(f"  implicit tree of {tris.shape[0]} tris ({int(fat.num_nodes)} rows): K6 against "
+          f"plain on {side}x{side} primary rays: mismatching words {bad}; pops per ray "
+          f"{float(counts['pops'].float().mean())!r} (max {int(counts['pops'].max())}), "
+          f"{int(live.sum())} hits; plain {plain_ms!r} ms  [{card}]")
+    require(sum(bad) == 0 and int(live.sum()) > 0, f"implicit tree: K6 != plain on {bad}")
+
+
+def trips_run(card: str, camera, karras256, num_nodes, packed) -> None:
+    """Phase 17 (d): ``with_trips=True`` on phase 8's fat rows at
+    ``benchmarks/profile_trips.py``'s 1024² in 8x8 packets, primary rays
+    from the aerial camera; prints that script's trip statistics."""
+    rays = generate_primary_rays(camera, RES, RES)
+    tiled = Rays(*(tile_reorder(getattr(rays, f), RES, RES, 8, 8)
+                   for f in ("origin", "direction", "tmin", "tmax")))
+    fat = wide.FatWideBVH(rows=karras256, num_nodes=num_nodes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, stats, trips = wide_fat.trace_rays_wide_fat(fat, packed, tiled, packet_size=64,
+                                                      with_trips=True)
+    loop_ms = sync_ms(t0)
+    k6, _ = wide_fat.trace_rays_wide_fat(fat, packed, tiled, packet_size=64)
+    agree = float((rec.hit == k6.hit).float().mean())
+    ns = trips.cpu().numpy().astype(np.float64)
+    print(f"  with_trips=True, {RES}x{RES} in 8x8 packets ({ns.size} packets): the loop "
+          f"{loop_ms!r} ms (host clock, {int(ns.max())} iterations)  [{card}]")
+    for q in (50, 75, 90, 95, 99, 99.9, 100):
+        print(f"    trip p{q}: {np.percentile(ns, q):.0f}")
+    print(f"    trip mean: {ns.mean():.1f}  sum: {ns.sum():.0f}; lockstep cost (max*P): "
+          f"{ns.max() * ns.size:.0f}, ratio {ns.max() * ns.size / ns.sum():.1f}x; box tests/ray: "
+          f"{float(stats.box_tests.float().mean()):.0f}; hits equal to K6's on {agree:.6f} "
+          f"({int((rec.hit != k6.hit).sum())} rays differ); a push dropped a pending subtree "
+          f"(the overflow flag): {int(stats.overflow)}")
+    require(agree >= BRUTE_AGREE, f"the trips loop and K6 agree on {agree} of the hits")
+
+
+def scan_check(device) -> None:
+    """Phase 17 (e): ``segmented_scan`` on the card equal to the CPU
+    result, bit for bit."""
+    rng = np.random.default_rng(17)
+    v = rng.standard_normal((100_000, 3)).astype(np.float32)
+    v[rng.random(v.shape) < 0.1] = -0.0
+    f = rng.random(100_000) < 0.01
+    bad = []
+    for name, op in (("min", torch.minimum), ("max", torch.maximum), ("add", torch.add)):
+        for rev in (False, True):
+            a = segmented_scan(torch.from_numpy(v), torch.from_numpy(f), op, rev)
+            b = segmented_scan(torch.from_numpy(v).to(device), torch.from_numpy(f).to(device),
+                               op, rev).cpu()
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                bad.append((name, rev))
+    print(f"  segmented_scan on the card against the CPU, 100000 x 3, min/max/add, both "
+          f"directions: mismatching cases {bad}")
+    require(not bad, f"segmented_scan differs on the card: {bad}")
+
+
+def builds_phase(device, card: str, scene=None, dev_scene=None, camera=None, triangles=None,
+                 front=None, views8=None, split_img=None, karras=None) -> dict:
+    """Phase 17: the remaining builds on phase 3's scene. Without phase 3's
+    tree and frame and phase 8's Karras rows (``--builds-only``), builds
+    them here first."""
+    print("phase 17: the 16-wide bucket tree, build_bucket_split_v1, build_bucket_fat, "
+          "build_implicit_wide_fat, with_trips and segmented_scan")
+    t_phase = time.perf_counter()
+    if scene is None:
+        scene = procedural.terrain(NUM_TRIS)
+        dev_scene = scene_to_device(scene, device)
+        camera = aerial_camera(scene, device)
+        triangles = torch.as_tensor(scene.triangles, device=device)
+        front = bucket.split_front(triangles, True)
+        views8, packed8, _ = bucket.emit_split_views(front, leaf_width=split_trace.LEAFW)
+        frame = frame_fn(views8, packed8, dev_scene, camera, device,
+                         **split_trace.make_frame_tracers(RES, RES))
+        split_img, _ = frame(ITERS, ITERS * 1e-4, pair_loc=treelet.build_pair_tid(front))
+        bvh, pairs = lbvh.build_lbvh(triangles, True)
+        kpacked = pack_pairs(pairs)
+        fat = wide.build_wide_fat(bvh, kpacked.rows)
+        karras = dict(rows256=fat_traverse.pad_rows_256(fat.rows), num_nodes=fat.num_nodes,
+                      packed=kpacked)
+        del bvh, pairs, fat
+    pair_loc = treelet.build_pair_tid(front)
+    out = dict(wide16=wide16_tree(device, card, front, dev_scene, camera, triangles, views8,
+                                  pair_loc, split_img))
+    wide16_tie_check(device)
+    print(f"  phase 17 (a): {time.perf_counter() - t_phase:.2f} s")
+    v1_builds(card, triangles)
+    fats = {}
+    # On the 1M implicit tree a ray that enters a node straddling the live
+    # and padding leaves walks its padding subtrees (their inverted boxes
+    # pass the slab test): thousands of pops, and the plain version pays
+    # ~800 launches a pop. So K6 meets plain on that tree at a smaller size
+    # (implicit_plain_check), and here only the counts and times.
+    for label, fn, samples in (
+            ("bucket fat", lambda: bucket.build_bucket_fat(triangles, True), (SLICE,) * 4),
+            ("implicit", lambda: implicit.build_implicit_wide_fat(triangles), (0,) * 4)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            res = fn()
+        ms = sync_ms(t0) / ITERS
+        fat, pk = res[0], res[1]
+        packed = pk if isinstance(pk, PackedPairs) else pack_pairs(pk)
+        print(f"  {label} build: {ms!r} ms  [{card}]; rows {tuple(fat.rows.shape)}")
+        fats[label] = dict(build_ms=ms, **fat_tree_frame(
+            label, device, card, fat, packed, dev_scene, camera, split_img, karras["rows256"],
+            samples))
+        del res, fat, pk, packed
+        print(f"  phase 17, {label}: {time.perf_counter() - t_phase:.2f} s")
+    out["fats"] = fats
+    # the frames' launches (the main path); the pass timings launch K6 too
+    out["k6_launches"] = sum(f["launches"] for f in fats.values())
+    require(out["k6_launches"] >= 8, f"the fat frames launched K6 {out['k6_launches']} times")
+    implicit_plain_check(device, card)
+    trips_run(card, camera, karras["rows256"], karras["num_nodes"], karras["packed"])
+    scan_check(device)
+    print(f"  phase 17: {time.perf_counter() - t_phase:.2f} s, 16-wide K1 launches "
+          f"{out['wide16']['launches']}, K6 launches {out['k6_launches']}")
+    return out
+
+
+# --- phase 18: the multi-device renderers on torch.distributed ---
+
+
+def multi_inputs(device, scene=None, dev_scene=None, camera=None, triangles=None, views=None,
+                 packed=None) -> dict:
+    """Phase 18's replicated inputs: phase 3's scene, camera and bucket
+    tree (built here when not given), phase 8's Karras tree for the
+    megakernel leg, the grid over phase 3's pair rows, config 4."""
+    if scene is None:
+        scene = procedural.terrain(NUM_TRIS)
+        dev_scene = scene_to_device(scene, device)
+        camera = aerial_camera(scene, device)
+        triangles = torch.as_tensor(scene.triangles, device=device)
+        views, packed, _ = bucket.emit_split_views(bucket.split_front(triangles, True),
+                                                   leaf_width=split_trace.LEAFW)
+    bvh, pairs = lbvh.build_lbvh(triangles, True)
+    c4 = config4(device)
+    ias = instanced_split.build_instanced_split(c4["views"], c4["packed_s"], c4["blas_lo"],
+                                                c4["blas_hi"], c4["transforms"])
+    mo = instanced_split.max_overlap(ias, c4["rays"])
+    # the grid over the live rows (emit_split zeroes the rest: as rows they
+    # would all land in the cell holding the origin)
+    num_live = int((packed.rows[:, :12] != 0).any(dim=1).sum())
+    return dict(dev_scene=dev_scene, camera=camera, views=views, packed=packed,
+                trav=pack_bvh(bvh), pairs=pack_pairs(pairs),
+                grid=grid.build_grid(packed.rows, num_live),
+                ias=ias, inst_rays=c4["rays"], k_slots=max(4, -(-(mo + 2) // 4) * 4))
+
+
+def multi_legs(mesh, s: dict) -> dict:
+    """Every sharded function of ``tpu_raytracing_torch.parallel`` once on
+    ``mesh``: the split ``path_trace_sharded`` at RES² (timed), the
+    ``render_frame_sharded_split`` lit frame at RES², the instanced split
+    tracer on config 4, the megakernel ``render_frame_sharded`` at
+    MULTI_MEGA_RES² and the grid ``path_trace_sharded`` at MULTI_GRID_RES²,
+    each bounce's uniforms from a generator seeded 1 on every rank."""
+    from tpu_raytracing_torch.parallel import flagship, render as prender
+
+    dev = s["camera"]["position"].device
+    out, ms = {}, {}
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(1)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        ms[name] = sync_ms(t0)
+
+    timed("split_path", lambda: flagship.path_trace_sharded(
+        mesh, s["views"], s["packed"], s["dev_scene"], s["camera"], RES, RES,
+        num_bounces=BOUNCES, generator=gen(), k=128))
+    timed("split_path", lambda: flagship.path_trace_sharded(
+        mesh, s["views"], s["packed"], s["dev_scene"], s["camera"], RES, RES,
+        num_bounces=BOUNCES, generator=gen(), k=128))
+    timed("split_render", lambda: flagship.render_frame_sharded_split(
+        mesh, s["views"], s["packed"], s["dev_scene"], s["camera"], RES, RES,
+        RenderType.TEXTURE_LIT_SHADOWS, k=128))
+    timed("inst_split", lambda: flagship.trace_instanced_split_sharded(
+        mesh, s["ias"], s["inst_rays"], k_slots=s["k_slots"], k=128))
+    timed("megakernel", lambda: prender.render_frame_sharded(
+        mesh, s["trav"], s["pairs"], s["dev_scene"], s["camera"], MULTI_MEGA_RES,
+        MULTI_MEGA_RES, RenderType.TEXTURE_LIT_SHADOWS))
+    timed("grid_path", lambda: flagship.path_trace_sharded(
+        mesh, s["grid"], s["packed"], s["dev_scene"], s["camera"], MULTI_GRID_RES,
+        MULTI_GRID_RES, num_bounces=BOUNCES, generator=gen(), k=128, tracer_kind="grid"))
+    return out, ms
+
+
+def _cpu(x):
+    """Every tensor of a result on the host (tuples and dataclasses kept)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        return tuple(_cpu(v) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _cpu(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _tensors(v)]
+    return [t for f in dataclasses.fields(x) for t in _tensors(getattr(x, f.name))]
+
+
+def multi_worker(rank: int, world: int, port: int, out_dir: str, device=None) -> int:
+    """One rank of phase 18's world of ``world`` processes on ``device``
+    (default ``cuda:0``) with gloo: the inputs built from their seeds,
+    every leg, the results saved to ``out_dir/rank{rank}.pt``."""
+    from tpu_raytracing_torch.parallel import render as prender
+
+    device = torch.device("cuda", 0) if device is None else device
+    s = multi_inputs(device)
+    mesh = prender.init_mesh(rank, world, f"tcp://localhost:{port}", device=device,
+                             backend="gloo")
+    try:
+        out, ms = multi_legs(mesh, s)
+        torch.save(dict(out=_cpu(out), ms=ms), f"{out_dir}/rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def multi_phase(device, card: str, scene=None, dev_scene=None, camera=None, triangles=None,
+                views=None, packed=None) -> dict:
+    """Phase 18: the multi-device renderers, a world of 1 on NCCL, held to
+    the single-device functions, then a world of 2 processes on the one
+    card over gloo, held bit for bit to the world of 1. K1's launch count
+    is set to 0 before the phase and read after it."""
+    from tpu_raytracing_torch.parallel import render as prender
+
+    print("phase 18: the multi-device renderers (tpu_raytracing_torch/parallel) on "
+          "torch.distributed")
+    t_phase = time.perf_counter()
+    s = multi_inputs(device, scene, dev_scene, camera, triangles, views, packed)
+    split_trace.launch_count = 0
+    mesh = prender.init_mesh(0, 1, f"tcp://localhost:{free_port()}", device=device)
+    try:
+        one, ms = multi_legs(mesh, s)
+    finally:
+        torch.distributed.destroy_process_group()
+    launches = split_trace.launch_count
+    require(launches > 0, "phase 18 launched no K1")
+    img, rays = one["split_path"]
+    print(f"  world of 1 ({mesh.backend}): split path_trace_sharded {RES}x{RES}, {BOUNCES} "
+          f"bounce: {ms['split_path']!r} ms (host clock, after a warm call), {int(rays)} rays "
+          f"traced; render_frame_sharded_split lit {ms['split_render']!r} ms; instanced split "
+          f"(config 4, {s['inst_rays'].origin.shape[0]} rays, k_slots {s['k_slots']}) "
+          f"{ms['inst_split']!r} ms; megakernel lit at {MULTI_MEGA_RES}^2 "
+          f"{ms['megakernel']!r} ms; grid path trace at {MULTI_GRID_RES}^2 {ms['grid_path']!r} "
+          f"ms  [{card}]")
+
+    # the single-device functions on the same inputs
+    gen = torch.Generator(device=device).manual_seed(1)
+    ref, _ = path_trace(s["views"], s["packed"], s["dev_scene"], s["camera"], RES, RES,
+                        num_bounces=BOUNCES, generator=gen,
+                        **split_trace.make_frame_tracers(RES, RES))
+    checks = {"split_path dB": frame_psnr(img, ref),
+              "split_path equal": bool(torch.equal(img, ref))}
+    rimg, rtests = render.render_frame(s["views"], s["packed"], s["dev_scene"], s["camera"],
+                                       RES, RES, RenderType.TEXTURE_LIT_SHADOWS,
+                                       tracer=split_trace.make_split_tracer(RES, RES))
+    checks["split_render equal"] = bool(torch.equal(one["split_render"][0], rimg)) and \
+        int(one["split_render"][1]) == int(rtests)
+    single = instanced_split.trace_rays_instanced_split(s["ias"], s["inst_rays"],
+                                                        k_slots=s["k_slots"], k=128)
+    checks["inst_split equal"] = all(torch.equal(a, b) for a, b in zip(
+        _tensors(single), _tensors(one["inst_split"])))
+    mimg, mtests = render.render_frame(s["trav"], s["pairs"], s["dev_scene"], s["camera"],
+                                       MULTI_MEGA_RES, MULTI_MEGA_RES,
+                                       RenderType.TEXTURE_LIT_SHADOWS)
+    checks["megakernel equal"] = bool(torch.equal(one["megakernel"][0], mimg)) and \
+        int(one["megakernel"][1]) == int(mtests)
+    gen = torch.Generator(device=device).manual_seed(1)
+    gimg, _ = path_trace(s["grid"], s["packed"], s["dev_scene"], s["camera"], MULTI_GRID_RES,
+                         MULTI_GRID_RES, num_bounces=BOUNCES, generator=gen,
+                         tracer=grid_trace.make_grid_tracer(),
+                         shadow_tracer=grid_trace.make_grid_tracer(any_hit=True))
+    checks["grid_path dB"] = frame_psnr(one["grid_path"][0], gimg)
+    print(f"  world of 1 against the single-device functions: {checks}")
+    require(checks["split_path dB"] >= MIN_PSNR and checks["grid_path dB"] >= MIN_PSNR
+            and checks["split_render equal"] and checks["inst_split equal"]
+            and checks["megakernel equal"], f"phase 18 world of 1: {checks}")
+    require(int(one["inst_split"][0].hit.sum()) > 0, "config 4's sharded trace hits nothing")
+
+    # a world of 2 on the one card (NCCL refuses two ranks on one device)
+    out_dir = OUT_DIR / "multi"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--multi-rank",
+                               str(r), "--multi-world", "2", "--multi-port", str(port),
+                               "--multi-out", str(out_dir)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MULTI_WORKER_S)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    world_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"phase 18 rank {r} of 2 failed ({p.returncode}):\n"
+                                   f"{log[-4000:]}")
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    one_cpu = _cpu(one)
+    differ = {}
+    for r, res in enumerate(ranks):
+        for leg, val in one_cpu.items():
+            got = _tensors(res["out"][leg][:3] if leg == "inst_split" else res["out"][leg])
+            want = _tensors(val[:3] if leg == "inst_split" else val)
+            n = sum(int(not torch.equal(a, b)) for a, b in zip(got, want))
+            if n:
+                differ[(r, leg)] = n
+    print(f"  world of 2 (gloo, two processes on {device}, host copies for the collectives): "
+          f"{world_s:.2f} s for both processes; split path trace "
+          f"{ranks[0]['ms']['split_path']!r} / {ranks[1]['ms']['split_path']!r} ms per rank; "
+          f"results differing from the world of 1 (rank, leg): {differ or 'none'}  [{card}]")
+    require(not differ, f"phase 18: the world of 2 differs from the world of 1: {differ}")
+    print(f"  phase 18: {time.perf_counter() - t_phase:.2f} s, K1 launches {launches}")
+    return dict(k1=launches, split_path_ms=ms["split_path"], rays=int(rays))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     parser.add_argument("--k1-only", action="store_true",
@@ -3197,6 +3871,19 @@ def main(argv=None) -> int:
                         help="run phases 1, 2 and 16 only (the binned tracer and K1's start "
                              "tags, the sort modes, the BFS, instanced-grid and wide packet "
                              "tracers); prints no summary lines")
+    parser.add_argument("--builds-only", action="store_true",
+                        help="run phases 1, 2 and 17 only (the 16-wide bucket tree and K1's "
+                             "16-wide instantiation, build_bucket_split_v1, build_bucket_fat, "
+                             "build_implicit_wide_fat, with_trips, segmented_scan); prints no "
+                             "summary lines")
+    parser.add_argument("--multi-only", action="store_true",
+                        help="run phases 1, 2 and 18 only (the multi-device renderers on "
+                             "torch.distributed); prints no summary lines")
+    # one rank of phase 18's world of 2 (the phase starts these itself)
+    parser.add_argument("--multi-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--multi-world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--multi-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--multi-out", help=argparse.SUPPRESS)
     parser.add_argument("--k5-baseline", type=Path, metavar="SOURCE",
                         help="an earlier csrc/lane_trace.cu (the same C interface over the "
                              "reference's tables layout) to build, check against K5 and time "
@@ -3211,6 +3898,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
+    if args.multi_rank is not None:
+        return multi_worker(args.multi_rank, args.multi_world, args.multi_port, args.multi_out)
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -3257,6 +3946,14 @@ def main(argv=None) -> int:
         modes_phase(device, card)
         print("chip_smoke: stopped after phase 16 (--modes-only)")
         return 0
+    if args.builds_only:
+        builds_phase(device, card)
+        print("chip_smoke: stopped after phase 17 (--builds-only)")
+        return 0
+    if args.multi_only:
+        multi_phase(device, card)
+        print("chip_smoke: stopped after phase 18 (--multi-only)")
+        return 0
     scene = procedural.terrain(NUM_TRIS)
     dev_scene = scene_to_device(scene, device)
     camera = aerial_camera(scene, device)
@@ -3280,13 +3977,20 @@ def main(argv=None) -> int:
     binary_launches = binary["launches"]
     rebuild_ms = split["rebuild_ms"]
     split_img = split["img"]
-    split_views, split_packed = split["views"], split["packed"]
+    split_views, split_packed, front = split["views"], split["packed"], split["front"]
+    karras = dict(rows256=binary["rows256"], num_nodes=binary["rows256"].shape[0],
+                  packed=binary["packed"])
     del split, binary, sah_frame
     app = app_phase(device, card)
     anim = animate_phase(device, card, rebuild_ms)
     tracers = tracers_phase(device, card, scene, dev_scene, camera, triangles, split_img)
     modes = modes_phase(device, card, scene, dev_scene, camera, triangles, split_views,
                         split_packed, split_img)
+    builds = builds_phase(device, card, scene, dev_scene, camera, triangles, front, split_views,
+                          split_img, karras)
+    del front, karras
+    multi = multi_phase(device, card, scene, dev_scene, camera, triangles, split_views,
+                        split_packed)
 
     def entry(name, source, replaces, launches, res):
         # no single PyTorch call traces rays through a BVH: library_ms is null
@@ -3302,14 +4006,16 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         entry("split_trace", "split_trace.cu", f"{sp}:143",
               k1_launches + anim["k1"] + tracers["instanced"]["launches"]
-              + modes["binned"]["launches"], k1),
+              + modes["binned"]["launches"] + multi["k1"], k1),
+        entry("split_trace 16-wide", "split_trace.cu", f"{sp}:143",
+              builds["wide16"]["launches"], builds["wide16"]),
         entry("split_trace kernel_v=4", "split_trace.cu", f"{sp}:541", versions[4], k1),
         entry("split_trace kernel_v=5", "split_trace.cu", f"{sp}:898", versions[5], k1),
         entry("split_trace kernel_v=2", "split_trace.cu", f"{sp}:1250", versions[2], k1),
         entry("lane_trace", "lane_trace.cu", "tpu_raytracing/trace/lane_pallas.py:107",
               lane_launches + anim["k5"], k5),
         entry("fat_traverse", "fat_traverse.cu", "tpu_raytracing/ops/pallas_traverse.py:71",
-              binary_launches, k6),
+              binary_launches + builds["k6_launches"], k6),
         entry("fat_traverse count=True", "fat_traverse.cu",
               "tpu_raytracing/ops/pallas_traverse.py:71", app["launches"] + anim["k6c"], app),
     ] + probes}))

@@ -121,7 +121,9 @@ def test_per_ray_counts_equal_per_packet_counts(build, name):
 def test_untiled_forms_and_active_mask():
     """``trace_rays_wide_fat`` and its phased form give the same records
     as the reference's; a dead ray hits nothing and keeps its tmax (the
-    reference's reconstruction), and ``with_trips`` is not ported."""
+    reference's reconstruction), and ``with_trips`` runs the reference's
+    lockstep loop instead of K6, with the same hits and a trip count per
+    packet (``tests/test_torch_trips.py`` holds it to the reference's)."""
     jb, jpacked, jfat = _jax_tree("sphere", "lbvh")
     arrays = _camera_arrays(SCENES["sphere"](), 16, 8)
     jr, tr = both_rays(arrays)
@@ -134,8 +136,12 @@ def test_untiled_forms_and_active_mask():
         hit = rec.hit.numpy()
         assert not hit[~active].any() and hit.any()
         np.testing.assert_array_equal(rec.t.numpy()[~hit], np.asarray(ref.t)[~hit])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        wide_fat.trace_rays_wide_fat(fat, None, tr, with_trips=True)
+    rec, _ = wide_fat.trace_rays_wide_fat(fat, None, tr)
+    packed = convert.packed_from_numpy(np.asarray(jpacked.rows), "cpu")
+    trec, _, trips = wide_fat.trace_rays_wide_fat(fat, packed, tr, with_trips=True)
+    np.testing.assert_array_equal(trec.hit.numpy(), rec.hit.numpy())
+    np.testing.assert_allclose(trec.t.numpy(), rec.t.numpy(), rtol=1e-6)
+    assert trips.shape == (1,) and int(trips[0]) > 0
     with pytest.raises(ValueError, match="packets of 128"):
         wide_fat.trace_rays_wide_fat(fat, None, tr.take(torch.arange(100)))
 

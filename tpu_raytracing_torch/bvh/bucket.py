@@ -1,15 +1,20 @@
-"""Morton-bucket split BVH: the per-frame rebuild and refit.
+"""Morton-bucket BVH builds: the split tree's per-frame rebuild and refit,
+and the bucket-major fat and v1 builds.
 
-Port of the split path of ``tpu_raytracing/bvh/bucket.py``: ``SplitBVH``,
+Port of ``tpu_raytracing/bvh/bucket.py``: ``SplitBVH``,
 ``_sorted_leaves``, ``split_front``, ``leaf_major_tables``,
 ``classify_split``, ``_range_min_table``, ``_range_lookup``, ``_inner_cap``,
 ``check_inner_capacity``, ``check_split_capacity``, ``emit_split``,
-``build_bucket_split``, ``emit_split_views`` and ``refit_split``,
+``build_bucket_split``, ``emit_split_views`` and ``refit_split`` (8- or
+16-wide inner rows, ``inner_width``), the bucket-major
+``_segment_totals``, ``_bucket_tables``, ``_bucket_aabbs`` and
+``build_bucket_fat`` (8-wide), ``build_bucket_split_v1`` (the same tree
+as ``build_bucket_split``, as the reference's docstring says),
 ``trace/split_pallas.py:_stack_cap`` as ``stack_cap`` and its
 ``prep_split_views`` as ``split_views``. Every pass is a dense tensor op
-over the sorted leaves, as in the reference; the outputs (``inner``,
-``num_inner``, ``e_ranges``, ``max_slot``, pair rows) are bit-equal to the
-reference's.
+over the sorted leaves or the per-level buckets, as in the reference; the
+outputs (``inner``, ``num_inner``, ``e_ranges``, ``max_slot``, the fat
+rows, pair rows) are bit-equal to the reference's.
 
 XLA primitives without a direct torch counterpart: ``lax.clz`` becomes
 ``torch.frexp`` on float64 (exact for every int32), reverse ``cummin`` a
@@ -18,7 +23,7 @@ flip, ``nonzero(size=, fill_value=)`` a truncate-and-pad to ``ecap``, and
 
 The kernel views use the port's own layout, with none of the reference's
 128-lane padding (a Mosaic DMA rule, ``split_pallas.py:120-126``):
-``inner`` [ICAP, 8, 8] int32 and ``pairs`` [P_pad, 16] int32 with
+``inner`` [ICAP, w, 8] int32 and ``pairs`` [P_pad, 16] int32 with
 P_pad >= max(P, leaf_width), so no leaf window reads past the end, and the
 tracer's stack bound for the tree.
 
@@ -35,14 +40,22 @@ from typing import Optional
 import torch
 
 from tpu_raytracing_torch.bvh.lbvh import fused_sorted_pairs, scene_aabb
-from tpu_raytracing_torch.bvh.types import CHILD_BOX, CHILD_TRI
-from tpu_raytracing_torch.trace.traverse import _META_CHILD_SHIFT, PackedPairs, f2i, i2f
+from tpu_raytracing_torch.bvh.types import CHILD_BOX, CHILD_NONE, CHILD_TRI
+from tpu_raytracing_torch.bvh.wide import WIDE, FatWideBVH
+from tpu_raytracing_torch.trace.traverse import (
+    _META_CHILD_SHIFT,
+    _META_COUNT_SHIFT,
+    _META_TYPE_MASK,
+    PackedPairs,
+    f2i,
+    i2f,
+)
 
 _F32_MAX = float(torch.finfo(torch.float32).max)
 # Fine-tier depth of the range-min table (the reference's _RANGE_K0).
 _RANGE_K0 = 10
-# Entries per inner row of the emitted views.
-_INNER_WIDTH = 8
+# Entries per inner row the split builds emit (the reference's inner_width).
+INNER_WIDTHS = (8, 16)
 
 
 @dataclasses.dataclass
@@ -83,6 +96,224 @@ def _sorted_leaves(triangles: torch.Tensor, enable_pairs: bool):
     ccount_leaf = (sorted_values >> 31).to(torch.int32)  # second tri valid
     return (sorted_codes, PackedPairs(rows=rows), v.amin(dim=1), v.amax(dim=1),
             ccount_leaf, num_leaves)
+
+
+def _segment_totals(x, heads, tails_pos, valid, op, init: float):
+    """Per-segment reduction over segments of at most ``WIDE`` elements:
+    log2(WIDE) Hillis-Steele segmented inclusive scan passes, then a
+    gather at each segment's tail.
+
+    x [M, C]; heads [M] bool segment starts; tails_pos [B] last-element
+    positions; valid [B] bool. Returns [B, C] (``init`` where not valid)."""
+    f = heads
+    m = x.shape[0]
+    d = 1
+    while d < WIDE:
+        if d >= m:  # tiny inputs: the shift falls entirely off the array
+            x_shift = torch.full_like(x, init)
+            f_shift = torch.ones_like(f)
+        else:
+            x_shift = torch.cat([torch.full((d,) + x.shape[1:], init, dtype=x.dtype,
+                                            device=x.device), x[:-d]])
+            f_shift = torch.cat([torch.ones((d,), dtype=torch.bool, device=f.device), f[:-d]])
+        x = torch.where(f[:, None], x, op(x_shift, x))
+        f = f | f_shift
+        d *= 2
+    out = x[tails_pos.clamp(0, m - 1)]
+    return torch.where(valid[:, None], out, init)
+
+
+def _bucket_tables(sorted_codes, num_leaves, n: int):
+    """Bucket-major per-level tables of the fat build, 3 Morton bits a
+    level (8-wide).
+
+    Returns (levels, caps, bids, poss, counts, child_starts, child_counts):
+    level l's segment-start mask [n], its bucket capacity, each leaf's
+    bucket id [n], each bucket's first leaf and leaf count [cap], and its
+    children's first id and count at level l + 1 [cap]."""
+    bits, width = 3, WIDE
+    dev = sorted_codes.device
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    pad_boundary = iota == num_leaves  # the padded sentinel region starts here
+    levels = [(iota == 0) | pad_boundary]
+    caps = [width]
+    shifts = []
+    sh = 30
+    while sh > 0:
+        sh = max(sh - bits, 0)
+        shifts.append(sh)
+    for lvl, shift in enumerate(shifts, start=1):
+        pref = sorted_codes >> shift
+        prev = torch.cat([pref[:1] ^ 1, pref[:-1]])
+        levels.append((pref != prev) | (iota == 0) | pad_boundary)
+        caps.append(min(width ** lvl, n))
+    # chunk levels: split runs inside the deepest Morton bucket at period
+    # width^k, so every segment bottoms out at <= width leaves
+    num_chunk = max(math.ceil(math.log(max(n, 2), width)), 1)
+    seg_start = torch.cummax(torch.where(levels[-1], iota, -1), dim=0).values
+    idx_in_seg = iota - seg_start
+    prev_starts = levels[-1]
+    for k in range(num_chunk - 1, -1, -1):
+        prev_starts = prev_starts | (idx_in_seg % (width ** (k + 1)) == 0)
+        levels.append(prev_starts)
+        caps.append(n)
+
+    bids_all = torch.cumsum(torch.stack(levels).to(torch.int64), dim=1) - 1
+    bids, poss, counts = [], [], []
+    for li, (starts, cap) in enumerate(zip(levels, caps)):
+        bid = bids_all[li]
+        pos = num_leaves.to(torch.int64).expand(cap).clone()
+        keep = starts & (bid < cap)
+        pos[bid[keep]] = iota[keep]
+        nxt = torch.cat([pos[1:], num_leaves.to(torch.int64).reshape(1)])
+        end = torch.minimum(torch.maximum(nxt, pos), num_leaves)
+        counts.append(torch.clamp(end - torch.minimum(pos, num_leaves), min=0))
+        bids.append(bid)
+        poss.append(pos)
+
+    # children of level-l bucket b: the contiguous level-(l+1) buckets
+    # [child_start, child_start + child_count)
+    child_starts, child_counts = [], []
+    for lv in range(len(levels) - 1):
+        pos, count, nbid = poss[lv], counts[lv], bids[lv + 1]
+        cs = nbid[pos.clamp(0, n - 1)]
+        last = (pos + count - 1).clamp(0, n - 1)
+        child_starts.append(cs)
+        child_counts.append(torch.where(count > 0, nbid[last] - cs + 1, 0))
+    zeros = torch.zeros((caps[-1],), dtype=torch.int64, device=dev)
+    child_starts.append(zeros)
+    child_counts.append(zeros)
+    return levels, caps, bids, poss, counts, child_starts, child_counts
+
+
+def _bucket_aabbs(levels, caps, poss, counts, child_starts, child_counts, lo, hi, n: int):
+    """Bottom-up per-level bucket boxes by segmented scans: (a_los, a_his),
+    each a list of [cap, 3]."""
+    num_levels = len(levels)
+    a_los = [None] * num_levels
+    a_his = [None] * num_levels
+    tails = poss[-1] + counts[-1] - 1
+    valid = counts[-1] > 0
+    a_los[-1] = _segment_totals(lo, levels[-1], tails, valid, torch.minimum, _F32_MAX)
+    a_his[-1] = _segment_totals(hi, levels[-1], tails, valid, torch.maximum, -_F32_MAX)
+    for lv in range(num_levels - 2, -1, -1):
+        # scan over level-(lv+1) buckets; parent heads mark first children
+        heads = levels[lv][poss[lv + 1].clamp(0, n - 1)] | (counts[lv + 1] <= 0)
+        tails = (child_starts[lv] + child_counts[lv] - 1).clamp(0, caps[lv + 1] - 1)
+        valid = counts[lv] > 0
+        a_los[lv] = _segment_totals(a_los[lv + 1], heads, tails, valid, torch.minimum,
+                                    _F32_MAX)
+        a_his[lv] = _segment_totals(a_his[lv + 1], heads, tails, valid, torch.maximum,
+                                    -_F32_MAX)
+    return a_los, a_his
+
+
+def build_bucket_fat(triangles: torch.Tensor, enable_pairs: bool = False):
+    """The fat wide BVH built straight from 3-bit Morton buckets (port of
+    the reference's ``build_bucket_fat``): (FatWideBVH with its root at row
+    0, PackedPairs in sorted-leaf order; a Tri entry's pair id is its
+    sorted position). Rows are [n + 2, 192]; the first ``num_nodes`` are
+    the tree.
+
+    A bucket of 2..8 leaves is a terminal row listing its leaves inline; one
+    of more than 8 leaves with at least 2 children branches; one with a
+    single child is skipped (the effective-id recurrence); a one-leaf bucket
+    is a Tri entry of its parent; buckets under a terminal are unused."""
+    n = triangles.shape[0]
+    dev = triangles.device
+    sorted_codes, packed, lo, hi, ccount_leaf, num_leaves = _sorted_leaves(triangles, enable_pairs)
+    levels, caps, bids, poss, counts, child_starts, child_counts = _bucket_tables(
+        sorted_codes, num_leaves, n)
+    num_levels = len(levels)
+
+    is_small, is_real = [], []
+    alive = [torch.ones((caps[0],), dtype=torch.bool, device=dev)]
+    for lv in range(num_levels):
+        count, cc = counts[lv], child_counts[lv]
+        small = (count >= (1 if lv == 0 else 2)) & (count <= WIDE)
+        branch = (count > WIDE) & (cc >= 2)
+        is_small.append(small)
+        is_real.append(alive[lv] & (small | branch))
+        if lv < num_levels - 1:
+            par = bids[lv][poss[lv + 1].clamp(0, n - 1)].clamp(0, caps[lv] - 1)
+            alive.append(alive[lv][par] & ~is_small[lv][par])
+
+    # global row ids, row 0 reserved for the root's copy
+    wids = []
+    offset = torch.ones((), dtype=torch.int64, device=dev)
+    for lv in range(num_levels):
+        r = is_real[lv].to(torch.int64)
+        wids.append(offset + torch.cumsum(r, 0) - r)
+        offset = offset + r.sum()
+    total_rows = offset
+
+    # effective ids: skip single-child chains, bottom-up
+    effs = [None] * num_levels
+    effs[-1] = wids[-1]
+    for lv in range(num_levels - 2, -1, -1):
+        cs = child_starts[lv].clamp(0, caps[lv + 1] - 1)
+        effs[lv] = torch.where(is_real[lv], wids[lv], effs[lv + 1][cs])
+
+    a_los, a_his = _bucket_aabbs(levels, caps, poss, counts, child_starts, child_counts,
+                                 lo, hi, n)
+
+    # stage A: compact per-row descriptors at each real bucket's row
+    w_cap = n + 2
+    emeta = torch.zeros((w_cap, WIDE), dtype=torch.int32, device=dev)
+    nlo = torch.full((w_cap, 3), _F32_MAX, dtype=torch.float32, device=dev)
+    nhi = torch.full((w_cap, 3), -_F32_MAX, dtype=torch.float32, device=dev)
+    for lv in range(num_levels):
+        pos, count, cap = poss[lv], counts[lv], caps[lv]
+        small, real = is_small[lv], is_real[lv]
+        metas = []
+        for j in range(WIDE):
+            leaf_p = (pos + j).clamp(0, n - 1)  # terminal: leaf j of the bucket
+            t_valid = small & (j < count)
+            if lv < num_levels - 1:  # branching: child bucket j at level lv + 1
+                cb = (child_starts[lv] + j).clamp(0, caps[lv + 1] - 1)
+                b_valid = real & ~small & (j < child_counts[lv])
+                c_single = counts[lv + 1][cb] == 1
+                c_leaf_p = poss[lv + 1][cb].clamp(0, n - 1)
+                c_eff = effs[lv + 1][cb]
+            else:
+                b_valid = c_single = torch.zeros((cap,), dtype=torch.bool, device=dev)
+                c_leaf_p = c_eff = torch.zeros((cap,), dtype=torch.int64, device=dev)
+            is_tri = t_valid | (b_valid & c_single)
+            is_box = b_valid & ~c_single
+            pair_id = torch.where(t_valid, leaf_p, c_leaf_p)
+            cc = torch.where(is_tri, ccount_leaf[pair_id].to(torch.int64), 0)
+            child = torch.where(is_tri, pair_id, c_eff)
+            etype = torch.where(is_tri, CHILD_TRI, torch.where(is_box, CHILD_BOX, CHILD_NONE))
+            metas.append(torch.where(
+                etype == CHILD_NONE, 0,
+                (child << _META_CHILD_SHIFT) | (cc.clamp(0, 7) << _META_COUNT_SHIFT) | etype,
+            ).to(torch.int32))
+        keep = real & (wids[lv] < w_cap)
+        dest = wids[lv][keep]
+        emeta[dest] = torch.stack(metas, dim=1)[keep]
+        nlo[dest] = a_los[lv][keep]
+        nhi[dest] = a_his[lv][keep]
+
+    # root: the effective root's descriptor into row 0 (the trace starts there)
+    eff_root = effs[0][0].clamp(0, w_cap - 1)
+    emeta[0] = emeta[eff_root].clone()
+    nlo[0] = nlo[eff_root].clone()
+    nhi[0] = nhi[eff_root].clone()
+
+    # stage B: the [W, 192] fat rows in one pass
+    num_pairs = packed.rows.shape[0]
+    etype = (emeta & _META_TYPE_MASK)[..., None]
+    eid = (emeta >> _META_CHILD_SHIFT).to(torch.int64)
+    tri, box = etype == CHILD_TRI, etype == CHILD_BOX
+    pid = eid.clamp(0, num_pairs - 1)
+    wid_c = eid.clamp(0, w_cap - 1)
+    e_lo = torch.where(tri, lo[pid], torch.where(box, nlo[wid_c], _F32_MAX))
+    e_hi = torch.where(tri, hi[pid], torch.where(box, nhi[wid_c], -_F32_MAX))
+    node = torch.cat([f2i(e_lo), f2i(e_hi), emeta[..., None],
+                      torch.zeros((w_cap, WIDE, 1), dtype=torch.int32, device=dev)], dim=2)
+    pair = torch.where(tri, packed.rows[pid], 0)
+    rows = torch.cat([node.reshape(w_cap, WIDE * 8), pair.reshape(w_cap, WIDE * 16)], dim=1)
+    return FatWideBVH(rows=rows, num_nodes=total_rows), packed
 
 
 def split_front(triangles: torch.Tensor, enable_pairs: bool = False):
@@ -286,20 +517,28 @@ def stack_cap(w: int, num_pair_rows: int) -> int:
     return (w - 1) * max_levels + 8
 
 
-def emit_split(front, leaf_width: int = 16, debug: bool = False):
+def _check_widths(leaf_width: int, inner_width: int) -> None:
+    if inner_width not in INNER_WIDTHS:
+        raise ValueError(f"inner_width {inner_width} not in {INNER_WIDTHS}")
+    # the deepest chunk buckets hold up to inner_width leaves and must fit
+    # one leaf window
+    if leaf_width < inner_width:
+        raise ValueError(f"leaf_width {leaf_width} < inner_width {inner_width}")
+
+
+def emit_split(front, leaf_width: int = 16, inner_width: int = 8, debug: bool = False):
     """Emit the SplitBVH from a ``split_front`` result: (SplitBVH,
     PackedPairs), with ``e_ranges`` (each entry's leaf range, what
-    ``refit_split`` refreshes boxes from). Inner rows are 8 wide, the width
-    the tracer takes (the reference's ``inner_width=16`` is not ported).
-    The pair rows past ``num_leaves`` are zeroed: leaf windows may overlap
+    ``refit_split`` refreshes boxes from). Inner rows are ``inner_width``
+    (8 or 16) entries wide: each level of the tree takes log2(inner_width)
+    Morton bits. The pair rows past ``num_leaves`` are zeroed: leaf windows may overlap
     the padded tail, zero vertices never intersect, and a deformation that
     moves all four vertices of a row alike keeps them degenerate.
     ``debug`` runs the build invariants on the host and raises on a
     violation.
     """
-    width = _INNER_WIDTH
-    if leaf_width < width:
-        raise ValueError(f"leaf_width {leaf_width} < inner width {width}")
+    _check_widths(leaf_width, inner_width)
+    width = inner_width
     sorted_codes, packed, lo, hi, _ccount, num_leaves = front
     n = sorted_codes.shape[0]
     dev = sorted_codes.device
@@ -382,37 +621,51 @@ def emit_split(front, leaf_width: int = 16, debug: bool = False):
 
 
 def build_bucket_split(triangles: torch.Tensor, enable_pairs: bool = False,
-                       leaf_width: int = 16, debug: bool = False):
+                       leaf_width: int = 16, inner_width: int = 8, debug: bool = False):
     """The leaf-major Morton-bucket split build: ``emit_split`` over
     ``split_front``; returns (SplitBVH, PackedPairs)."""
-    return emit_split(split_front(triangles, enable_pairs), leaf_width=leaf_width, debug=debug)
+    return emit_split(split_front(triangles, enable_pairs), leaf_width=leaf_width,
+                      inner_width=inner_width, debug=debug)
+
+
+def build_bucket_split_v1(triangles: torch.Tensor, enable_pairs: bool = False,
+                          leaf_width: int = 16, inner_width: int = 8):
+    """The reference's round-1 bucket-major split build
+    (``build_bucket_split_v1``). Its docstring says ``build_bucket_split``
+    emits exactly the same SplitBVH, so here it is that build without
+    ``e_ranges`` (v1 has none, so no refit): (SplitBVH, PackedPairs)."""
+    split, packed = build_bucket_split(triangles, enable_pairs, leaf_width=leaf_width,
+                                       inner_width=inner_width)
+    return dataclasses.replace(split, e_ranges=None), packed
 
 
 def split_views(split: SplitBVH, packed: PackedPairs, cap: Optional[int] = None):
     """K1's views of a split tree and its sorted pair rows (the port's
     counterpart of ``trace/split_pallas.py:prep_split_views``): (inner
-    [ICAP, 8, 8] i32, pairs [P_pad, 16] i32, stack_cap), sharing the
-    tree's storage. P_pad = max(P, leaf_width): a Tri entry's window starts
+    [ICAP, w, 8] i32 with w = 8 or 16, pairs [P_pad, 16] i32, stack_cap),
+    sharing the tree's storage. P_pad = max(P, leaf_width): a Tri entry's window starts
     at min(start, num_leaves - leaf_width), so a scene smaller than one
     window still reads leaf_width rows. ``cap`` is the tracer's stack bound
     for the tree; by default the bucket tree's (``stack_cap``)."""
     icap, row_words = split.inner.shape
-    if row_words != _INNER_WIDTH * 8:
-        raise ValueError(f"split_views: K1 takes 8-wide rows, got {row_words // 8}")
+    w = row_words // 8
+    if w not in INNER_WIDTHS or row_words % 8:
+        raise ValueError(f"split_views: K1 takes 8- or 16-wide rows, got {row_words} words")
     rows = packed.rows
     p = rows.shape[0]
     p_pad = max(p, split.leaf_width)
     pairs = rows if p_pad == p else torch.cat(
         [rows, torch.zeros((p_pad - p, 16), dtype=torch.int32, device=rows.device)])
     if cap is None:
-        cap = stack_cap(_INNER_WIDTH, p_pad)
-    return split.inner.reshape(icap, _INNER_WIDTH, 8), pairs.contiguous(), cap
+        cap = stack_cap(w, p_pad)
+    return split.inner.reshape(icap, w, 8), pairs.contiguous(), cap
 
 
-def emit_split_views(front, leaf_width: int = 16, debug: bool = False):
+def emit_split_views(front, leaf_width: int = 16, inner_width: int = 8, debug: bool = False):
     """``emit_split`` and ``split_views`` in one call: ((inner, pairs,
     stack_cap), packed, split)."""
-    split, packed = emit_split(front, leaf_width=leaf_width, debug=debug)
+    split, packed = emit_split(front, leaf_width=leaf_width, inner_width=inner_width,
+                               debug=debug)
     return split_views(split, packed), packed, split
 
 

@@ -13,13 +13,16 @@
 //     reference's per-packet ``ptag`` (_kernel_v3's init_slot, line 191)
 //     expanded to one tag per ray: an even tag 2 r starts at inner row r, an
 //     odd tag 2 s + 1 at the leaf window from pair s;
-//     a row holds kWidth = 8 entries of (lo xyz, hi xyz, meta, pad), meta =
-//     child << 5 | type. Type 0 entries are skipped; a box child is an inner
-//     row, a tri child the start of a leafw-pair window in the sorted pairs.
+//     a row holds WIDTH = 8 or 16 entries of (lo xyz, hi xyz, meta, pad),
+//     meta = child << 5 | type (the TPU kernels take both widths,
+//     split_pallas.py:129; one instantiation per width). Type 0 entries
+//     are skipped; a box child is an inner row, a tri child the start of a
+//     leafw-pair window in the sorted pairs.
 //   * slab test: the ray meets the box when back >= front, front <= t_cur
 //     and back >= tmin; the child's distance is max(front, 0). All hit
 //     children are pushed in slot order except the nearest, which is pushed
-//     last so it pops first; the higher entry id wins a distance tie.
+//     last so it pops first; the higher entry id wins a distance tie (the
+//     TPU key keeps the id in its low log2(WIDTH) bits, split_pallas.py:247).
 //   * leaf: Möller-Trumbore on triangles A = (v0, v1, v2) and B = (v2, v1, v3)
 //     of every pair in the window. The window's winner has the smallest t
 //     and, on an equal t, the larger enc = 2 * slot + second (all-miss:
@@ -32,7 +35,7 @@
 //     never dropped silently; the host checks the flag once per frame.
 //
 // What bounds it: a leaf pop tests 2 * leafw = 128 triangles (~61
-// operations each), an inner pop 8 boxes (~25 each), so leaf windows carry
+// operations each), an inner pop 8 (or 16) boxes (~25 each), so leaf windows carry
 // nearly all the arithmetic; every pop is a dependent load (a 256-byte
 // inner row, or a 4 KB window of 64-byte pair rows) whose address comes
 // from the previous pop. One thread per ray ran a window's 64 pairs in a
@@ -76,7 +79,6 @@
 
 namespace {
 
-constexpr int kWidth = 8;  // entries per inner row: the width the tracer's build emits
 constexpr int kMaxStack = 256;
 constexpr int kThreads = 128;
 constexpr int kWarp = 32;
@@ -158,7 +160,7 @@ __device__ __forceinline__ void window_winner(const Window<SLOTS>& w, const Ray&
   }
 }
 
-template <bool ANY_HIT, int SLOTS>
+template <bool ANY_HIT, int SLOTS, int WIDTH>
 __global__ void __launch_bounds__(kThreads)
 split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pairs,
                    const float* __restrict__ origin, const float* __restrict__ dir,
@@ -196,13 +198,13 @@ split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pair
       if (tag & 1) break;
       --sp;
       ++ipops;
-      const int4* row = inner + static_cast<size_t>(tag >> 1) * (2 * kWidth);
-      int ctag[kWidth];
-      bool ok[kWidth];
+      const int4* row = inner + static_cast<size_t>(tag >> 1) * (2 * WIDTH);
+      int ctag[WIDTH];
+      bool ok[WIDTH];
       int nearest = -1, pushes = 0;
       float best = 0.0f;
 #pragma unroll
-      for (int e = 0; e < kWidth; ++e) {
+      for (int e = 0; e < WIDTH; ++e) {
         const int4 a = __ldg(row + 2 * e);
         const int4 b = __ldg(row + 2 * e + 1);
         const int meta = b.z;
@@ -230,13 +232,13 @@ split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pair
         break;
       }
 #pragma unroll
-      for (int e = 0; e < kWidth; ++e) {
+      for (int e = 0; e < WIDTH; ++e) {
         if (ok[e] && e != nearest) stack[sp++] = ctag[e];
       }
       if (nearest >= 0) {
         int near_tag = ctag[0];
 #pragma unroll
-        for (int e = 1; e < kWidth; ++e) near_tag = (e == nearest) ? ctag[e] : near_tag;
+        for (int e = 1; e < WIDTH; ++e) near_tag = (e == nearest) ? ctag[e] : near_tag;
         stack[sp++] = near_tag;
       }
     }
@@ -305,13 +307,13 @@ split_trace_kernel(const int4* __restrict__ inner, const int4* __restrict__ pair
   }
 }
 
-template <bool ANY_HIT, int SLOTS>
+template <bool ANY_HIT, int SLOTS, int WIDTH>
 void launch(const void* inner, const void* pairs, const void* origin, const void* dir,
             const void* tmin, const void* tmax, void* t_out, void* tri_out, void* ipops,
             void* lpops, void* overflow, const void* start, int num_rays, int leafw,
             int stack_cap, cudaStream_t stream) {
   const int blocks = (num_rays + kThreads - 1) / kThreads;
-  split_trace_kernel<ANY_HIT, SLOTS><<<blocks, kThreads, 0, stream>>>(
+  split_trace_kernel<ANY_HIT, SLOTS, WIDTH><<<blocks, kThreads, 0, stream>>>(
       static_cast<const int4*>(inner), static_cast<const int4*>(pairs),
       static_cast<const float*>(origin), static_cast<const float*>(dir),
       static_cast<const float*>(tmin), static_cast<const float*>(tmax),
@@ -320,27 +322,31 @@ void launch(const void* inner, const void* pairs, const void* origin, const void
       num_rays, leafw, stack_cap);
 }
 
-template <bool ANY_HIT>
+template <bool ANY_HIT, int WIDTH>
 void launch_slots(const void* inner, const void* pairs, const void* origin, const void* dir,
                   const void* tmin, const void* tmax, void* t_out, void* tri_out, void* ipops,
                   void* lpops, void* overflow, const void* start, int num_rays, int leafw,
                   int stack_cap, cudaStream_t s) {
   switch ((leafw + kWarp - 1) / kWarp) {
     case 1:
-      launch<ANY_HIT, 1>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                         overflow, start, num_rays, leafw, stack_cap, s);
+      launch<ANY_HIT, 1, WIDTH>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out,
+                                ipops, lpops, overflow, start, num_rays, leafw,
+                                stack_cap, s);
       break;
     case 2:
-      launch<ANY_HIT, 2>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                         overflow, start, num_rays, leafw, stack_cap, s);
+      launch<ANY_HIT, 2, WIDTH>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out,
+                                ipops, lpops, overflow, start, num_rays, leafw,
+                                stack_cap, s);
       break;
     case 3:
-      launch<ANY_HIT, 3>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                         overflow, start, num_rays, leafw, stack_cap, s);
+      launch<ANY_HIT, 3, WIDTH>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out,
+                                ipops, lpops, overflow, start, num_rays, leafw,
+                                stack_cap, s);
       break;
     default:
-      launch<ANY_HIT, kMaxSlots>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops,
-                                 lpops, overflow, start, num_rays, leafw, stack_cap, s);
+      launch<ANY_HIT, kMaxSlots, WIDTH>(inner, pairs, origin, dir, tmin, tmax, t_out,
+                                        tri_out, ipops, lpops, overflow, start, num_rays,
+                                        leafw, stack_cap, s);
   }
 }
 
@@ -356,15 +362,21 @@ extern "C" int split_trace_launch(const void* inner, const void* pairs, const vo
                                   void* overflow, const void* start, int num_rays, int width,
                                   int leafw, int any_hit, int stack_cap, void* stream) {
   if (num_rays <= 0) return 0;
-  if (width != kWidth || leafw < 1 || leafw > kMaxSlots * kWarp || stack_cap <= 0 ||
+  if ((width != 8 && width != 16) || leafw < 1 || leafw > kMaxSlots * kWarp || stack_cap <= 0 ||
       stack_cap > kMaxStack)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit)
-    launch_slots<true>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                       overflow, start, num_rays, leafw, stack_cap, s);
+  if (any_hit && width == 8)
+    launch_slots<true, 8>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                          overflow, start, num_rays, leafw, stack_cap, s);
+  else if (any_hit)
+    launch_slots<true, 16>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                           overflow, start, num_rays, leafw, stack_cap, s);
+  else if (width == 8)
+    launch_slots<false, 8>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                           overflow, start, num_rays, leafw, stack_cap, s);
   else
-    launch_slots<false>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
-                        overflow, start, num_rays, leafw, stack_cap, s);
+    launch_slots<false, 16>(inner, pairs, origin, dir, tmin, tmax, t_out, tri_out, ipops, lpops,
+                            overflow, start, num_rays, leafw, stack_cap, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,6 +72,8 @@ K = 256
 LEAFW = 64
 # The widest window the kernel takes: four pair slots per lane of a warp.
 MAX_LEAFW = 128
+# Inner row widths the kernel is instantiated for (split_pallas.py:129).
+WIDTHS = (8, 16)
 _F32_MAX = float(torch.finfo(torch.float32).max)
 _TRI_EPS = 1e-9
 # Rays per chunk of the plain version: bounds its [chunk, leafw] temporaries.
@@ -265,8 +267,8 @@ def _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw: int,
         if x.data_ptr() % 16:
             raise ValueError(f"split_traverse: {name} is not 16-byte aligned")
     num = origin.shape[0]
-    if inner.shape[1] != 8 or inner.shape[2] != 8 or pairs.shape[1] != 16:
-        raise ValueError(f"split_traverse: the kernel takes inner [ICAP, 8, 8] and pairs "
+    if inner.shape[1] not in WIDTHS or inner.shape[2] != 8 or pairs.shape[1] != 16:
+        raise ValueError(f"split_traverse: the kernel takes inner [ICAP, 8 or 16, 8] and pairs "
                          f"[P_pad, 16], got {tuple(inner.shape)}, {tuple(pairs.shape)}")
     if direction.shape != (num, 3) or origin.shape != (num, 3) or tmin.shape != (num,) \
             or tmax.shape != (num,) or (start is not None and start.shape != (num,)):
@@ -275,16 +277,23 @@ def _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw: int,
         raise ValueError(f"split_traverse: stack_cap {stack_cap} outside (0, 256]")
     if not 1 <= leafw <= MAX_LEAFW:
         raise ValueError(f"split_traverse: leafw {leafw} outside [1, {MAX_LEAFW}]")
+    if pairs.shape[0] < leafw:
+        raise ValueError(f"split_traverse: a {leafw}-pair window is longer than the "
+                         f"{pairs.shape[0]} pair rows")
 
 
 def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
                    any_hit: bool, stack_cap: int, start=None):
     """K1: traverse a split BVH for every ray (see the module docstring).
 
-    inner [ICAP, 8, 8] i32 (8-wide rows only), pairs [P_pad, 16] i32 with P_pad >= every window
+    inner [ICAP, w, 8] i32 (w = 8 or 16 entries a row, one kernel
+    instantiation each), pairs [P_pad, 16] i32 with P_pad >= every window
     end, origin/direction [R, 3] f32 (direction already sanitised), tmin/
     tmax [R] f32, start [R] i32 start tags or None (the root); the kernel
-    takes windows of 1 <= leafw <= MAX_LEAFW pairs. Returns (t, tri,
+    takes windows of 1 <= leafw <= MAX_LEAFW pairs, and ``leafw`` must be
+    the tree's ``leaf_width``: a Tri entry's window starts at most at
+    num_leaves - leaf_width, so a wider window reads past the live pairs
+    and a narrower one skips triangles. Returns (t, tri,
     inner_pops, leaf_pops, overflow [1]).
 
     CPU tensors run ``trace_split_plain``; CUDA tensors launch the kernel

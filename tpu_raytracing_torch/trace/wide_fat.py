@@ -13,8 +13,15 @@ over ``pad_rows_256`` of the rows: one thread per ray, no packets.
 ``trace_rays_wide_fat_phased`` is the same function. The reference's
 phased compaction (wide_fat.py:11-20) works around the lockstep loop, which
 pays for every packet until the slowest drains; a per-ray kernel has no
-lockstep, so the phased form makes the same K6 call. ``with_trips`` (the
-reference's trip counts for ``benchmarks/profile_trips.py``) is not ported.
+lockstep, so the phased form makes the same K6 call.
+
+``with_trips=True`` is the reference's diagnostic of that lockstep loop
+(``benchmarks/profile_trips.py``): how many pops each packet needs. It
+has no kernel there (an XLA ``while_loop``), and here it is the same
+loop in PyTorch ops (``_trips_trace``): each iteration pops one row for
+every packet at once, and the loop ends when every packet's stack is
+empty. It returns the reference's per-packet counts and each packet's
+trip count.
 
 Known divergences from the reference, both deliberate:
 
@@ -29,7 +36,10 @@ Known divergences from the reference, both deliberate:
   triangles the two may name different ones, as with K1 and K6 elsewhere.
 * The reference's stack of 48 registers drops the farthest pending subtree
   without a word when full (wide_fat.py:25-26); K6 sets the overflow flag
-  and stops the ray, and ``render.shade_rays`` raises on it.
+  and stops the ray, and ``render.shade_rays`` raises on it. The trips
+  loop keeps the reference's drop, so its trip counts stay the
+  reference's, and sets the overflow flag when a push drops a pending
+  subtree.
 """
 
 from __future__ import annotations
@@ -39,12 +49,29 @@ from typing import Tuple
 
 import torch
 
-from tpu_raytracing_torch.bvh.wide import FatWideBVH
+from tpu_raytracing_torch.bvh.types import CHILD_BOX, CHILD_NONE, CHILD_TRI
+from tpu_raytracing_torch.bvh.wide import WIDE, FatWideBVH
 from tpu_raytracing_torch.ops.fat_traverse import fat_traverse, kernel_operands, pad_rows_256
 from tpu_raytracing_torch.trace.brute import HitRecord
 from tpu_raytracing_torch.trace.packet import tile_reorder, tile_restore
 from tpu_raytracing_torch.trace.ray import Rays
-from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats
+from tpu_raytracing_torch.trace.traverse import (
+    _META_CHILD_SHIFT,
+    _META_COUNT_MASK,
+    _META_COUNT_SHIFT,
+    _META_TYPE_MASK,
+    PackedPairs,
+    TraceStats,
+    i2f,
+    reconstruct,
+)
+from tpu_raytracing_torch.trace.wide_packet import _NETWORK, _intersect_triangle
+
+# The lockstep loop's stack registers per packet (the reference's
+# STACK_REGS); a push past them drops the farthest pending subtree, as the
+# reference's shift register does, and sets TraceStats.overflow.
+STACK_REGS = 48
+_F32_MAX = float(torch.finfo(torch.float32).max)
 
 
 def live_rows256(wide: FatWideBVH) -> torch.Tensor:
@@ -80,12 +107,111 @@ def trace_rays_wide_fat(
     """Closest-hit trace against the fat wide BVH (root = row 0) with K6's
     counting instantiation. ``packet_size`` is checked against the ray
     count, as the reference's, and otherwise plays no part; ``pairs`` is
-    not read (the fat rows carry the pairs)."""
-    del pairs
-    if with_trips:
-        raise NotImplementedError("not yet ported: trace_rays_wide_fat(with_trips=True)")
+    not read (the fat rows carry the pairs).
+
+    ``with_trips=True`` runs the reference's lockstep packet loop instead
+    (``_trips_trace``) and returns (HitRecord, TraceStats, trips [R /
+    packet_size] int32), with per-packet counts as the reference gives
+    them."""
     _check_packets(rays.origin.shape[0], packet_size)
+    if with_trips:
+        return _trips_trace(wide.rows, pairs, rays, active, packet_size)
     return _trace_rows(live_rows256(wide), rays, active)
+
+
+def _trips_trace(rows: torch.Tensor, pairs: PackedPairs, rays: Rays, active, k: int):
+    """The reference's lockstep loop (``wide_fat.py:_ray_data``,
+    ``_init_state``, ``_make_body``) over packets of ``k`` consecutive
+    rays, every packet one pop an iteration. A pop tests the row's 8
+    entries in order, each against every ray's running tmax: a Tri entry
+    whose box some ray enters tests its triangles A and B on those rays;
+    the Box entries some ray enters are pushed far to near by the packet's
+    smallest entry distance (the higher child id nearer on a tie). The
+    counts are per packet: non-empty entries tested and Tri entries
+    entered. Möller-Trumbore rounds as XLA's CPU compiler contracts it
+    (``wide_packet._intersect_triangle``). Returns (HitRecord, TraceStats
+    with each ray its packet's counts and ``overflow`` set if a push
+    dropped a pending subtree, trips [P] int32)."""
+    num = rays.origin.shape[0]
+    num_p = num // k
+    dev = rays.origin.device
+    num_nodes = rows.shape[0]
+    origin = rays.origin.reshape(num_p, k, 3)
+    direction = rays.direction.reshape(num_p, k, 3)
+    safe = torch.where(direction.abs() < 1e-30,
+                       torch.where(direction < 0, -1e-30, 1e-30), direction)
+    inv_dir = 1.0 / safe
+    tmin = rays.tmin.reshape(num_p, k)
+    ray_on = (torch.ones((num_p, k), dtype=torch.bool, device=dev) if active is None
+              else active.reshape(num_p, k).to(torch.bool))
+    regs = torch.full((num_p, STACK_REGS), -1, dtype=torch.int64, device=dev)
+    regs[:, 0] = torch.where(ray_on.any(dim=1), 0, -1)
+    tmax = rays.tmax.reshape(num_p, k).clone()
+    tri_id = torch.full((num_p, k), -1, dtype=torch.int64, device=dev)
+    box_tests = torch.zeros((num_p, 1), dtype=torch.int32, device=dev)
+    tri_tests = torch.zeros((num_p, 1), dtype=torch.int32, device=dev)
+    trips = torch.zeros((num_p,), dtype=torch.int32, device=dev)
+    neg1 = torch.full((num_p, 1), -1, dtype=torch.int64, device=dev)
+    dropped = torch.zeros((), dtype=torch.bool, device=dev)
+
+    while bool((regs[:, 0] >= 0).any()):
+        wid = regs[:, 0]
+        active_p = wid >= 0
+        regs = torch.where(active_p[:, None], torch.cat([regs[:, 1:], neg1], dim=1), regs)
+        row = rows[wid.clamp(0, num_nodes - 1)]  # [P, 192]
+        cand_dist, cand_id = [], []
+        for e in range(WIDE):
+            node = row[:, e * 8:e * 8 + 8]
+            pair = i2f(row[:, 64 + e * 16:64 + e * 16 + 12])
+            meta = node[:, 6].to(torch.int64)
+            ntype = meta & _META_TYPE_MASK
+            child = meta >> _META_CHILD_SHIFT
+            ccount = (meta >> _META_COUNT_SHIFT) & _META_COUNT_MASK
+            valid = active_p & (ntype != CHILD_NONE)
+            nmin = i2f(node[:, 0:3])[:, None, :]
+            nmax = i2f(node[:, 3:6])[:, None, :]
+            t1 = (nmin - origin) * inv_dir
+            t2 = (nmax - origin) * inv_dir
+            front = torch.minimum(t1, t2).amax(dim=-1)
+            back = torch.maximum(t1, t2).amin(dim=-1)
+            box_hit = ((back >= front) & (front <= tmax) & (back >= tmin) & ray_on
+                       & valid[:, None])
+            box_tests = box_tests + valid[:, None].to(torch.int32)
+            any_hit = box_hit.any(dim=1)
+            do_leaf = any_hit & (ntype == CHILD_TRI)
+            tri_tests = tri_tests + do_leaf[:, None].to(torch.int32)
+            v = [pair[:, None, 3 * i:3 * i + 3] for i in range(4)]
+            acc, t, _, _ = _intersect_triangle(v[0], v[1], v[2], origin,
+                                               direction, tmin, tmax)
+            take = do_leaf[:, None] & box_hit & acc
+            tmax = torch.where(take, t, tmax)
+            tri_id = torch.where(take, (child << 1)[:, None], tri_id)
+            acc, t, _, _ = _intersect_triangle(v[2], v[1], v[3], origin,
+                                               direction, tmin, tmax)
+            take = do_leaf[:, None] & box_hit & (ccount > 0)[:, None] & acc
+            tmax = torch.where(take, t, tmax)
+            tri_id = torch.where(take, ((child << 1) + 1)[:, None], tri_id)
+            do_box = any_hit & (ntype == CHILD_BOX)
+            dist_p = torch.where(box_hit, front, _F32_MAX).amin(dim=1)
+            cand_dist.append(torch.where(do_box, dist_p, -_F32_MAX))
+            cand_id.append(torch.where(do_box, child, -1))
+        d, c = cand_dist, cand_id
+        for a, b in _NETWORK:  # descending distance; on a tie the higher id nearer
+            swap = (d[a] < d[b]) | ((d[a] == d[b]) & (c[a] > c[b]))
+            d[a], d[b] = torch.where(swap, d[b], d[a]), torch.where(swap, d[a], d[b])
+            c[a], c[b] = torch.where(swap, c[b], c[a]), torch.where(swap, c[a], c[b])
+        for e in range(WIDE):  # far to near: shift down and insert at the top
+            push = c[e] >= 0
+            dropped |= (push & (regs[:, -1] >= 0)).any()
+            regs = torch.where(push[:, None],
+                               torch.cat([c[e][:, None], regs[:, :-1]], dim=1), regs)
+        trips = trips + active_p.to(torch.int32)
+
+    rec = reconstruct(pairs, rays, tmax.reshape(num), tri_id.reshape(num).to(torch.int32))
+    stats = TraceStats(box_tests=box_tests.expand(num_p, k).reshape(num),
+                       tri_tests=tri_tests.expand(num_p, k).reshape(num),
+                       overflow=dropped.to(torch.int32).reshape(1))
+    return rec, stats, trips
 
 
 def trace_rays_wide_fat_phased(
