@@ -16,6 +16,10 @@
                                        # every phase; phase 9 also times an
                                        # earlier K6 source beside K6 (the
                                        # flag may be given more than once)
+    python3 chip_smoke.py --builds-only --k1-baseline OLD/tpu_raytracing_torch/csrc/split_trace.cu
+                                       # phase 17 also times an earlier K1
+                                       # source on each 16-wide pass (the
+                                       # flag may be given more than once)
 
 Drives ``tpu_raytracing_torch`` only (no JAX, no ``tpu_raytracing``) and
 exits non-zero if any phase fails:
@@ -238,7 +242,17 @@ exits non-zero if any phase fails:
    each pass timed by CUDA events with its bound and pops per live ray
    against the 8-wide tree's on the same rays, K1 bit-equal to plain on
    every ray of the bounce pass and on 65,536 sampled live rays of the
-   others, brute force on 4,096 primary and bounce rays;
+   others, brute force on 4,096 primary and bounce rays; the registers of
+   K1's instantiations; the 8-wide K1 kernels' SASS (``cuobjdump -sass``)
+   against ``K1_8WIDE_SASS``, the digest of the build from before the
+   16-wide inner rows moved to half-warps; on the bounce pass,
+   ``split_traverse_cycles``' clock64 split (inner rows, leaf windows, leaf
+   wait) of the 16-wide tree's half-warp and per-lane inner rows and of
+   the 8-wide tree, on the same rays, each bit-equal to K1's outputs (with
+   ``--k1-baseline``, each earlier source is held bit-equal to K1 and
+   timed on every pass); entry-distance ties on a 16-wide row (entries 7
+   and 15, 0 and 8, 7 and 8, and all 16 with the ray origins inside every
+   box), K1 equal to plain and to the tie rule's ids;
    ``build_bucket_split_v1`` at widths 8 and 16, timed and bit-equal to
    ``build_bucket_split``; ``build_bucket_fat`` and
    ``build_implicit_wide_fat``, timed, their live rows and levels, the frame
@@ -285,8 +299,10 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -455,6 +471,15 @@ MULTI_WORKER_S = 400
 # Phase 17: the terrain whose implicit tree K6 is held to plain on (the 1M
 # tree's padding-subtree walk makes a plain pass minutes long), at RES/8².
 IMPLICIT_CHECK_TRIS = 64_000
+# Phase 17: the 8-wide K1 kernels' SASS digest (``k1_8wide_sass``) of the
+# build from before the 16-wide inner rows moved to half-warps, and the
+# nvcc release that built it; the 8-wide kernels must not change with them.
+K1_8WIDE_SASS = ("12.9", "3813c4a2b957331919b2a7395ab3e3673c420accb7a91cfb82ef06df766fedbf")
+# Phase 17's entry-distance ties on a 16-wide row: the tied Tri entries,
+# and whether the ray origins lie inside every box (distance 0). Entries 7
+# and 15 differ only above a 3-bit id; 0 and 8, and 7 and 8, meet at
+# different steps of the half-warp reduction; all 16 tie everywhere.
+WIDE16_TIES = (((7, 15), False), ((0, 8), False), ((7, 8), False), (tuple(range(16)), True))
 INTERACTIVE_W, INTERACTIVE_H = 256, 192
 INTERACTIVE_FIRST_S = 180.0
 INTERACTIVE_READ_S = 30.0
@@ -3256,16 +3281,138 @@ def fat_depth(rows: torch.Tensor) -> int:
     return depth
 
 
+class BaselineK1:
+    """An earlier K1 source given by ``--k1-baseline``: the same C entry,
+    ``split_trace_launch``. Called as ``split_traverse`` is; it counts no
+    launch."""
+
+    def __init__(self, source: Path, index: int):
+        self.source = source
+        self.name = f"split_trace_baseline{index}"
+
+    def __call__(self, inner, pairs, origin, direction, tmin, tmax, *, leafw, any_hit,
+                 stack_cap, start=None):
+        _cuda_build.load_library(self.name, self.source)
+        return split_trace._launch("split_trace_launch", split_trace._ARGTYPES, inner, pairs,
+                                   origin, direction, tmin, tmax, leafw, any_hit, stack_cap,
+                                   start, library=self.name)
+
+
+def kernel_registers(log: str) -> dict:
+    """Registers of each kernel in a ptxas -v log, by demangled name."""
+    regs, name = {}, None
+    for line in demangled(log).splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name is not None and (m := re.search(r"Used (\d+) registers", line)):
+            regs[name] = int(m.group(1))
+    return regs
+
+
+def nvcc_release() -> str:
+    out = subprocess.run([_cuda_build.nvcc_path(), "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    m = re.search(r"release (\d+\.\d+)", out)
+    return m.group(1) if m else out.strip().splitlines()[-1]
+
+
+# K1's kernel template arguments in a mangled name: ANY_HIT, SLOTS, WIDTH and
+# the later bool parameters (PROFILE first)
+K1_MANGLED = re.compile(r"split_trace_kernelILb([01])ELi(\d+)ELi(\d+)E((?:Lb[01]E)*)E")
+
+
+def k1_8wide_sass(so: Path) -> str:
+    """sha256 of the 8-wide, unprofiled K1 kernels' SASS in the built
+    library ``so`` (``cuobjdump -sass``): each kernel's instruction lines,
+    keyed by (any_hit, slots). The names are left out: the anonymous
+    namespace's mangling differs between builds."""
+    tool = Path(_cuda_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    bodies, key = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = K1_MANGLED.search(line)
+            key = None
+            if m and m.group(3) == "8" and not m.group(4).startswith("Lb1"):
+                key = (int(m.group(1)), int(m.group(2)))
+                bodies[key] = []
+        elif key is not None and "/*" in line:
+            bodies[key].append(" ".join(line.split()))
+    require(len(bodies) == 8, f"{so.name}: {len(bodies)} 8-wide K1 kernels in its SASS (8)")
+    digest = hashlib.sha256()
+    for k in sorted(bodies):
+        digest.update(f"{k}\n".encode() + "\n".join(bodies[k]).encode() + b"\n")
+    return digest.hexdigest()
+
+
+def k1_build_checks(baselines=()) -> None:
+    """Phase 17 (a): K1's registers by instantiation, and the 8-wide
+    kernels' SASS against ``K1_8WIDE_SASS`` (and beside each baseline's)."""
+    regs = {}
+    pattern = re.compile(r"split_trace_kernel<\(bool\)(\d), \(int\)(\d), \(int\)(\d+), "
+                         r"\(bool\)(\d), \(bool\)(\d)>")
+    for name, r in kernel_registers(_cuda_build.BUILD_INFO["split_trace"][1]).items():
+        if m := pattern.search(name):
+            regs[tuple(int(g) for g in m.groups())] = r
+    for label, width, profile, half in (("16-wide, half-warp inner rows", 16, 0, 1),
+                                        ("8-wide", 8, 0, 0)):
+        rows = [[regs.get((any_hit, slots, width, profile, half)) for slots in range(1, 5)]
+                for any_hit in (0, 1)]
+        require(None not in rows[0] + rows[1], f"ptxas reported no registers for some K1 "
+                                               f"{label} kernels: {rows}")
+        print(f"  K1 {label}: registers at 1-4 pair slots a lane (leafw <= 32, 64, 96, 128): "
+              f"closest-hit {rows[0]}, any-hit {rows[1]}")
+    release = nvcc_release()
+    cur = k1_8wide_sass(_cuda_build.LIB_PATHS["split_trace"])
+    want_release, want = K1_8WIDE_SASS
+    if release == want_release:
+        print(f"  8-wide K1 SASS (cuobjdump -sass, 8 kernels, nvcc {release}): {cur} "
+              f"{'unchanged' if cur == want else 'CHANGED'} against the recorded {want}")
+        require(cur == want, "the 8-wide K1 kernels' SASS changed")
+    else:
+        print(f"  8-wide K1 SASS: {cur} from nvcc {release}; the recorded digest is from nvcc "
+              f"{want_release}, not comparable")
+    for b in baselines:
+        other = k1_8wide_sass(_cuda_build.LIB_PATHS[b.name])
+        print(f"  8-wide K1 SASS of {b.source}: {other} "
+              f"({'the same' if other == cur else 'different'})")
+
+
+def k1_cycle_split(label: str, views, ops, any_hit: bool, kout, card: str,
+                   per_lane: bool = False) -> dict:
+    """``split_traverse_cycles`` on one pass: its outputs bit-equal to K1's
+    ``kout``; the cycles of each phase summed over the live rays, as shares
+    and as a mean per live ray."""
+    inner, pairs, stack_cap = views
+    out = split_trace.split_traverse_cycles(inner, pairs, *ops, leafw=split_trace.LEAFW,
+                                            any_hit=any_hit, stack_cap=stack_cap,
+                                            per_lane=per_lane)
+    bad = k1_mismatches(out[:5], kout)
+    require(sum(bad.values()) == 0, f"{label}: the clock64 instantiation differs from K1: {bad}")
+    live = ops[3] > ops[2]
+    tot = out[5][:, live].sum(dim=1).double()
+    share = (tot / tot.sum()).tolist()
+    mean = (tot / int(live.sum())).tolist()
+    print(f"  {label}: clock64 cycles per live ray "
+          + ", ".join(f"{n} {m!r} ({100 * f!r} %)" for n, m, f in
+                      zip(split_trace.PHASES, mean, share))
+          + f"; bit-equal to K1  [{card}]")
+    return dict(zip(split_trace.PHASES, share))
+
+
 def k1_wide_pass(label: str, views, ops, any_hit: bool, card: str, views8, live_rows: int,
-                 whole: bool) -> dict:
+                 whole: bool, baselines=()) -> dict:
     """K1 on one pass of the 16-wide frame as its tracer launched it:
     CUDA-event ms (mean of 5 after a warm launch), bit-equal to the plain
     version on 65,536 sampled live rays (``whole``: on every ray, timing
-    the plain version and marking the rows it visits), pops per live ray
-    against the 8-wide tree's on the same rays. The bound counts K1's own
-    per-ray pops (equal to the plain version's where checked); its bytes
-    take every row the plain version visited (``whole``), else every live
-    row of the tree once (``live_rows`` inner rows and their windows)."""
+    the plain version and marking the rows it visits, and the clock64
+    split of both trees), pops per live ray against the 8-wide tree's on
+    the same rays; each baseline held bit-equal to K1 and timed between two
+    timings of K1. The bound counts K1's own per-ray pops (equal to the
+    plain version's where checked); its bytes take every row the plain
+    version visited (``whole``), else every live row of the tree once
+    (``live_rows`` inner rows and their windows)."""
     inner, pairs, stack_cap = views
     w = inner.shape[1]
     kw = dict(leafw=split_trace.LEAFW, stack_cap=stack_cap, any_hit=any_hit)
@@ -3293,21 +3440,38 @@ def k1_wide_pass(label: str, views, ops, any_hit: bool, card: str, views8, live_
              + float(kout[3].sum()) * 2 * split_trace.LEAFW * MT_OPS)
     b = bound(n_ops, num * 48 + n_rows)
     i8, p8, s8 = views8
-    ms8, k8 = event_ms(lambda: split_trace.split_traverse(
-        i8, p8, *ops, leafw=split_trace.LEAFW, stack_cap=s8, any_hit=any_hit), 5)
+    kw8 = dict(kw, stack_cap=s8)
+    ms8, k8 = event_ms(lambda: split_trace.split_traverse(i8, p8, *ops, **kw8), 5)
     pops = [float(x[live].float().mean()) for x in (kout[2], kout[3], k8[2], k8[3])]
     print(f"  {label}: {num} rays ({int(live.sum())} live), any_hit={int(any_hit)}: 16-wide K1 "
           f"{ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}); pops per live ray inner "
           f"{pops[0]!r} leaf {pops[1]!r} against the 8-wide tree's {pops[2]!r} / {pops[3]!r} "
           f"({ms8!r} ms on the same rays); bit-equal to plain on {checked} rays"
           + (f" ({plain_ms!r} ms)" if plain_ms is not None else "") + f"  [{card}]")
+    for base in baselines:
+        bms, bout = event_ms(lambda: base(inner, pairs, *ops, **kw), 5)
+        bad = k1_mismatches(bout, kout)
+        require(sum(bad.values()) == 0, f"{label}: {base.source} and K1 disagree: {bad}")
+        again, _ = event_ms(lambda: split_trace.split_traverse(inner, pairs, *ops, **kw), 5)
+        print(f"    {base.source}: {bms!r} ms, bit-equal to K1; 16-wide K1 again {again!r} ms"
+              f"  [{card}]")
+    split = {}
+    if whole:
+        split = dict(
+            half_warp=k1_cycle_split(f"{label}, half-warp inner rows", views, ops, any_hit,
+                                     kout, card),
+            per_lane=k1_cycle_split(f"{label}, per-lane inner rows (the replaced design)",
+                                    views, ops, any_hit, kout, card, per_lane=True),
+            w8=k1_cycle_split(f"{label}, the same rays on the 8-wide tree", views8, ops,
+                              any_hit, k8, card))
     return dict(ms=ms, plain_ms=plain_ms, ms8=ms8, inner_pops=pops[0], leaf_pops=pops[1],
+                cycle_split=split,
                 max_abs_err=float((kout[0][:pout[0].shape[0]] - pout[0]).abs().max())
                 if whole else float((kout[0][pick] - pout[0]).abs().max()), **b)
 
 
 def wide16_tree(device, card: str, front, dev_scene, camera, triangles, views8, pair_loc,
-                split_img) -> dict:
+                split_img, baselines=()) -> dict:
     """Phase 17 (a): the 16-wide bucket tree at 1M and the bench frame on
     it, K1's 16-wide instantiation on all four passes."""
     def build():
@@ -3348,7 +3512,8 @@ def wide16_tree(device, card: str, front, dev_scene, camera, triangles, views8, 
     for (key, any_hit), name in zip(FRAME_TRACERS, PASSES):
         ops, _ = pass_operands(key, captured[key])
         passes[name] = k1_wide_pass(f"1M 16-wide {name} pass", views, ops, any_hit, card,
-                                    views8, live_rows, whole=name == "bounce")
+                                    views8, live_rows, whole=name == "bounce",
+                                    baselines=baselines)
     print(f"  16-wide K1 on the four passes: {sum(r['ms'] for r in passes.values())!r} ms a "
           f"frame, the 8-wide tree on the same rays {sum(r['ms8'] for r in passes.values())!r}"
           f"  [{card}]")
@@ -3360,36 +3525,54 @@ def wide16_tree(device, card: str, front, dev_scene, camera, triangles, views8, 
                 **passes["bounce"])
 
 
-def wide16_tie_check(device) -> None:
-    """Phase 17 (a): 16-wide K1 on an exact distance tie. Row 0 holds Tri
-    entries 7 and 15 with one box over 16-pair windows of one triangle, so
-    the higher id (15) pops first: an any-hit ray ends in its window (tri
-    2 * 16 + 30) and a closest-hit ray takes entry 7's, popped last, on the
-    t tie (tri 30). K1 equal to plain and to those ids on 128 rays."""
+def wide16_tie_fixture(entries, inside: bool):
+    """A 16-wide row whose Tri ``entries`` (ascending) share one box over
+    16-pair windows of one triangle (entry i of the tuple at pair 16 i), and
+    128 rays along +z that meet it; with ``inside`` the box holds the ray
+    origins, so every entry's distance is 0. All tied entries are at one
+    distance, so the highest pops first and the lowest last. Returns
+    (inner, pairs, ops, the closest-hit tri, the any-hit tri)."""
     empty = torch.cat([f2i(torch.tensor([F32_MAX] * 3 + [-F32_MAX] * 3)),
                        torch.zeros(2, dtype=torch.int32)])
     inner = empty.repeat(8, 16, 1)
-    box = f2i(torch.tensor([-1.0, -1.0, -0.5, 1.0, 1.0, 0.5]))
-    for e, first in ((7, 0), (15, 16)):
-        inner[0, e] = torch.cat([box, torch.tensor([(first << 5) | 2, 0], dtype=torch.int32)])
+    box = f2i(torch.tensor([-1.0, -1.0, -3.0 if inside else -0.5, 1.0, 1.0, 0.5]))
+    for i, e in enumerate(entries):
+        inner[0, e] = torch.cat([box, torch.tensor([((16 * i) << 5) | 2, 0], dtype=torch.int32)])
     tri = torch.tensor([-1.0, -1.0, 0.0, 1.0, -1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0])
-    pairs = torch.cat([f2i(tri), torch.zeros(4, dtype=torch.int32)]).repeat(32, 1)
+    pairs = torch.cat([f2i(tri), torch.zeros(4, dtype=torch.int32)]).repeat(
+        16 * len(entries), 1)
     gen = torch.Generator().manual_seed(3)
     xy = torch.rand((128, 2), generator=gen) * 0.6 - 0.3
     ops = (torch.cat([xy, torch.full((128, 1), -2.0)], dim=1),
            torch.tensor([0.0, 0.0, 1.0]).repeat(128, 1), torch.zeros(128),
            torch.full((128,), 10.0))
-    for any_hit, want in ((False, 30), (True, 2 * 16 + 30)):
-        kw = dict(leafw=16, stack_cap=64, any_hit=any_hit)
-        kout = split_trace.split_traverse(inner.to(device), pairs.to(device),
-                                          *(o.to(device) for o in ops), **kw)
-        pout = split_trace.trace_split_plain(inner, pairs, *ops, **kw)
-        bad = k1_mismatches(tuple(k.cpu() for k in kout), pout)
-        require(sum(bad.values()) == 0 and bool((kout[1] == want).all()),
-                f"16-wide K1 on the entry-id tie, any_hit={int(any_hit)}: {bad}, tri "
-                f"{sorted(set(kout[1].tolist()))} (want {want})")
-    print("  16-wide K1 on an exact entry-distance tie: the higher id pops first, equal to "
-          "plain (closest-hit and any-hit)")
+    # each window's winner is its last slot's first triangle (enc 2 * 15):
+    # the second, (v2, v1, v3) with v3 = v2, is degenerate
+    return inner, pairs, ops, 30, 2 * 16 * (len(entries) - 1) + 30
+
+
+def wide16_tie_check(device) -> None:
+    """Phase 17 (a): 16-wide K1 on exact entry-distance ties
+    (``WIDE16_TIES``): the higher id pops first, so an any-hit ray ends in
+    the highest entry's window and a closest-hit ray takes the lowest
+    entry's, popped last, on the t tie. K1 equal to plain and to those ids,
+    closest-hit and any-hit, on 128 rays each."""
+    for entries, inside in WIDE16_TIES:
+        inner, pairs, ops, closest, anyhit = wide16_tie_fixture(entries, inside)
+        for any_hit, want, lp in ((False, closest, len(entries)), (True, anyhit, 1)):
+            kw = dict(leafw=16, stack_cap=64, any_hit=any_hit)
+            kout = split_trace.split_traverse(inner.to(device), pairs.to(device),
+                                              *(o.to(device) for o in ops), **kw)
+            pout = split_trace.trace_split_plain(inner, pairs, *ops, **kw)
+            bad = k1_mismatches(tuple(k.cpu() for k in kout), pout)
+            require(sum(bad.values()) == 0 and bool((kout[1] == want).all())
+                    and bool((kout[3] == lp).all()),
+                    f"16-wide K1 on the tie of entries {entries}, any_hit={int(any_hit)}: {bad}, "
+                    f"tri {sorted(set(kout[1].tolist()))} (want {want}), leaf pops "
+                    f"{sorted(set(kout[3].tolist()))} (want {lp})")
+    print(f"  16-wide K1 on exact entry-distance ties ({len(WIDE16_TIES)} rows: entries 7/15, "
+          f"0/8, 7/8, all 16 at distance 0): the higher id pops first, equal to plain "
+          f"(closest-hit and any-hit)")
 
 
 def v1_builds(card: str, triangles) -> None:
@@ -3566,10 +3749,11 @@ def scan_check(device) -> None:
 
 
 def builds_phase(device, card: str, scene=None, dev_scene=None, camera=None, triangles=None,
-                 front=None, views8=None, split_img=None, karras=None) -> dict:
+                 front=None, views8=None, split_img=None, karras=None, k1_baselines=()) -> dict:
     """Phase 17: the remaining builds on phase 3's scene. Without phase 3's
     tree and frame and phase 8's Karras rows (``--builds-only``), builds
-    them here first."""
+    them here first. ``k1_baselines`` (``BaselineK1``) are timed beside
+    16-wide K1."""
     print("phase 17: the 16-wide bucket tree, build_bucket_split_v1, build_bucket_fat, "
           "build_implicit_wide_fat, with_trips and segmented_scan")
     t_phase = time.perf_counter()
@@ -3590,8 +3774,9 @@ def builds_phase(device, card: str, scene=None, dev_scene=None, camera=None, tri
                       packed=kpacked)
         del bvh, pairs, fat
     pair_loc = treelet.build_pair_tid(front)
+    k1_build_checks(k1_baselines)
     out = dict(wide16=wide16_tree(device, card, front, dev_scene, camera, triangles, views8,
-                                  pair_loc, split_img))
+                                  pair_loc, split_img, k1_baselines))
     wide16_tie_check(device)
     print(f"  phase 17 (a): {time.perf_counter() - t_phase:.2f} s")
     v1_builds(card, triangles)
@@ -3893,6 +4078,11 @@ def main(argv=None) -> int:
                         help="an earlier csrc/fat_traverse.cu (the same fat_traverse_launch) "
                              "to build, check against K6 and time beside it in phase 9; "
                              "may be given more than once")
+    parser.add_argument("--k1-baseline", type=Path, metavar="SOURCE", action="append",
+                        default=[],
+                        help="an earlier csrc/split_trace.cu (the same split_trace_launch) "
+                             "to build, check against K1 and time beside it on each 16-wide "
+                             "pass in phase 17; may be given more than once")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3916,7 +4106,8 @@ def main(argv=None) -> int:
         baseline = BaselineK5(args.k5_baseline.resolve())
         sources[BaselineK5.NAME] = baseline.source
     baselines6 = [BaselineK6(src.resolve(), i) for i, src in enumerate(args.k6_baseline)]
-    for b in baselines6:
+    baselines1 = [BaselineK1(src.resolve(), i) for i, src in enumerate(args.k1_baseline)]
+    for b in baselines6 + baselines1:
         sources[b.name] = b.source
     _cuda_build.load_libraries(LIBRARIES + list(sources), sources)
     print(f"phase 2: built {', '.join(n + '.cu' for n in LIBRARIES)}"
@@ -3947,7 +4138,7 @@ def main(argv=None) -> int:
         print("chip_smoke: stopped after phase 16 (--modes-only)")
         return 0
     if args.builds_only:
-        builds_phase(device, card)
+        builds_phase(device, card, k1_baselines=baselines1)
         print("chip_smoke: stopped after phase 17 (--builds-only)")
         return 0
     if args.multi_only:
@@ -3987,7 +4178,7 @@ def main(argv=None) -> int:
     modes = modes_phase(device, card, scene, dev_scene, camera, triangles, split_views,
                         split_packed, split_img)
     builds = builds_phase(device, card, scene, dev_scene, camera, triangles, front, split_views,
-                          split_img, karras)
+                          split_img, karras, baselines1)
     del front, karras
     multi = multi_phase(device, card, scene, dev_scene, camera, triangles, split_views,
                         split_packed)

@@ -8,10 +8,12 @@ on JAX-built 16-wide bucket trees (leaf windows of 16 and 32 pairs, as
 Pallas interpret mode (128 rays, ``c_slots=1``), closest-hit and any-hit:
 t to rtol 1e-6 and tri equal but for ties within that distance (XLA
 contracts the interpreted kernel's multiply-adds, K1 keeps its plain
-order); the port-built 16-wide tree against brute force; a row whose
-entries 7 and 15 tie on distance over windows of identical triangles,
-where the entry-id tie rule (4 bits at width 16) decides the winning
-triangle; and the wrapper's width and window checks.
+order); the port-built 16-wide tree against brute force; rows whose
+entries tie on distance over windows of identical triangles (7 and 15,
+where the entry-id tie rule's 4 bits at width 16 decide the winning
+triangle; 0 and 8, and 7 and 8, which meet at different steps of the
+card's half-warp reduction; all 16 at distance 0); the wrapper's width and
+window checks; and the cycle diagnostic's refusal off the card.
 """
 
 import functools
@@ -125,33 +127,55 @@ def test_wide16_port_tree_matches_brute(sphere, leafw):
     assert int(overflow) == 0 and hit.sum() > 0
 
 
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-def test_wide16_entry_tie_rule(pallas_sp, any_hit):
-    """Row 0 holds two Tri entries, 7 and 15, with one box (the other 14
-    are empty); entry 7's 16-pair window starts at pair 0, entry 15's at
-    pair 16, and all 32 pairs are one triangle, so both windows meet every
-    ray at the same t. The entries tie on distance, so the higher id, 15,
-    is nearest and pops first: an any-hit ray ends in entry 15's window,
-    and a closest-hit ray takes entry 7's, popped last, on the exact tie.
-    Each window's winner is its last slot (the larger 2 * slot + second).
-    An entry id kept in 3 bits would tie 7 with 15 and could pick either."""
-    lo = np.array([-1.0, -1.0, -0.5], np.float32)
+# Entry ties on a 16-wide row: the tied Tri entries, and whether the ray
+# origins lie inside every box (distance 0). Entries 7 and 15 differ only
+# above a 3-bit id; 0 and 8, and 7 and 8, meet at different steps of the
+# card's half-warp reduction (xor offsets 8, 4, 2, 1); all 16 tie
+# everywhere.
+_TIES = [((7, 15), False, ""), ((0, 8), False, "0_8-"), ((7, 8), False, "7_8-"),
+         (tuple(range(16)), True, "all16-")]
+
+
+def _tie_row(entries, inside):
+    """Row 0 of a 16-wide tree whose ``entries`` (ascending) share one box
+    (the others empty), entry i of the tuple over the 16-pair window from
+    pair 16 i; with ``inside`` the box holds the ray origins."""
+    lo = np.array([-1.0, -1.0, -3.0 if inside else -0.5], np.float32)
     hi = np.array([1.0, 1.0, 0.5], np.float32)
     empty = np.concatenate([np.full(3, F32_MAX, np.float32).view(np.int32),
                             np.full(3, -F32_MAX, np.float32).view(np.int32), [0, 0]])
     row = np.tile(empty, (16, 1)).astype(np.int32)
-    for e, start in ((7, 0), (15, 16)):
+    for i, e in enumerate(entries):
         row[e, 0:3] = lo.view(np.int32)
         row[e, 3:6] = hi.view(np.int32)
-        row[e, 6] = (start << 5) | 2
+        row[e, 6] = ((16 * i) << 5) | 2
     inner = np.tile(empty, (8, 16)).astype(np.int32)
     inner[0] = row.reshape(-1)
+    return inner
+
+
+@pytest.mark.parametrize("entries,inside,any_hit", [
+    pytest.param(e, inside, a, id=f"{pre}{'any' if a else 'closest'}")
+    for e, inside, pre in _TIES for a in (False, True)])
+def test_wide16_entry_tie_rule(pallas_sp, entries, inside, any_hit):
+    """Row 0 holds Tri ``entries`` with one box (the other entries are
+    empty); each entry's 16-pair window is one triangle repeated, so all
+    windows meet every ray at the same t. The entries tie on distance, so
+    the highest id is nearest and pops first, and the others follow in
+    falling id: an any-hit ray ends in the highest entry's window, and a
+    closest-hit ray takes the lowest entry's, popped last, on the exact t
+    tie. Each window's winner is its last slot (the larger 2 * slot +
+    second; the pair's second triangle is degenerate). An entry id kept in
+    3 bits would tie 7 with 15 and could pick either; the card's half-warp
+    reduction meets 0 and 8 at its first step and 7 and 8 at its last."""
+    inner = _tie_row(entries, inside)
+    n = len(entries)
     tri = np.array([[-1, -1, 0], [1, -1, 0], [0, 1, 0]], np.float32)
     pair = np.concatenate([tri.reshape(-1), tri[2], [0, 0, 0, 0]]).astype(np.float32)
-    prows = np.tile(pair.view(np.int32)[None, :], (32, 1))
+    prows = np.tile(pair.view(np.int32)[None, :], (16 * n, 1))
     prows[:, 12:] = 0
     split = jbucket.SplitBVH(inner=jnp.asarray(inner), num_inner=jnp.int32(1),
-                             num_leaves=jnp.int32(32), leaf_width=16)
+                             num_leaves=jnp.int32(16 * n), leaf_width=16)
     jviews = pallas_sp.prep_split_views(split, JPackedPairs(rows=jnp.asarray(prows)))
     views = convert.split_views_from_numpy(*(np.asarray(a) for a in jviews), "cpu")
     rng = np.random.default_rng(3)
@@ -164,12 +188,30 @@ def test_wide16_entry_tie_rule(pallas_sp, any_hit):
         jviews, JPackedPairs(rows=jnp.asarray(prows)), jr, leafw=16, any_hit=any_hit,
         raw=True, k=K, c_slots=1)
     t, tri_out, ipops, lpops, _ = _traverse(views, tr, 16, any_hit)
-    want = 2 * 16 + 2 * 15 if any_hit else 2 * 15
+    want = 2 * 16 * (n - 1) + 2 * 15 if any_hit else 2 * 15
     np.testing.assert_array_equal(tri_out.numpy(), np.full(K, want))
     np.testing.assert_array_equal(np.asarray(jtri), tri_out.numpy())
-    np.testing.assert_array_equal(lpops.numpy(), np.full(K, 1 if any_hit else 2))
+    np.testing.assert_array_equal(ipops.numpy(), np.full(K, 1))
+    np.testing.assert_array_equal(lpops.numpy(), np.full(K, 1 if any_hit else n))
     if not any_hit:
         np.testing.assert_allclose(t.numpy(), 2.0, rtol=1e-6)
+
+
+def test_cycles_diagnostic_refuses_cpu():
+    """``split_traverse_cycles`` exists only on the card: CPU tensors raise
+    a clear error (nothing falls back to the plain version), at either row
+    width and either inner-row design, and no K1 launch is counted."""
+    ops = st.kernel_operands(Rays(torch.zeros((4, 3)), torch.ones((4, 3)), torch.zeros(4),
+                                  torch.ones(4)))
+    pairs = torch.zeros((64, 16), dtype=torch.int32)
+    before = st.launch_count
+    for w in st.WIDTHS:
+        for per_lane in (False, True):
+            with pytest.raises(ValueError, match="only on the card"):
+                st.split_traverse_cycles(torch.zeros((2, w, 8), dtype=torch.int32), pairs, *ops,
+                                         leafw=16, any_hit=False, stack_cap=64,
+                                         per_lane=per_lane)
+    assert st.launch_count == before
 
 
 def test_wrapper_width_check():

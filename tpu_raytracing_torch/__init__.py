@@ -8,11 +8,10 @@ replaces the Pallas traversal kernels with CUDA kernels written for
 Hopper (``csrc/split_trace.cu``, ``csrc/lane_trace.cu``,
 ``csrc/fat_traverse.cu``), built with ``nvcc`` at first use.
 
-The port currently covers the path-traced frame that ``bench.py`` times
-(procedural scenes, the Morton-bucket split-BVH build and refit, the split
-traversal and the wavefront path tracer), the treelet BVH and its per-ray
-tracer, and the binary BVH: the Karras build, the scalar tracer and the
-8-wide fat traversal (see ROADMAP.md for what is still to port).
+The port does all that the JAX package does: every scene, build, tracer,
+render mode and app flag, and the multi-device renderers on
+``torch.distributed``. What it leaves out on purpose is TPU-only code
+(ROADMAP.md, "Not ported").
 """
 
 __version__ = "0.1.0"

@@ -34,6 +34,8 @@ NVCC_FLAGS = [
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (build seconds, nvcc/ptxas output); 0 s when the cached build was reused
 BUILD_INFO: Dict[str, Tuple[float, str]] = {}
+# name -> the built shared library
+LIB_PATHS: Dict[str, Path] = {}
 
 
 def nvcc_path() -> str:
@@ -75,6 +77,7 @@ def load_library(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
         BUILD_INFO[name] = (seconds, output)
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
+    LIB_PATHS[name] = so
     return lib
 
 

@@ -38,6 +38,11 @@ tag 2 s + 1 at the leaf window from pair s. The wrapper expands them to one
 tag per ray (``split_traverse(start=...)``); without them every ray starts
 at the root, tag 0.
 
+``split_traverse_cycles`` is a diagnostic off every frame path: K1's
+clock64 instantiation, on the card only, splitting each ray's warp cycles
+into inner rows, its own leaf windows and its wait at a leaf; at 16 wide
+it also profiles the per-lane inner rows the half-warp design replaced.
+
 ``make_split_tracer``'s sort modes (``split_pallas.py:1873-2020``):
 ``"presorted"`` traces the caller's order; ``"binned"`` calls
 ``trace/binned.py:trace_rays_binned`` on it; ``"origin"`` and
@@ -249,6 +254,11 @@ def trace_split_plain(inner, pairs, origin, direction, tmin, tmax, *, leafw: int
 
 
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_PROFILE_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int] + [ctypes.c_void_p] * 2
+# The phases of ``split_traverse_cycles``: step 1 (inner rows), the leaf
+# windows of the ray's own group, the rest of step 2 while the ray waits
+# at its leaf (the scheduling and the other groups' windows).
+PHASES = ("inner rows", "leaf windows", "leaf wait")
 
 
 def _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw: int,
@@ -282,6 +292,34 @@ def _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw: int,
                          f"{pairs.shape[0]} pair rows")
 
 
+def _launch(entry: str, argtypes, inner, pairs, origin, direction, tmin, tmax, leafw: int,
+            any_hit: bool, stack_cap: int, start, *extra, library: str = "split_trace"):
+    """Launches the C entry ``entry`` of the built ``library``; returns (t,
+    tri, inner_pops, leaf_pops, overflow [1])."""
+    _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw, stack_cap, start)
+    fn = getattr(_cuda_build.load_library(library), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    num = origin.shape[0]
+    dev = origin.device
+    t = torch.empty((num,), dtype=torch.float32, device=dev)
+    tri = torch.empty((num,), dtype=torch.int32, device=dev)
+    ipops = torch.empty((num,), dtype=torch.int32, device=dev)
+    lpops = torch.empty((num,), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if num == 0:
+        return t, tri, ipops, lpops, overflow
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(inner.data_ptr(), pairs.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+             tmin.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
+             ipops.data_ptr(), lpops.data_ptr(), overflow.data_ptr(),
+             None if start is None else start.data_ptr(),
+             num, inner.shape[1], leafw, int(any_hit), stack_cap, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"split_trace kernel launch failed: cudaError {err}")
+    return t, tri, ipops, lpops, overflow
+
+
 def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
                    any_hit: bool, stack_cap: int, start=None):
     """K1: traverse a split BVH for every ray (see the module docstring).
@@ -305,30 +343,29 @@ def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
                                  leafw=leafw, any_hit=any_hit, stack_cap=stack_cap, start=start)
     if origin.device.type != "cuda":
         raise ValueError(f"split_traverse: unsupported device {origin.device}")
-    _check_operands(inner, pairs, origin, direction, tmin, tmax, leafw, stack_cap, start)
-    lib = _cuda_build.load_library("split_trace")
-    fn = lib.split_trace_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    num = origin.shape[0]
-    dev = origin.device
-    t = torch.empty((num,), dtype=torch.float32, device=dev)
-    tri = torch.empty((num,), dtype=torch.int32, device=dev)
-    ipops = torch.empty((num,), dtype=torch.int32, device=dev)
-    lpops = torch.empty((num,), dtype=torch.int32, device=dev)
-    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
-    if num == 0:
-        return t, tri, ipops, lpops, overflow
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(inner.data_ptr(), pairs.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-             tmin.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
-             ipops.data_ptr(), lpops.data_ptr(), overflow.data_ptr(),
-             None if start is None else start.data_ptr(),
-             num, inner.shape[1], leafw, int(any_hit), stack_cap, stream)
-    if err != 0:
-        raise RuntimeError(f"split_trace kernel launch failed: cudaError {err}")
+    out = _launch("split_trace_launch", _ARGTYPES, inner, pairs, origin, direction, tmin, tmax,
+                  leafw, any_hit, stack_cap, start)
     launch_count += 1
-    return t, tri, ipops, lpops, overflow
+    return out
+
+
+def split_traverse_cycles(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
+                          any_hit: bool, stack_cap: int, start=None, per_lane: bool = False):
+    """A diagnostic on CUDA tensors, off every frame path: ``split_traverse``'s
+    outputs from K1's clock64 instantiation, then the [3, R] int64 warp
+    cycles booked to each ray in the ``PHASES``, each taken at a
+    __syncwarp: a round's inner rows to every ray in the round, a window's
+    tests to the rays of its group, the rest of the leaf loop to the other
+    rays at a leaf. ``per_lane``
+    profiles, at 16 wide, the per-lane inner rows that the half-warp design
+    replaced; 8-wide rows run per lane either way. Counts no K1 launch."""
+    if origin.device.type != "cuda":
+        raise ValueError("split_traverse_cycles: cycle counts exist only on the card")
+    cycles = torch.zeros((len(PHASES), origin.shape[0]), dtype=torch.int64, device=origin.device)
+    out = _launch("split_trace_profile_launch", _PROFILE_ARGTYPES, inner, pairs, origin,
+                  direction, tmin, tmax, leafw, any_hit, stack_cap, start, int(per_lane),
+                  cycles.data_ptr())
+    return (*out, cycles)
 
 
 def check_overflow(overflow: torch.Tensor) -> None:
