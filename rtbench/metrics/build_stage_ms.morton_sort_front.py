@@ -1,0 +1,8 @@
+"""Self stream time per profiled frame of the split build's
+``build.morton_sort_front`` spans."""
+
+from rtbench import spans
+
+
+def read(ctx):
+    return spans.stage_ms(ctx, ["build.morton_sort_front"])

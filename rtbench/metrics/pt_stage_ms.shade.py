@@ -1,0 +1,8 @@
+"""Self stream time per profiled frame of the path tracer's
+``path_trace.shade`` spans."""
+
+from rtbench import spans
+
+
+def read(ctx):
+    return spans.stage_ms(ctx, ["path_trace.shade"])

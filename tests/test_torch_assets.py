@@ -195,7 +195,6 @@ def test_compare_and_timing():
     with timer.stage("block") as st:
         st["value"] = torch.zeros(2)
     assert [n for n, _ in timer.stages] == ["stage", "block"]
-    assert set(timer.totals()) == {"stage", "block"}
     fps = timing.FPSCounter()
     assert fps.tick() is not None and fps.fps_limit >= 1
 

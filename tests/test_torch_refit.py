@@ -37,6 +37,7 @@ from tpu_raytracing_torch.trace import split_trace as st  # noqa: E402
 from tpu_raytracing_torch.trace.brute import brute_force_trace as tbrute  # noqa: E402
 from tpu_raytracing_torch.trace.ray import Rays  # noqa: E402
 from tpu_raytracing_torch.trace.traverse import PackedPairs  # noqa: E402
+from tpu_raytracing_torch.utils import timing  # noqa: E402
 
 torch.set_num_threads(2)
 LEAFW = st.LEAFW
@@ -226,10 +227,13 @@ def _run(scheds, plan):
     return flags
 
 
-@pytest.mark.parametrize("case", ["stable", "inflation", "periodic", "seed"])
+@pytest.mark.parametrize("case", ["stable", "inflation", "periodic", "seed", "interval3"])
 def test_guarded_refit_decisions_match_reference(case):
-    """The four cases of tests/test_refit_guard.py, the reference's schedule
-    and the port's side by side: the same rebuild/refit sequence."""
+    """The four cases of tests/test_refit_guard.py and a rebuild every
+    fourth frame (``max_interval=3``), the reference's schedule and the
+    port's side by side: the same rebuild/refit sequence. Under the
+    profiler the port counts its frames and each rebuild under its reason
+    (``utils/timing.py``)."""
     if case == "stable":
         scheds = _schedules(quality_bound=1.3)
         plan = [None, "same", "same", "same", "same"]
@@ -241,19 +245,30 @@ def test_guarded_refit_decisions_match_reference(case):
     elif case == "periodic":
         scheds = _schedules(quality_bound=0.0, max_interval=2)
         plan = [None] + ["same"] * 6
+    elif case == "interval3":
+        scheds = _schedules(quality_bound=0.0, max_interval=3)
+        plan = [None] + ["same"] * 8
     else:
         scheds = _schedules()
         (jsched, jtris), (tsched, ttris) = scheds
         jsched.seed(*_jax_rebuild_fn()(jtris))
         tsched.seed(*tbucket.build_bucket_split(ttris, leaf_width=16))
         plan = ["same", "same"]
-    ref, out = _run(scheds, plan)
+    timing.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        ref, out = _run(scheds, plan)
     assert out == ref
     expect = {"stable": [True, False, False, False, False],
               "inflation": [True, False, True, False],
               "periodic": [True, False, False, True, False, False, True],
-              "seed": [False, False]}[case]
+              "seed": [False, False],
+              "interval3": [True, False, False, False, True, False, False, False, True]}[case]
     assert out[0] == expect
+    rebuilds = {"stable": {"forced": 1}, "inflation": {"forced": 1, "monitor": 1},
+                "periodic": {"forced": 1, "interval": 2}, "seed": {},
+                "interval3": {"forced": 1, "interval": 2}}[case]
+    assert timing.recorded()["counters"] == {
+        "refit.frames": len(plan), **{f"refit.rebuild.{k}": n for k, n in rebuilds.items()}}
 
 
 @pytest.fixture(scope="module")

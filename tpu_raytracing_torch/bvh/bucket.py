@@ -29,6 +29,15 @@ tracer's stack bound for the tree.
 
 ``bvh/invariants.py``'s ``checkify`` checks become host checks behind
 ``emit_split(..., debug=True)``.
+
+The split build's stages are spans (``utils/timing.py``) named after the
+six stages of the reference's profile (``--profile-build``):
+``build.morton_sort_front`` (``split_front``), ``build.bucket_tables``
+(``leaf_major_tables``), ``build.classification`` (``classify_split``),
+``build.range_min_aabb_table`` (the entries' range-min boxes),
+``build.emit_scatter`` (``emit_split``, whose self time is the scatter)
+and ``build.kernel_view_prep`` (``split_views``); the refit is
+``build.refit``.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from tpu_raytracing_torch.trace.traverse import (
     f2i,
     i2f,
 )
+from tpu_raytracing_torch.utils import timing
 
 _F32_MAX = float(torch.finfo(torch.float32).max)
 # Fine-tier depth of the range-min table (the reference's _RANGE_K0).
@@ -316,11 +326,13 @@ def build_bucket_fat(triangles: torch.Tensor, enable_pairs: bool = False):
     return FatWideBVH(rows=rows, num_nodes=total_rows), packed
 
 
+@timing.spanned("build.morton_sort_front")
 def split_front(triangles: torch.Tensor, enable_pairs: bool = False):
     """The build's sort-heavy front end as a standalone stage."""
     return _sorted_leaves(triangles, enable_pairs)
 
 
+@timing.spanned("build.bucket_tables")
 def leaf_major_tables(sorted_codes, num_leaves, n: int, width: int):
     """Leaf-major per-level bucket tables: (heads [L, n] bool, starts,
     nxts, counts — [L, n] int64), including the capped chunk ladder."""
@@ -358,6 +370,7 @@ def leaf_major_tables(sorted_codes, num_leaves, n: int, width: int):
     return heads, starts, nxts, counts
 
 
+@timing.spanned("build.classification")
 def classify_split(heads, starts, counts, live, num_leaves, n: int,
                    leaf_width: int):
     """Dense [L, n] classification + inner row ids + effective tags.
@@ -526,6 +539,7 @@ def _check_widths(leaf_width: int, inner_width: int) -> None:
         raise ValueError(f"leaf_width {leaf_width} < inner_width {inner_width}")
 
 
+@timing.spanned("build.emit_scatter")
 def emit_split(front, leaf_width: int = 16, inner_width: int = 8, debug: bool = False):
     """Emit the SplitBVH from a ``split_front`` result: (SplitBVH,
     PackedPairs), with ``e_ranges`` (each entry's leaf range, what
@@ -575,7 +589,8 @@ def emit_split(front, leaf_width: int = 16, inner_width: int = 8, debug: bool = 
     run_start = torch.cummax(torch.where(wid_parent != prev_wp, eidx, -1), dim=0).values
     e_j = eidx - run_start
 
-    e_lo, e_hi = _range_lookup(_range_min_table(lo, hi), e_start, e_count)
+    with timing.span("build.range_min_aabb_table"):
+        e_lo, e_hi = _range_lookup(_range_min_table(lo, hi), e_start, e_count)
 
     is_leaf_e = (e_eff & 1) == 1
     child = e_eff >> 1
@@ -639,6 +654,7 @@ def build_bucket_split_v1(triangles: torch.Tensor, enable_pairs: bool = False,
     return dataclasses.replace(split, e_ranges=None), packed
 
 
+@timing.spanned("build.kernel_view_prep")
 def split_views(split: SplitBVH, packed: PackedPairs, cap: Optional[int] = None):
     """K1's views of a split tree and its sorted pair rows (the port's
     counterpart of ``trace/split_pallas.py:prep_split_views``): (inner
@@ -669,6 +685,7 @@ def emit_split_views(front, leaf_width: int = 16, inner_width: int = 8, debug: b
     return split_views(split, packed), packed, split
 
 
+@timing.spanned("build.refit")
 def refit_split(split: SplitBVH, packed: PackedPairs) -> SplitBVH:
     """Topology-preserving refit: refresh every inner entry's AABB from the
     current pair rows, keeping metas, windows and row ids. The caller

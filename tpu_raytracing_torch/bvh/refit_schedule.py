@@ -35,6 +35,7 @@ import torch
 
 from tpu_raytracing_torch.bvh.bucket import SplitBVH, refit_split
 from tpu_raytracing_torch.trace.traverse import PackedPairs, i2f
+from tpu_raytracing_torch.utils import timing
 
 
 def entry_surface_area(inner: torch.Tensor) -> torch.Tensor:
@@ -90,17 +91,19 @@ class GuardedRefit:
         self.pending_sa = None
         self.frames_since_rebuild = 0
 
-    def _guard_trips(self) -> bool:
+    def _guard_trips(self) -> Optional[str]:
+        """Why this frame rebuilds (``"unseeded"``, ``"interval"`` or
+        ``"monitor"``), or None."""
         if self.split0 is None:
-            return True
+            return "unseeded"
         if self.max_interval and self.frames_since_rebuild >= self.max_interval:
-            return True
+            return "interval"
         if self.quality_bound and self.pending_sa is not None:
             # one frame late: the previous frame's scalar is long finished
             ratio = float(self.pending_sa) / max(self.sa0, 1e-30)
             if ratio > self.quality_bound:
-                return True
-        return False
+                return "monitor"
+        return None
 
     def step(self, triangles_t: torch.Tensor, rows_t: Optional[torch.Tensor] = None):
         """Advance one animated frame.
@@ -109,9 +112,15 @@ class GuardedRefit:
         used only when a rebuild runs. ``rows_t``: this frame's pair rows in
         the current tree's sorted order (``rows0`` deformed); None forces a
         rebuild (first frame, or changed topology). Returns (split, packed,
-        rebuilt).
+        rebuilt). While ``timing.tracing()`` it counts the frame
+        (``refit.frames``) and a rebuild under its reason
+        (``refit.rebuild.<reason>``: ``forced`` without ``rows_t``, else
+        ``_guard_trips``').
         """
-        if rows_t is None or self._guard_trips():
+        timing.count("refit.frames", 1)
+        reason = "forced" if rows_t is None else self._guard_trips()
+        if reason is not None:
+            timing.count(f"refit.rebuild.{reason}", 1)
             split, packed = self._rebuild(triangles_t)
             self.seed(split, packed)
             self.rebuild_count += 1

@@ -58,6 +58,7 @@ from tpu_raytracing_torch.trace.brute import HitRecord
 from tpu_raytracing_torch.trace.packet import tile_reorder, tile_restore
 from tpu_raytracing_torch.trace.ray import Rays
 from tpu_raytracing_torch.trace.traverse import TraceStats, i2f
+from tpu_raytracing_torch.utils import timing
 
 ROW_WORDS = 256
 # Optimal 8-input sorting network (19 comparators).
@@ -337,9 +338,10 @@ def _launch(entry: str, argtypes, rows, origin, direction, tmin, tmax, *extra,
     if num == 0:
         return (*out, overflow)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(rows.data_ptr(), origin.data_ptr(), direction.data_ptr(), tmin.data_ptr(),
-             tmax.data_ptr(), *(x.data_ptr() for x in out), overflow.data_ptr(), num, STACK,
-             *extra, stream)
+    with timing.span("k6"):
+        err = fn(rows.data_ptr(), origin.data_ptr(), direction.data_ptr(), tmin.data_ptr(),
+                 tmax.data_ptr(), *(x.data_ptr() for x in out), overflow.data_ptr(), num,
+                 STACK, *extra, stream)
     if err != 0:
         raise RuntimeError(f"fat_traverse kernel launch failed: cudaError {err}")
     return (*out, overflow)
@@ -355,15 +357,14 @@ def fat_traverse(rows, origin, direction, tmin, tmax, count: bool = False):
     (int32 [R]: the plain version's ``box_tests`` and ``tri_entry_tests``).
 
     CPU tensors run ``trace_fat_plain``; CUDA tensors launch the kernel or
-    raise.
+    raise. The launch (the plain version on the CPU) is the span ``k6``.
     """
     global launch_count, count_launch_count
     if origin.device.type == "cpu":
-        if not count:
-            return trace_fat_plain(rows, origin, direction, tmin, tmax)
-        counts = {}
-        out = trace_fat_plain(rows, origin, direction, tmin, tmax, counts=counts)
-        return (*out, counts["box_tests"], counts["tri_entry_tests"])
+        counts = {} if count else None
+        with timing.span("k6"):
+            out = trace_fat_plain(rows, origin, direction, tmin, tmax, counts=counts)
+        return out if not count else (*out, counts["box_tests"], counts["tri_entry_tests"])
     if origin.device.type != "cuda":
         raise ValueError(f"fat_traverse: unsupported device {origin.device}")
     if not count:

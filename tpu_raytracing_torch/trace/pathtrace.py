@@ -49,6 +49,7 @@ from tpu_raytracing_torch.trace.render import (
 )
 from tpu_raytracing_torch.trace.split_trace import check_overflow
 from tpu_raytracing_torch.trace.traverse import trace_rays
+from tpu_raytracing_torch.utils import timing
 
 SKY_HORIZON = (1.0, 1.0, 1.0)
 SKY_ZENITH = (0.5, 0.7, 1.0)
@@ -110,71 +111,74 @@ def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughp
 
     Returns (radiance, throughput, alive, pixel, rays). With
     ``sample_next=False`` (the final bounce) sampling and compaction are
-    skipped.
+    skipped. The spans ``path_trace.shade`` and ``path_trace.compact``
+    cover the two parts.
     """
     if sort_cells:
         _check_sort_kind(sort_kind, pair_loc)
-    miss = alive & ~rec.hit
-    radiance = radiance + torch.where(miss[:, None], throughput * _sky(rays.direction), 0.0)
-    alive = alive & rec.hit
+    with timing.span("path_trace.shade"):
+        miss = alive & ~rec.hit
+        radiance = radiance + torch.where(miss[:, None], throughput * _sky(rays.direction), 0.0)
+        alive = alive & rec.hit
 
-    ctx = _gather_hit_context(scene, pairs, rec)
-    albedo = ctx["mat_diffuse"]
-    normal = shade.interpolate(ctx["normals3"], rec.bary_u, rec.bary_v)
-    normal = normal / torch.clamp(
-        torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-20)
-    normal = torch.where((dot(normal, rays.direction) > 0.0)[:, None], -normal, normal)
-    hit_pos = rays.origin + rays.direction * rec.t[:, None]
+        ctx = _gather_hit_context(scene, pairs, rec)
+        albedo = ctx["mat_diffuse"]
+        normal = shade.interpolate(ctx["normals3"], rec.bary_u, rec.bary_v)
+        normal = normal / torch.clamp(
+            torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-20)
+        normal = torch.where((dot(normal, rays.direction) > 0.0)[:, None], -normal, normal)
+        hit_pos = rays.origin + rays.direction * rec.t[:, None]
 
-    # Next-event estimation using the caller-provided shadow trace.
-    srays_dir = _shadow_rays(scene, rays, rec).direction
-    ndotl = torch.clamp(dot(normal, srays_dir), min=0.0)
-    radiance = radiance + torch.where(
-        (alive & ~srec_hit)[:, None],
-        throughput * albedo * ndotl[:, None] * shade.light_colour(normal.device)[None, :],
-        0.0,
-    )
-    if not sample_next:
-        return radiance, throughput, alive, pixel, rays
+        # Next-event estimation using the caller-provided shadow trace.
+        srays_dir = _shadow_rays(scene, rays, rec).direction
+        ndotl = torch.clamp(dot(normal, srays_dir), min=0.0)
+        radiance = radiance + torch.where(
+            (alive & ~srec_hit)[:, None],
+            throughput * albedo * ndotl[:, None] * shade.light_colour(normal.device)[None, :],
+            0.0,
+        )
+        if not sample_next:
+            return radiance, throughput, alive, pixel, rays
 
-    throughput = throughput * albedo
-    num = pixel.shape[0]
-    new_rays = Rays(
-        origin=hit_pos + normal * 1e-4,
-        direction=_cosine_sample(normal, u_frame[pixel]),
-        tmin=torch.full((num,), SHADOW_TMIN, dtype=torch.float32, device=normal.device),
-        tmax=torch.as_tensor(max_t, dtype=torch.float32, device=normal.device).expand(num),
-    )
+        throughput = throughput * albedo
+        num = pixel.shape[0]
+        new_rays = Rays(
+            origin=hit_pos + normal * 1e-4,
+            direction=_cosine_sample(normal, u_frame[pixel]),
+            tmin=torch.full((num,), SHADOW_TMIN, dtype=torch.float32, device=normal.device),
+            tmax=torch.as_tensor(max_t, dtype=torch.float32, device=normal.device).expand(num),
+        )
     if compaction:
-        dead = (~alive).to(torch.int64)
-        if sort_cells:
-            octant = _octant(new_rays.direction)
-            pair = torch.clamp(rec.tri_id.to(torch.int64) >> 1, min=0)
-            if sort_kind == "tid_cell":
-                # treelet major, then octant, then the coarse origin cell
-                tid = pair_loc[pair].to(torch.int64)
-                cellm = morton3d(_unit_cube(new_rays.origin))
-                key = ((dead << 30) | ((tid & 0xFFF) << 18) | (octant << 15)
-                       | ((cellm >> 15) & 0x7FFF))
-            else:
-                if sort_kind == "tid":
-                    # the origin hit pair's treelet: subtree-aligned groups
-                    loc = pair_loc[pair].to(torch.int64)
-                elif sort_kind == "leaf":
-                    # hit pair's sorted index: a space-filling-curve position
-                    # at leaf granularity, aligned to the tree's windows
-                    loc = pair >> leaf_shift
+        with timing.span("path_trace.compact"):
+            dead = (~alive).to(torch.int64)
+            if sort_cells:
+                octant = _octant(new_rays.direction)
+                pair = torch.clamp(rec.tri_id.to(torch.int64) >> 1, min=0)
+                if sort_kind == "tid_cell":
+                    # treelet major, then octant, then the coarse origin cell
+                    tid = pair_loc[pair].to(torch.int64)
+                    cellm = morton3d(_unit_cube(new_rays.origin))
+                    key = ((dead << 30) | ((tid & 0xFFF) << 18) | (octant << 15)
+                           | ((cellm >> 15) & 0x7FFF))
                 else:
-                    loc = morton3d(_unit_cube(new_rays.origin)) >> cell_shift
-                key = (dead << 30) | (loc << 3) | octant
-        else:
-            key = dead
-        perm = torch.sort(key, stable=True).indices
-        new_rays = new_rays.take(perm)
-        throughput = throughput[perm]
-        radiance = radiance[perm]
-        alive = alive[perm]
-        pixel = pixel[perm]
+                    if sort_kind == "tid":
+                        # the origin hit pair's treelet: subtree-aligned groups
+                        loc = pair_loc[pair].to(torch.int64)
+                    elif sort_kind == "leaf":
+                        # hit pair's sorted index: a space-filling-curve position
+                        # at leaf granularity, aligned to the tree's windows
+                        loc = pair >> leaf_shift
+                    else:
+                        loc = morton3d(_unit_cube(new_rays.origin)) >> cell_shift
+                    key = (dead << 30) | (loc << 3) | octant
+            else:
+                key = dead
+            perm = torch.sort(key, stable=True).indices
+            new_rays = new_rays.take(perm)
+            throughput = throughput[perm]
+            radiance = radiance[perm]
+            alive = alive[perm]
+            pixel = pixel[perm]
     return radiance, throughput, alive, pixel, new_rays
 
 
@@ -199,6 +203,7 @@ def _finalize(radiance, pixel):
     return img
 
 
+@timing.spanned("path_trace")
 def path_trace(
     trav,
     pairs,
@@ -229,6 +234,11 @@ def path_trace(
     (``bvh/treelet.py:build_pair_tid``); ``sort_kind`` picks the bounce
     compaction key: ``"tid"`` (the default with ``pair_loc``), ``"leaf"``
     (the default without), ``"tid_cell"`` or ``"cell"``.
+
+    The call is the span ``path_trace``; each tracer call is a child span
+    (``.primary``, ``.primary_shadow``, ``.bounce``, ``.bounce_shadow``),
+    and so are the bounce shadows' sort and restore (``.shadow_sort``) and
+    ``_bounce_stage``'s parts (``.shade``, ``.compact``).
     """
     if tracer is None:
         tracer = trace_rays
@@ -255,14 +265,20 @@ def path_trace(
 
     for bounce in range(num_bounces + 1):
         ct = tracer if bounce == 0 else traced_b
-        rec, stats = ct(trav if bounce == 0 else trav_b, pairs, rays, active=alive)
+        with timing.span("path_trace.primary" if bounce == 0 else "path_trace.bounce"):
+            rec, stats = ct(trav if bounce == 0 else trav_b, pairs, rays, active=alive)
         if bounce >= 1:
-            srt, act_s, inv_s = _shadow_pair(scene, rays, rec, alive)
-            srec, sstats = shadow_tb(trav_b, pairs, srt, active=act_s)
-            srec_hit = srec.hit[inv_s]
+            with timing.span("path_trace.shadow_sort"):
+                srt, act_s, inv_s = _shadow_pair(scene, rays, rec, alive)
+            with timing.span("path_trace.bounce_shadow"):
+                srec, sstats = shadow_tb(trav_b, pairs, srt, active=act_s)
+            with timing.span("path_trace.shadow_sort"):
+                srec_hit = srec.hit[inv_s]
             n_shadow = act_s.sum()
         else:
-            srec, sstats = shadow_t(trav, pairs, _shadow_rays(scene, rays, rec), active=alive)
+            with timing.span("path_trace.primary_shadow"):
+                srec, sstats = shadow_t(trav, pairs, _shadow_rays(scene, rays, rec),
+                                        active=alive)
             srec_hit = srec.hit
             n_shadow = alive.sum()
         overflow = overflow + stats.overflow + sstats.overflow

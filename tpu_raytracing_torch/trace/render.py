@@ -30,6 +30,7 @@ from tpu_raytracing_torch.trace.modes import RenderType
 from tpu_raytracing_torch.trace.ray import Rays, generate_primary_rays, ray_spread
 from tpu_raytracing_torch.trace.split_trace import check_overflow
 from tpu_raytracing_torch.trace.traverse import PackedPairs, i2f, trace_rays
+from tpu_raytracing_torch.utils import timing
 
 # Shadow-ray epsilon (reference: src/Tracer.cu:453).
 SHADOW_TMIN = 1e-3
@@ -101,6 +102,7 @@ def _ambient(scene, ctx, rays, rec, spread, use_textures, use_shadows, use_bump,
     )
 
 
+@timing.spanned("render_frame")
 def render_frame(
     trav,
     pairs: PackedPairs,
@@ -140,77 +142,82 @@ def shade_rays(
     tracer=trace_rays,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trace + shade an arbitrary ray batch; returns ([R, 4] uint8, total
-    box tests). Raises if a traversal's stack overflowed."""
-    rec, stats = tracer(trav, pairs, rays)
-    overflow = stats.overflow
-    hit = rec.hit
-    depth = torch.where(hit, rec.t, 0.0)
-    max_depth = camera["max_depth"]
+    box tests). Raises if a traversal's stack overflowed. The trace is the
+    span ``render_frame.trace``, the rest ``render_frame.shade``, inside
+    which the shadow trace is ``render_frame.shadow_trace``."""
+    with timing.span("render_frame.trace"):
+        rec, stats = tracer(trav, pairs, rays)
+    with timing.span("render_frame.shade"):
+        overflow = stats.overflow
+        hit = rec.hit
+        depth = torch.where(hit, rec.t, 0.0)
+        max_depth = camera["max_depth"]
 
-    ctx = _gather_hit_context(scene, pairs, rec)
-    u8 = shade._trunc_u8
-    num = rays.origin.shape[0]
-    dev = rays.origin.device
-    alpha = torch.full((num, 1), 255, dtype=torch.uint8, device=dev)
-    black = torch.zeros((num, 3), dtype=torch.uint8, device=dev)
+        ctx = _gather_hit_context(scene, pairs, rec)
+        u8 = shade._trunc_u8
+        num = rays.origin.shape[0]
+        dev = rays.origin.device
+        alpha = torch.full((num, 1), 255, dtype=torch.uint8, device=dev)
+        black = torch.zeros((num, 3), dtype=torch.uint8, device=dev)
 
-    if render_type == RenderType.DEPTH:
-        grey = u8(torch.clamp(depth / max_depth, max=1.0) * 255.0)
-        rgb = torch.stack([grey, grey, grey], dim=-1)
-    elif render_type == RenderType.BOX_TESTS:
-        heat = u8(torch.clamp(stats.box_tests / 180.0, max=1.0) * 255.0)
-        rgb = torch.stack([torch.zeros_like(heat), heat, heat], dim=-1)
-    elif render_type == RenderType.TRIANGLE_TESTS:
-        frac = torch.clamp(stats.tri_tests / 32.0, max=1.0)
-        rgb = torch.stack([u8(frac * 100.0), u8(frac * 255.0), u8(frac * 100.0)], dim=-1)
-    elif render_type == RenderType.MATERIAL_ID:
-        h = ctx["material_id"].to(torch.float32) / float(scene.num_materials)
-        one = torch.ones_like(h)
-        rgb = u8(shade.hsv_to_rgb(h, one, one))
-        rgb = torch.where(hit[:, None], rgb, black)
-    elif render_type == RenderType.DIFFUSE:
-        col = _ambient(scene, ctx, rays, rec, spread, False, False, False)
-        rgb = torch.where(hit[:, None], u8(col), black)
-    elif render_type == RenderType.LODS:
-        lod = shade.compute_lod(
-            scene.textures, ctx["mat_texture"], ctx["tri_v0"], ctx["tri_v1"],
-            ctx["tri_v2"], ctx["uvs3"], rec.bary_u, rec.bary_v,
-            rays.origin, rays.direction, rec.t, spread,
-        )
-        # make_uchar4(int(lod) * 20) wraps mod 256 and fills all channels.
-        grey = _u8_mod(shade._to_i32(lod) * 20)
-        valid = hit & (ctx["mat_texture"] != -1)
-        magenta = torch.tensor([[255, 0, 255]], dtype=torch.uint8, device=dev).expand(num, 3)
-        rgb = torch.where(valid[:, None], torch.stack([grey] * 3, -1), magenta)
-        a = torch.where(valid[:, None], grey[:, None], alpha)
+        if render_type == RenderType.DEPTH:
+            grey = u8(torch.clamp(depth / max_depth, max=1.0) * 255.0)
+            rgb = torch.stack([grey, grey, grey], dim=-1)
+        elif render_type == RenderType.BOX_TESTS:
+            heat = u8(torch.clamp(stats.box_tests / 180.0, max=1.0) * 255.0)
+            rgb = torch.stack([torch.zeros_like(heat), heat, heat], dim=-1)
+        elif render_type == RenderType.TRIANGLE_TESTS:
+            frac = torch.clamp(stats.tri_tests / 32.0, max=1.0)
+            rgb = torch.stack([u8(frac * 100.0), u8(frac * 255.0), u8(frac * 100.0)], dim=-1)
+        elif render_type == RenderType.MATERIAL_ID:
+            h = ctx["material_id"].to(torch.float32) / float(scene.num_materials)
+            one = torch.ones_like(h)
+            rgb = u8(shade.hsv_to_rgb(h, one, one))
+            rgb = torch.where(hit[:, None], rgb, black)
+        elif render_type == RenderType.DIFFUSE:
+            col = _ambient(scene, ctx, rays, rec, spread, False, False, False)
+            rgb = torch.where(hit[:, None], u8(col), black)
+        elif render_type == RenderType.LODS:
+            lod = shade.compute_lod(
+                scene.textures, ctx["mat_texture"], ctx["tri_v0"], ctx["tri_v1"],
+                ctx["tri_v2"], ctx["uvs3"], rec.bary_u, rec.bary_v,
+                rays.origin, rays.direction, rec.t, spread,
+            )
+            # make_uchar4(int(lod) * 20) wraps mod 256 and fills all channels.
+            grey = _u8_mod(shade._to_i32(lod) * 20)
+            valid = hit & (ctx["mat_texture"] != -1)
+            magenta = torch.tensor([[255, 0, 255]], dtype=torch.uint8, device=dev).expand(num, 3)
+            rgb = torch.where(valid[:, None], torch.stack([grey] * 3, -1), magenta)
+            a = torch.where(valid[:, None], grey[:, None], alpha)
+            check_overflow(overflow)
+            return torch.cat([rgb, a], dim=1), stats.box_tests.sum()
+        elif render_type == RenderType.TEXTURE:
+            lod = shade.compute_lod(
+                scene.textures, ctx["mat_texture"], ctx["tri_v0"], ctx["tri_v1"],
+                ctx["tri_v2"], ctx["uvs3"], rec.bary_u, rec.bary_v,
+                rays.origin, rays.direction, rec.t, spread,
+            )
+            uvs = shade.interpolate(ctx["uvs3"], rec.bary_u, rec.bary_v)
+            smp = shade.trilinear_sample(scene.textures, ctx["mat_texture"], uvs, lod)
+            flat = u8(ctx["mat_diffuse"] * 255.0)
+            rgb = torch.where((ctx["mat_texture"] != -1)[:, None], u8(smp[:, 0:3]), flat)
+            rgb = torch.where(hit[:, None], rgb, black)
+        elif render_type == RenderType.TEXTURE_LIT:
+            col = _ambient(scene, ctx, rays, rec, spread, True, False, True)
+            rgb = torch.where(hit[:, None], u8(col), black)
+        elif render_type == RenderType.TEXTURE_LIT_SHADOWS:
+            with timing.span("render_frame.shadow_trace"):
+                srec, sstats = tracer(trav, pairs, _shadow_rays(scene, rays, rec))
+            overflow = overflow + sstats.overflow
+            col = _ambient(
+                scene, ctx, rays, rec, spread, True, True, True, shadow_hit=srec.hit
+            )
+            rgb = torch.where(hit[:, None], u8(col), black)
+        else:
+            raise ValueError(f"unknown render type {render_type}")
+
         check_overflow(overflow)
-        return torch.cat([rgb, a], dim=1), stats.box_tests.sum()
-    elif render_type == RenderType.TEXTURE:
-        lod = shade.compute_lod(
-            scene.textures, ctx["mat_texture"], ctx["tri_v0"], ctx["tri_v1"],
-            ctx["tri_v2"], ctx["uvs3"], rec.bary_u, rec.bary_v,
-            rays.origin, rays.direction, rec.t, spread,
-        )
-        uvs = shade.interpolate(ctx["uvs3"], rec.bary_u, rec.bary_v)
-        smp = shade.trilinear_sample(scene.textures, ctx["mat_texture"], uvs, lod)
-        flat = u8(ctx["mat_diffuse"] * 255.0)
-        rgb = torch.where((ctx["mat_texture"] != -1)[:, None], u8(smp[:, 0:3]), flat)
-        rgb = torch.where(hit[:, None], rgb, black)
-    elif render_type == RenderType.TEXTURE_LIT:
-        col = _ambient(scene, ctx, rays, rec, spread, True, False, True)
-        rgb = torch.where(hit[:, None], u8(col), black)
-    elif render_type == RenderType.TEXTURE_LIT_SHADOWS:
-        srec, sstats = tracer(trav, pairs, _shadow_rays(scene, rays, rec))
-        overflow = overflow + sstats.overflow
-        col = _ambient(
-            scene, ctx, rays, rec, spread, True, True, True, shadow_hit=srec.hit
-        )
-        rgb = torch.where(hit[:, None], u8(col), black)
-    else:
-        raise ValueError(f"unknown render type {render_type}")
-
-    check_overflow(overflow)
-    return torch.cat([rgb, alpha], dim=1), stats.box_tests.sum()
+        return torch.cat([rgb, alpha], dim=1), stats.box_tests.sum()
 
 
 def render_frame_host(trav, pairs, scene, camera, width, height, render_type,

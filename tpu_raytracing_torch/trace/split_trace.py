@@ -70,6 +70,7 @@ from tpu_raytracing_torch.trace.packet import (
 )
 from tpu_raytracing_torch.trace.ray import Rays
 from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, i2f, reconstruct
+from tpu_raytracing_torch.utils import timing
 
 # Rays per screen tile for the tiled tracers (16 x K/16 pixels).
 K = 256
@@ -310,11 +311,12 @@ def _launch(entry: str, argtypes, inner, pairs, origin, direction, tmin, tmax, l
     if num == 0:
         return t, tri, ipops, lpops, overflow
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(inner.data_ptr(), pairs.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-             tmin.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
-             ipops.data_ptr(), lpops.data_ptr(), overflow.data_ptr(),
-             None if start is None else start.data_ptr(),
-             num, inner.shape[1], leafw, int(any_hit), stack_cap, *extra, stream)
+    with timing.span("k1"):
+        err = fn(inner.data_ptr(), pairs.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+                 tmin.data_ptr(), tmax.data_ptr(), t.data_ptr(), tri.data_ptr(),
+                 ipops.data_ptr(), lpops.data_ptr(), overflow.data_ptr(),
+                 None if start is None else start.data_ptr(),
+                 num, inner.shape[1], leafw, int(any_hit), stack_cap, *extra, stream)
     if err != 0:
         raise RuntimeError(f"split_trace kernel launch failed: cudaError {err}")
     return t, tri, ipops, lpops, overflow
@@ -335,18 +337,36 @@ def split_traverse(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
     inner_pops, leaf_pops, overflow [1]).
 
     CPU tensors run ``trace_split_plain``; CUDA tensors launch the kernel
-    or raise.
+    or raise. The launch (the plain version on the CPU) is the span
+    ``k1``; while ``timing.tracing()``, the counters ``k1.pops`` (inner
+    and leaf pops) and ``k1.rays`` (live rays, tmin <= tmax) take its
+    work.
     """
     global launch_count
     if origin.device.type == "cpu":
-        return trace_split_plain(inner, pairs, origin, direction, tmin, tmax,
-                                 leafw=leafw, any_hit=any_hit, stack_cap=stack_cap, start=start)
-    if origin.device.type != "cuda":
+        with timing.span("k1"):
+            out = trace_split_plain(inner, pairs, origin, direction, tmin, tmax, leafw=leafw,
+                                    any_hit=any_hit, stack_cap=stack_cap, start=start)
+    elif origin.device.type != "cuda":
         raise ValueError(f"split_traverse: unsupported device {origin.device}")
-    out = _launch("split_trace_launch", _ARGTYPES, inner, pairs, origin, direction, tmin, tmax,
-                  leafw, any_hit, stack_cap, start)
-    launch_count += 1
+    else:
+        out = _launch("split_trace_launch", _ARGTYPES, inner, pairs, origin, direction, tmin,
+                      tmax, leafw, any_hit, stack_cap, start)
+        launch_count += 1
+    if timing.tracing():
+        _count_work(out[2], out[3], tmin, tmax)
     return out
+
+
+def _count_work(ipops, lpops, tmin, tmax) -> None:
+    """K1's counters: pops and live rays, in two kernels each (the first
+    writes int64, where a sum over int32 or bool would cast first)."""
+    pops = torch.empty(ipops.shape, dtype=torch.int64, device=ipops.device)
+    torch.add(ipops, lpops, out=pops)
+    live = torch.empty_like(pops)
+    torch.le(tmin, tmax, out=live)
+    timing.count("k1.pops", pops.sum())
+    timing.count("k1.rays", live.sum())
 
 
 def split_traverse_cycles(inner, pairs, origin, direction, tmin, tmax, *, leafw: int,
