@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check, render.
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --k1-only    # phases 1-4 and 12
+    python3 chip_smoke.py --k1-only    # phases 1-4, 19 and 12
+    python3 chip_smoke.py --shade-only # phases 1-3 and 19
     python3 chip_smoke.py --app-only   # phases 1, 2 and 13 (with phase 9's fixtures)
     python3 chip_smoke.py --animate-only   # phases 1, 2 and 14
     python3 chip_smoke.py --tracers-only   # phases 1, 2 and 15
@@ -27,17 +28,20 @@ exits non-zero if any phase fails:
 1. Device: requires CUDA; prints the card, the device count and
    ``nvidia-smi``'s name and power limit.
 2. Build: compiles ``csrc/split_trace.cu`` (K1), ``csrc/lane_trace.cu``
-   (K5), ``csrc/fat_traverse.cu`` (K6) and the probes'
-   ``csrc/micro_probe.cu`` and ``csrc/lane_probe.cu`` with nvcc, in
+   (K5), ``csrc/fat_traverse.cu`` (K6), the probes'
+   ``csrc/micro_probe.cu`` and ``csrc/lane_probe.cu`` and the path
+   tracer's ``csrc/bounce_shade.cu`` with nvcc, in
    parallel, into ``tpu_raytracing_torch/build/`` and prints each
    kernel's ptxas register and spill lines under its name.
 3. Split path: the frame ``bench.py`` times — ``terrain(1_000_000)``,
    aerial camera, per-frame split-BVH rebuild + capacity check,
    fixed-topology refit, the ``tid`` bounce sort from ``build_pair_tid``,
    then a 1024x1024 path-traced frame with 1 bounce: one warm frame and 2
-   timed ones. K1's launch count is set to 0 before these frames and read
-   after them; every frame must launch K1 at least 4 times, no ray may
-   overflow its stack, and the image must be finite with a nonzero mean.
+   timed ones. K1's and the bounce-shade kernel's launch counts are set to
+   0 before these frames and read after them; every frame must launch K1
+   at least 4 times and the bounce-shade kernel ``BOUNCES + 1`` times, no
+   ray may overflow its stack, and the image must be finite with a nonzero
+   mean.
    Two frames with the ``leaf`` sort are timed after, for comparison.
 4. K1 against its plain PyTorch version on the card, bit for bit: t, tri,
    inner and leaf pops and the overflow flag must agree on every ray, in
@@ -280,6 +284,19 @@ exits non-zero if any phase fails:
    must return the world of 1's results bit for bit, the instanced
    guard aside (a band maximum). K1's launch count is set to 0 before the
    phase and read after; its launches go into K1's ``kernels`` entry.
+19. The bounce-shade kernel (right after phase 3, on its scene, tree,
+   tracers and ``tid`` sort; ``--shade-only`` stops after it): an 8-bounce
+   frame (the benchmark's split cells) and a 1-bounce one must each launch
+   it ``num_bounces + 1`` times and match, image and ray count bit for
+   bit, the frame with ``pathtrace.bounce_shade_plain`` in its place; on
+   every call's captured inputs, with both ``sample_next`` values and every
+   ray (the dead ones too), it must match the plain version bit for bit on
+   every output; each launch as the frame made it is timed on the device
+   from ``torch.profiler``'s trace (the kernel alone) against its bytes
+   bound, and by CUDA events around the wrapper's call and around the plain
+   version. Its entry in the ``kernels`` line counts the launches of phase
+   3's frames (``BOUNCES + 1`` each) and of this phase's captured frames,
+   each count set to 0 before and read after.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
@@ -299,6 +316,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -361,6 +379,7 @@ from tpu_raytracing_torch.trace import (  # noqa: E402
 )
 from tpu_raytracing_torch.trace.brute import brute_force_trace  # noqa: E402
 from tpu_raytracing_torch.trace.modes import RenderType  # noqa: E402
+from tpu_raytracing_torch.trace import pathtrace  # noqa: E402
 from tpu_raytracing_torch.trace.pathtrace import path_trace  # noqa: E402
 from tpu_raytracing_torch.trace.ray import Rays, generate_primary_rays  # noqa: E402
 from tpu_raytracing_torch.trace.packet import tile_reorder  # noqa: E402
@@ -400,7 +419,8 @@ TIE_LEAF_WIDTHS = (8, 40, split_trace.LEAFW, 128)
 # K5's wider windows (2, 4 and 8 triangles a lane) on the tie fixtures
 TIE_LANE_WIDTHS = (24, 40, lane_trace.MAX_LEAFW)
 F32_MAX = float(torch.finfo(torch.float32).max)
-LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe"]
+LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe",
+             "bounce_shade"]
 PROBE_MODULES = (micro_pallas, micro_control, probe_lane_machine, probe_lane_machine2,
                  probe_lane_machine3)
 PROBE_N_CHECK = 4096
@@ -480,6 +500,12 @@ K1_8WIDE_SASS = ("12.9", "3813c4a2b957331919b2a7395ab3e3673c420accb7a91cfb82ef06
 # and 15 differ only above a 3-bit id; 0 and 8, and 7 and 8, meet at
 # different steps of the half-warp reduction; all 16 tie everywhere.
 WIDE16_TIES = (((7, 15), False), ((0, 8), False), ((7, 8), False), (tuple(range(16)), True))
+# Phase 19: the bounce-shade kernel on phase 3's scene and tree, at the
+# benchmark's split cells' bounce count (rtbench/configs/terrain1m-split.json)
+# and at phase 3's own; its outputs in bounce_shade's order, rays unpacked.
+SHADE_BOUNCES = (8, BOUNCES)
+SHADE_FIELDS = ("radiance", "throughput", "alive", "origin", "direction", "tmin", "tmax")
+SHADE_REPS = 5
 INTERACTIVE_W, INTERACTIVE_H = 256, 192
 INTERACTIVE_FIRST_S = 180.0
 INTERACTIVE_READ_S = 30.0
@@ -656,16 +682,21 @@ def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
     tracers = split_trace.make_frame_tracers(RES, RES)
     captured = {k: Capture(v) for k, v in tracers.items()}
     split_trace.launch_count = 0
+    pathtrace.launch_count = 0
     frame = frame_fn(views, packed, dev_scene, camera, device, **captured)
     frame(0, 0.0, pair_loc=pair_loc)
     torch.cuda.synchronize()
     ttff_s = time.perf_counter() - T_PROCESS0
     img, frame_ms, total_rays = timed_frames(frame, pair_loc=pair_loc)
     launches = split_trace.launch_count
+    shade_launches = pathtrace.launch_count
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     require(launches >= 4 * (ITERS + 1),
             f"K1 launched {launches} times in {ITERS + 1} frames (< 4 per frame)")
+    require(shade_launches == (ITERS + 1) * (BOUNCES + 1),
+            f"the bounce-shade kernel launched {shade_launches} times in {ITERS + 1} "
+            f"{BOUNCES}-bounce frames (not {(ITERS + 1) * (BOUNCES + 1)})")
     require(bool(torch.isfinite(img).all()), "frame has non-finite pixels")
     mean = float(img.mean())
     require(mean > 0.0, f"frame mean {mean} is not positive")
@@ -683,8 +714,176 @@ def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
     for key, val in out.items():
         print(f"  {key} = {val!r}  [{card}]")
     print(f"  K1 launches in {ITERS + 1} main-path frames = {launches}")
+    print(f"  bounce-shade launches in {ITERS + 1} main-path frames = {shade_launches}")
     return dict(front=front, views=views, packed=packed, captured=captured, launches=launches,
-                img=img, **out)
+                shade_launches=shade_launches, img=img, pair_loc=pair_loc, **out)
+
+
+class ShadeCapture:
+    """Stands in for ``pathtrace.bounce_shade`` while entered: keeps each
+    call's positional arguments and passes the call on."""
+
+    def __init__(self):
+        self.real = pathtrace.bounce_shade
+        self.calls = []
+
+    def __enter__(self):
+        pathtrace.bounce_shade = self
+        return self
+
+    def __exit__(self, *exc):
+        pathtrace.bounce_shade = self.real
+
+    def __call__(self, *args, sample_next=True):
+        self.calls.append(args)
+        return self.real(*args, sample_next=sample_next)
+
+
+def shade_outputs(out) -> tuple:
+    rad, thr, alive, rays = out
+    return rad, thr, alive, rays.origin, rays.direction, rays.tmin, rays.tmax
+
+
+def shade_mismatches(kout, pout) -> dict:
+    """Outputs on which the bounce-shade kernel and its plain version
+    differ: output -> (elements, largest difference in units in the last
+    place); floats compared bit for bit."""
+    bad = {}
+    for name, k, p in zip(SHADE_FIELDS, shade_outputs(kout), shade_outputs(pout)):
+        if k.dtype == torch.bool:
+            n, ulp = int((k != p).sum()), 0
+        else:
+            ki = k.contiguous().view(torch.int32).to(torch.int64)
+            pi = p.contiguous().view(torch.int32).to(torch.int64)
+            n = int((ki != pi).sum())
+            ulp = int((ki - pi).abs().max()) if n else 0
+        if n:
+            bad[name] = (n, ulp)
+    return bad
+
+
+def shade_bytes(num: int, hits: int, sample_next: bool) -> int:
+    """Bytes one bounce-shade launch must move for ``num`` rays of which
+    ``hits`` name a triangle: for every ray, in, the ray (24 B), the hit
+    record (21 B), the shadow verdict, throughput, radiance and alive; out,
+    radiance and alive; with ``sample_next`` also the pixel and its two
+    uniforms in, the throughput and the next ray (32 B) out. For each hit,
+    its gathers: one word of the pair's row, the primitive's corner normals
+    (36 B) and its material id. A ray without a hit names triangle 0
+    (trace/traverse.py:reconstruct), which every such ray shares, so its
+    gathers move no bytes of their own."""
+    per_ray = 24 + 21 + 1 + 12 + 12 + 1 + 12 + 1
+    if sample_next:
+        per_ray += 8 + 8 + 12 + 32
+    return num * per_ray + hits * (4 + 36 + 4)
+
+
+def shade_device_ms(calls) -> list:
+    """The bounce-shade kernel's device time in ms, from torch.profiler's
+    trace: each of ``calls`` (functions that each launch the kernel once)
+    is called once to warm and then SHADE_REPS times; returns the mean
+    device time of each call's kernels, in order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            for _ in range(SHADE_REPS):
+                fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "bounce_shade_kernel" in e.name)
+    require(len(spans) == SHADE_REPS * len(calls),
+            f"the profiler saw {len(spans)} bounce-shade kernels, not "
+            f"{SHADE_REPS * len(calls)}")
+    us = [us for _, us in spans]
+    return [sum(us[k:k + SHADE_REPS]) / SHADE_REPS / 1000.0
+            for k in range(0, len(us), SHADE_REPS)]
+
+
+def shade_checks(device, card: str, split: dict, dev_scene, camera) -> dict:
+    """Phase 19: the bounce-shade kernel on phase 3's scene, tree, tracers
+    and tid sort, at SHADE_BOUNCES. A frame must launch it once a bounce
+    and once more, and match the frame with the plain version in its place
+    bit for bit; on every call's captured inputs, with both sample_next
+    values and every ray (the dead ones at the back too), the kernel must
+    match the plain version bit for bit. Each launch, as the frame made
+    it, is timed on the device by the profiler (shade_device_ms) against
+    its bytes bound; the wrapper's call and the plain version by CUDA
+    events (5 after a warm one; the plain version 3). Returns the
+    benchmark's frame (the first count) for the kernels line, with the
+    launches of phase 3's frames and of this phase's captured frames."""
+    print("phase 19: the bounce-shade kernel against its plain version on phase 3's frame")
+    tracers = split_trace.make_frame_tracers(RES, RES)
+    out = None
+    launches_all = split["shade_launches"]
+    for bounces in SHADE_BOUNCES:
+        def frame(seed):
+            return path_trace(split["views"], split["packed"], dev_scene, camera, RES, RES,
+                              num_bounces=bounces,
+                              generator=torch.Generator(device=device).manual_seed(seed),
+                              pair_loc=split["pair_loc"], **tracers)
+
+        frame(ITERS + 2)  # warm
+        pathtrace.launch_count = 0
+        with ShadeCapture() as cap:
+            img, rays_traced = frame(ITERS + 3)
+            torch.cuda.synchronize()
+        launches = pathtrace.launch_count
+        launches_all += launches
+        require(launches == len(cap.calls) == bounces + 1,
+                f"a {bounces}-bounce frame launched the bounce-shade kernel {launches} times "
+                f"in {len(cap.calls)} calls (not {bounces + 1})")
+        real = pathtrace.bounce_shade
+        pathtrace.bounce_shade = pathtrace.bounce_shade_plain
+        try:
+            plain_img, plain_rays = frame(ITERS + 3)
+        finally:
+            pathtrace.bounce_shade = real
+        differ = int((img.view(torch.int32) != plain_img.view(torch.int32)).sum())
+        require(differ == 0 and int(rays_traced) == int(plain_rays),
+                f"{bounces}-bounce frame: {differ} image words differ from the plain "
+                f"version's frame, rays {int(rays_traced)} against {int(plain_rays)}")
+        print(f"  {bounces}-bounce frame: {launches} launches, image and {int(rays_traced)} "
+              f"rays bit-equal to the frame with the plain version")
+        as_launched = []
+        for b, args in enumerate(cap.calls):
+            for sample_next in (b < bounces, b >= bounces):
+                kout = pathtrace.bounce_shade(*args, sample_next=sample_next)
+                pout = pathtrace.bounce_shade_plain(*args, sample_next=sample_next)
+                bad = shade_mismatches(kout, pout)
+                require(not bad, f"{bounces}-bounce frame, bounce {b}, sample_next="
+                                 f"{int(sample_next)}: kernel and plain differ "
+                                 f"(elements, largest ulp): {bad}")
+            as_launched.append(functools.partial(pathtrace.bounce_shade, *args,
+                                                 sample_next=b < bounces))
+        device_ms = shade_device_ms(as_launched)
+        k_ms = call_ms = p_ms = nbytes = 0.0
+        for b, (args, fn, ms) in enumerate(zip(cap.calls, as_launched, device_ms)):
+            num, alive_in, sample_next = args[8].shape[0], int(args[7].sum()), b < bounces
+            hits = int(args[3].hit.sum())
+            c_ms, _ = event_ms(fn, 5)
+            plain_ms, _ = event_ms(
+                functools.partial(pathtrace.bounce_shade_plain, *args, sample_next=sample_next), 3)
+            nb = shade_bytes(num, hits, sample_next)
+            k_ms, call_ms, p_ms, nbytes = k_ms + ms, call_ms + c_ms, p_ms + plain_ms, nbytes + nb
+            print(f"    bounce {b}: {num} rays ({alive_in} alive on entry, {hits} hits), "
+                  f"sample_next={int(sample_next)}: kernel {ms!r} ms on the device, bound "
+                  f"{bound(0.0, nb)['bound_ms']!r} ms ({nb} bytes), call {c_ms!r} ms, plain "
+                  f"{plain_ms!r} ms; both sample_next values bit-equal to plain  [{card}]")
+        # the arithmetic, a few hundred operations a ray, bounds far below the bytes
+        b = bound(0.0, nbytes)
+        print(f"  {bounces}-bounce frame: kernel {k_ms!r} ms a frame on the device, bound "
+              f"{b['bound_ms']!r} ms ({b['bound_by']}), calls {call_ms!r} ms, plain {p_ms!r} ms"
+              f"  [{card}]")
+        if out is None:
+            out = dict(ms=k_ms, call_ms=call_ms, plain_ms=p_ms, max_abs_err=0.0, **b)
+    print(f"  bounce-shade launches in phase 3's and this phase's main-path frames = "
+          f"{launches_all}")
+    return dict(out, launches=launches_all)
 
 
 def k1_mismatches(kout, pout) -> dict:
@@ -4041,6 +4240,9 @@ def main(argv=None) -> int:
     parser.add_argument("--k1-only", action="store_true",
                         help="stop after phase 4 (build, bench frame, K1's checks and timings); "
                              "prints no summary lines")
+    parser.add_argument("--shade-only", action="store_true",
+                        help="stop after phases 3 and 19 (the bench frame and the bounce-shade "
+                             "kernel's checks and timings); prints no summary lines")
     parser.add_argument("--app-only", action="store_true",
                         help="run phases 1, 2 and 13 only (the app's render modes, K6's "
                              "counting instantiation with phase 9's fixtures, the rock); "
@@ -4150,6 +4352,10 @@ def main(argv=None) -> int:
     camera = aerial_camera(scene, device)
     triangles = torch.as_tensor(scene.triangles, device=device)
     split = split_path(device, card, scene, dev_scene, camera, triangles)
+    shade = shade_checks(device, card, split, dev_scene, camera)
+    if args.shade_only:
+        print("chip_smoke: stopped after phase 19 (--shade-only)")
+        return 0
     k1 = k1_checks(device, card, split)
     sah_frame = sah_checks(device, card, scene, dev_scene, camera, triangles, split)
     if args.k1_only:
@@ -4209,6 +4415,8 @@ def main(argv=None) -> int:
               binary_launches + builds["k6_launches"], k6),
         entry("fat_traverse count=True", "fat_traverse.cu",
               "tpu_raytracing/ops/pallas_traverse.py:71", app["launches"] + anim["k6c"], app),
+        entry("bounce_shade", "bounce_shade.cu",
+              "none (the JAX package shades with XLA operations)", shade["launches"], shade),
     ] + probes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

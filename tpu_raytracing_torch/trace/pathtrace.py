@@ -27,15 +27,21 @@ Differences from the reference, all deliberate:
   the TPU.
 * The traversal's stack-overflow flags are checked once per frame, on the
   host, and raise.
+* On the card a bounce's shading (``bounce_shade``: the sky, the hit
+  context, NEE, the next rays) is one CUDA kernel, ``csrc/bounce_shade.cu``,
+  bit-equal to ``bounce_shade_plain``, which the CPU runs; the reference
+  leaves these operations to XLA, which fuses them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 
+from tpu_raytracing_torch.ops import _cuda_build
 from tpu_raytracing_torch.ops.intersect import dot
 from tpu_raytracing_torch.ops.morton import morton3d
 from tpu_raytracing_torch.scene.types import DeviceScene
@@ -54,6 +60,10 @@ from tpu_raytracing_torch.utils import timing
 SKY_HORIZON = (1.0, 1.0, 1.0)
 SKY_ZENITH = (0.5, 0.7, 1.0)
 SORT_KINDS = ("leaf", "cell", "tid", "tid_cell")
+
+# Bounce-shade kernel launches since the count was last set to 0:
+# bounce_shade adds one where it launches the kernel and nowhere else.
+launch_count = 0
 
 
 def _sky(direction):
@@ -102,12 +112,156 @@ def _check_sort_kind(sort_kind: str, pair_loc) -> None:
                          "(bvh/treelet.py:build_pair_tid)")
 
 
+def bounce_shade_plain(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput,
+                       radiance, alive, pixel, u_frame, max_t, sample_next: bool = True):
+    """The bounce-shade kernel's plain version: one bounce's sky, hit
+    context, normal, next-event estimation and, with ``sample_next``, the
+    next rays, for every ray (dead ones too).
+
+    Returns (radiance, throughput, alive, rays): with ``sample_next`` the
+    throughput times the albedo and the next rays (from the hit point off
+    the surface, cosine-sampled about the normal from ``u_frame[pixel]``,
+    tmin ``SHADOW_TMIN``, tmax ``max_t``); without, the throughput and rays
+    given.
+    """
+    miss = alive & ~rec.hit
+    radiance = radiance + torch.where(miss[:, None], throughput * _sky(rays.direction), 0.0)
+    alive = alive & rec.hit
+
+    ctx = _gather_hit_context(scene, pairs, rec)
+    albedo = ctx["mat_diffuse"]
+    normal = shade.interpolate(ctx["normals3"], rec.bary_u, rec.bary_v)
+    normal = normal / torch.clamp(
+        torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-20)
+    normal = torch.where((dot(normal, rays.direction) > 0.0)[:, None], -normal, normal)
+    hit_pos = rays.origin + rays.direction * rec.t[:, None]
+
+    # Next-event estimation using the caller-provided shadow trace.
+    srays_dir = _shadow_rays(scene, rays, rec).direction
+    ndotl = torch.clamp(dot(normal, srays_dir), min=0.0)
+    radiance = radiance + torch.where(
+        (alive & ~srec_hit)[:, None],
+        throughput * albedo * ndotl[:, None] * shade.light_colour(normal.device)[None, :],
+        0.0,
+    )
+    if not sample_next:
+        return radiance, throughput, alive, rays
+
+    num = pixel.shape[0]
+    new_rays = Rays(
+        origin=hit_pos + normal * 1e-4,
+        direction=_cosine_sample(normal, u_frame[pixel]),
+        tmin=torch.full((num,), SHADOW_TMIN, dtype=torch.float32, device=normal.device),
+        tmax=torch.as_tensor(max_t, dtype=torch.float32, device=normal.device).expand(num),
+    )
+    return radiance, throughput * albedo, alive, new_rays
+
+
+def _check_shade_operands(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput,
+                          radiance, alive, pixel, u_frame, max_t) -> torch.Tensor:
+    """Raises unless the operands are what the kernel takes; returns
+    ``max_t`` as a [1] float32 tensor on the rays' device."""
+    dev = rays.origin.device
+    num = rays.origin.shape[0]
+    max_t = torch.as_tensor(max_t, dtype=torch.float32, device=dev).reshape(-1)
+    specs = [("rays.origin", rays.origin, torch.float32, (num, 3)),
+             ("rays.direction", rays.direction, torch.float32, (num, 3)),
+             ("rec.hit", rec.hit, torch.bool, (num,)),
+             ("rec.t", rec.t, torch.float32, (num,)),
+             ("rec.prim_id", rec.prim_id, torch.int32, (num,)),
+             ("rec.tri_id", rec.tri_id, torch.int32, (num,)),
+             ("rec.bary_u", rec.bary_u, torch.float32, (num,)),
+             ("rec.bary_v", rec.bary_v, torch.float32, (num,)),
+             ("srec_hit", srec_hit, torch.bool, (num,)),
+             ("throughput", throughput, torch.float32, (num, 3)),
+             ("radiance", radiance, torch.float32, (num, 3)),
+             ("alive", alive, torch.bool, (num,)),
+             ("pixel", pixel, torch.int64, (num,)),
+             ("u_frame", u_frame, torch.float32, (max(u_frame.shape[0], 1), 2)),
+             ("max_t", max_t, torch.float32, (1,)),
+             ("pairs.rows", pairs.rows, torch.int32, (max(pairs.rows.shape[0], 1), 16)),
+             ("scene.normals", scene.normals, torch.float32,
+              (max(scene.normals.shape[0], 1), 3, 3)),
+             ("scene.material_ids", scene.material_ids, torch.int32,
+              (max(scene.normals.shape[0], 1),)),
+             ("scene.materials.diffuse", scene.materials.diffuse, torch.float32,
+              (max(scene.materials.diffuse.shape[0], 1), 3)),
+             ("scene.light", scene.light, torch.float32, (3,))]
+    for name, x, dtype, shape in specs:
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"bounce_shade: {name} must be a contiguous {dtype} tensor of shape {shape} "
+                f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+                f"{'' if x.is_contiguous() else ', not contiguous'}")
+    return max_t
+
+
+_SHADE_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_float)]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# the kernel's shading constants, in bounce_shade_launch's order
+_SHADE_CONSTS = (ctypes.c_float * 10)(*SKY_HORIZON, *SKY_ZENITH, *shade.LIGHT_COLOUR_RGB,
+                                      SHADOW_TMIN)
+
+
+def bounce_shade(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput, radiance,
+                 alive, pixel, u_frame, max_t, sample_next: bool = True):
+    """One bounce's shading (``bounce_shade_plain``'s arguments and
+    results). CPU tensors run ``bounce_shade_plain``; CUDA tensors launch
+    the bounce-shade kernel (``csrc/bounce_shade.cu``), one launch a call,
+    or raise. ``pixel`` indexes the rows of ``u_frame``; a pixel out of
+    range stops the kernel, as it fails PyTorch's index check."""
+    global launch_count
+    dev = rays.origin.device
+    if dev.type == "cpu":
+        return bounce_shade_plain(scene, pairs, rays, rec, srec_hit, throughput, radiance,
+                                  alive, pixel, u_frame, max_t, sample_next=sample_next)
+    if dev.type != "cuda":
+        raise ValueError(f"bounce_shade: unsupported device {dev}")
+    max_t = _check_shade_operands(scene, pairs, rays, rec, srec_hit, throughput, radiance,
+                                  alive, pixel, u_frame, max_t)
+    fn = _cuda_build.load_library("bounce_shade").bounce_shade_launch
+    fn.argtypes = _SHADE_ARGTYPES
+    fn.restype = ctypes.c_int
+    num = pixel.shape[0]
+    rad_out = torch.empty_like(radiance)
+    alive_out = torch.empty_like(alive)
+    if sample_next:
+        thr_out = torch.empty_like(throughput)
+        new_rays = Rays(origin=torch.empty_like(rays.origin),
+                        direction=torch.empty_like(rays.direction),
+                        tmin=torch.empty((num,), dtype=torch.float32, device=dev),
+                        tmax=torch.empty((num,), dtype=torch.float32, device=dev))
+        outs = (thr_out.data_ptr(), new_rays.origin.data_ptr(), new_rays.direction.data_ptr(),
+                new_rays.tmin.data_ptr(), new_rays.tmax.data_ptr())
+    else:
+        thr_out, new_rays, outs = throughput, rays, (None,) * 5
+    if num == 0:
+        return rad_out, thr_out, alive_out, new_rays
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(rays.origin.data_ptr(), rays.direction.data_ptr(), rec.hit.data_ptr(),
+             rec.t.data_ptr(), rec.prim_id.data_ptr(), rec.tri_id.data_ptr(),
+             rec.bary_u.data_ptr(), rec.bary_v.data_ptr(), srec_hit.data_ptr(),
+             throughput.data_ptr(), radiance.data_ptr(), alive.data_ptr(), pixel.data_ptr(),
+             u_frame.data_ptr(), max_t.data_ptr(), pairs.rows.data_ptr(),
+             scene.normals.data_ptr(), scene.material_ids.data_ptr(),
+             scene.materials.diffuse.data_ptr(), scene.light.data_ptr(),
+             rad_out.data_ptr(), alive_out.data_ptr(), *outs, _SHADE_CONSTS,
+             num, u_frame.shape[0], pairs.rows.shape[0], scene.normals.shape[0],
+             scene.materials.diffuse.shape[0], int(sample_next), stream)
+    if err != 0:
+        raise RuntimeError(f"bounce_shade kernel launch failed: cudaError {err}")
+    launch_count += 1
+    return rad_out, thr_out, alive_out, new_rays
+
+
 def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput,
                   radiance, alive, pixel, u_frame, max_t, pair_loc=None,
                   compaction: bool = True, sort_cells: bool = False,
                   cell_shift: int = 15, sample_next: bool = True,
                   sort_kind: str = "cell", leaf_shift: int = 6):
-    """Shading + NEE + next-ray sampling + compaction for one bounce.
+    """Shading + NEE + next-ray sampling (``bounce_shade``) + compaction
+    for one bounce.
 
     Returns (radiance, throughput, alive, pixel, rays). With
     ``sample_next=False`` (the final bounce) sampling and compaction are
@@ -117,37 +271,11 @@ def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughp
     if sort_cells:
         _check_sort_kind(sort_kind, pair_loc)
     with timing.span("path_trace.shade"):
-        miss = alive & ~rec.hit
-        radiance = radiance + torch.where(miss[:, None], throughput * _sky(rays.direction), 0.0)
-        alive = alive & rec.hit
-
-        ctx = _gather_hit_context(scene, pairs, rec)
-        albedo = ctx["mat_diffuse"]
-        normal = shade.interpolate(ctx["normals3"], rec.bary_u, rec.bary_v)
-        normal = normal / torch.clamp(
-            torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-20)
-        normal = torch.where((dot(normal, rays.direction) > 0.0)[:, None], -normal, normal)
-        hit_pos = rays.origin + rays.direction * rec.t[:, None]
-
-        # Next-event estimation using the caller-provided shadow trace.
-        srays_dir = _shadow_rays(scene, rays, rec).direction
-        ndotl = torch.clamp(dot(normal, srays_dir), min=0.0)
-        radiance = radiance + torch.where(
-            (alive & ~srec_hit)[:, None],
-            throughput * albedo * ndotl[:, None] * shade.light_colour(normal.device)[None, :],
-            0.0,
-        )
-        if not sample_next:
-            return radiance, throughput, alive, pixel, rays
-
-        throughput = throughput * albedo
-        num = pixel.shape[0]
-        new_rays = Rays(
-            origin=hit_pos + normal * 1e-4,
-            direction=_cosine_sample(normal, u_frame[pixel]),
-            tmin=torch.full((num,), SHADOW_TMIN, dtype=torch.float32, device=normal.device),
-            tmax=torch.as_tensor(max_t, dtype=torch.float32, device=normal.device).expand(num),
-        )
+        radiance, throughput, alive, new_rays = bounce_shade(
+            scene, pairs, rays, rec, srec_hit, throughput, radiance, alive, pixel, u_frame,
+            max_t, sample_next=sample_next)
+    if not sample_next:
+        return radiance, throughput, alive, pixel, rays
     if compaction:
         with timing.span("path_trace.compact"):
             dead = (~alive).to(torch.int64)
