@@ -10,6 +10,7 @@
     python3 chip_smoke.py --modes-only     # phases 1, 2 and 16
     python3 chip_smoke.py --builds-only    # phases 1, 2 and 17
     python3 chip_smoke.py --multi-only     # phases 1, 2 and 18
+    python3 chip_smoke.py --lbvh-wide-only # phases 1, 2 and 20
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
@@ -297,6 +298,26 @@ exits non-zero if any phase fails:
    version. Its entry in the ``kernels`` line counts the launches of phase
    3's frames (``BOUNCES + 1`` each) and of this phase's captured frames,
    each count set to 0 before and read after.
+20. BASELINE config 5 as written (the benchmark's ``terrain1m-lbvh-wide``
+   configuration; last, or ``--lbvh-wide-only`` for phases 1, 2 and 20):
+   first the SASS of K6's closest-hit and counting instantiations
+   (``cuobjdump -sass``) against ``K6_SASS`` and beside each
+   ``--k6-baseline``'s; then the 1M terrain wobbled to t = ``LBVH_WIDE_T``,
+   the Karras hierarchy kernel (``csrc/lbvh_hierarchy.cu``) bit-equal to
+   ``generate_hierarchy_plain`` on that frame's paired and unpaired codes
+   and on small codes full of ties with live counts down to none, and
+   timed; its Karras tree and fat collapse through the app's ``build_accel`` and
+   ``build_trav`` (``--type bottom-up --pairs --tracer wide --bounces 8
+   --animate``), and an 8-bounce 1024x1024 frame with the app's four
+   tracers (``make_fat_frame_tracers``): K6's launches by instantiation,
+   the image and ray count bit-equal to the frame traced with the tiled
+   counting tracer alone, both frames timed; on every shadow call, K6's
+   any-hit ``hit`` equal to its closest-hit instantiation's on every ray,
+   any-hit bit-equal to ``trace_fat_plain(..., any_hit=True)`` on all six
+   outputs (every ray of the primary shadow pass and of the first bounce
+   shadow pass, ``SLICE`` live rays of the others), and both
+   instantiations timed on the operands the tracer hands over, with the
+   any-hit bound from the plain version's counts.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
@@ -393,6 +414,7 @@ from tpu_raytracing_torch.trace.traverse import (  # noqa: E402
 )
 from tpu_raytracing_torch.utils.compare import psnr  # noqa: E402
 from tpu_raytracing_torch.utils.png import read_png  # noqa: E402
+from tpu_raytracing_torch.utils.timing import StageTimer  # noqa: E402
 
 NUM_TRIS = 1_000_000
 RES = 1024
@@ -420,7 +442,7 @@ TIE_LEAF_WIDTHS = (8, 40, split_trace.LEAFW, 128)
 TIE_LANE_WIDTHS = (24, 40, lane_trace.MAX_LEAFW)
 F32_MAX = float(torch.finfo(torch.float32).max)
 LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe",
-             "bounce_shade"]
+             "bounce_shade", "lbvh_hierarchy"]
 PROBE_MODULES = (micro_pallas, micro_control, probe_lane_machine, probe_lane_machine2,
                  probe_lane_machine3)
 PROBE_N_CHECK = 4096
@@ -507,6 +529,14 @@ SHADE_BOUNCES = (8, BOUNCES)
 SHADE_FIELDS = ("radiance", "throughput", "alive", "origin", "direction", "tmin", "tmax")
 SHADE_REPS = 5
 INTERACTIVE_W, INTERACTIVE_H = 256, 192
+# Phase 20: BASELINE config 5 as written (rtbench/configs/terrain1m-lbvh-wide.json)
+# at an animated frame's time, and the SASS digest (``k6_sass``) of K6's
+# closest-hit and counting instantiations with the nvcc release that built
+# it: the any-hit instantiation must leave both unchanged.
+LBVH_WIDE_BOUNCES = 8
+LBVH_WIDE_T = 0.7
+K6_SASS = ("12.9", "20a952e6150955da2d9c9501901f9899645bf034fdd9f5ed3e19e28e6da10d5a")
+K6_MANGLED = re.compile(r"fat_traverse_kernelILb([01])ELb([01])E")
 INTERACTIVE_FIRST_S = 180.0
 INTERACTIVE_READ_S = 30.0
 
@@ -4235,6 +4265,213 @@ def multi_phase(device, card: str, scene=None, dev_scene=None, camera=None, tria
     return dict(k1=launches, split_path_ms=ms["split_path"], rays=int(rays))
 
 
+def k6_sass(so: Path) -> str:
+    """sha256 of K6's closest-hit and counting instantiations' SASS (the two
+    unprofiled ``fat_traverse_kernel``s) in the built library ``so``, their
+    instruction lines keyed by COUNT, names left out as ``k1_8wide_sass``
+    leaves them out."""
+    tool = Path(_cuda_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    bodies, key = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = K6_MANGLED.search(line)
+            key = int(m.group(2)) if m and m.group(1) == "0" else None
+            if key is not None:
+                bodies[key] = []
+        elif key is not None and "/*" in line:
+            bodies[key].append(" ".join(line.split()))
+    require(sorted(bodies) == [0, 1], f"{so.name}: K6 kernels {sorted(bodies)} in its SASS")
+    digest = hashlib.sha256()
+    for k in sorted(bodies):
+        digest.update(f"{k}\n".encode() + "\n".join(bodies[k]).encode() + b"\n")
+    return digest.hexdigest()
+
+
+def k6_sass_checks(baselines=()) -> None:
+    """Phase 20 (a): K6's registers by kernel, and its closest-hit and
+    counting instantiations' SASS against ``K6_SASS`` and each baseline's."""
+    for name, regs in kernel_registers(_cuda_build.BUILD_INFO["fat_traverse"][1]).items():
+        print(f"  {name[:100]}: {regs} registers")
+    release = nvcc_release()
+    cur = k6_sass(_cuda_build.LIB_PATHS["fat_traverse"])
+    want_release, want = K6_SASS
+    if release == want_release and want:
+        print(f"  K6 closest-hit and counting SASS (nvcc {release}): {cur} "
+              f"{'unchanged' if cur == want else 'CHANGED'} against the recorded {want}")
+        require(cur == want, "K6's closest-hit or counting instantiation's SASS changed")
+    else:
+        print(f"  K6 closest-hit and counting SASS: {cur} from nvcc {release}; the recorded "
+              f"digest {want or '(none)'} is from nvcc {want_release}, not comparable")
+    for b in baselines:
+        _cuda_build.load_library(b.name, b.source)
+        other = k6_sass(_cuda_build.LIB_PATHS[b.name])
+        print(f"  K6 closest-hit and counting SASS of {b.source}: {other} "
+              f"({'the same' if other == cur else 'different'})")
+
+
+def lbvh_hierarchy_checks(device, card: str, tris) -> dict:
+    """Phase 20 (b): the Karras hierarchy kernel (``csrc/lbvh_hierarchy.cu``)
+    against ``generate_hierarchy_plain`` on the same card, every output
+    compared: the 1M frame's paired codes (the live count a device scalar)
+    and unpaired ones, then small sorted codes with many ties and live
+    counts below the padded length, down to none. Returns its numbers on the
+    paired 1M codes, for the kernels line."""
+    aabb = lbvh.scene_aabb(tris)
+    codes, _, num_leaves = lbvh.generate_morton_codes_pairs(tris, *aabb)
+    paired = lbvh.sort_codes(codes, codes)[0]
+    unpaired = lbvh.sort_codes(*lbvh.generate_morton_codes(tris, *aabb))[0]
+    cases = [("1M paired", paired, num_leaves), ("1M unpaired", unpaired, tris.shape[0])]
+    gen = torch.Generator().manual_seed(20)
+    for n, count in ((2, 2), (2, 1), (3, 3), (3, 0), (5, 2), (1000, 1000), (1000, 617),
+                     (4097, 4097)):
+        small = torch.sort(torch.randint(0, 64, (n,), generator=gen)).values
+        cases.append((f"{n} codes, {count} live", small.to(device), count))
+    lbvh.launch_count = 0
+    for label, c, count in cases:
+        bk, lo_k, hi_k = lbvh.generate_hierarchy(c, count)
+        bp, lo_p, hi_p = lbvh.generate_hierarchy_plain(c, count)
+        bad = [f for f, a, b in (("child", bk.child, bp.child), ("count", bk.count, bp.count),
+                                 ("type", bk.type, bp.type), ("parent", bk.parent, bp.parent),
+                                 ("range_lo", lo_k, lo_p), ("range_hi", hi_k, hi_p))
+               if not torch.equal(a, b)]
+        require(not bad, f"the hierarchy kernel differs from plain on {label}: {bad}")
+    launches = lbvh.launch_count
+    require(launches == len(cases), f"{launches} hierarchy launches for {len(cases)} cases")
+    ms, _ = event_ms(lambda: lbvh.generate_hierarchy(paired, num_leaves), 10)
+    t0 = time.perf_counter()
+    lbvh.generate_hierarchy_plain(paired, num_leaves)
+    plain_ms = sync_ms(t0)
+    n = paired.shape[0]
+    # bytes: each node reads its code and its neighbours' (3 x 8 B) and
+    # writes its slot pair (2 x (3 x 4 + 2 x 8) B) and two parent words
+    res = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, launches=launches,
+               **bound(0.0, (n - 1) * (24 + 56 + 8)))
+    print(f"  the hierarchy kernel bit-equal to plain on {len(cases)} code sets; 1M paired "
+          f"codes: {ms!r} ms against a {res['bound_ms']!r} ms bytes bound, plain "
+          f"{plain_ms:.1f} ms  [{card}]")
+    return res
+
+
+def lbvh_wide_phase(device, card: str, baselines=()) -> dict:
+    """Phase 20 (see the module docstring). Returns the any-hit
+    instantiation's numbers on the first bounce shadow pass, for the
+    kernels line, and its launches, with the hierarchy kernel's under
+    ``hierarchy``."""
+    print("phase 20: BASELINE config 5 as written: a Karras rebuild at an animated frame's time, "
+          "the fat collapse, an 8-bounce frame with K6's any-hit shadows")
+    k6_sass_checks(baselines)
+    scene = procedural.terrain(NUM_TRIS)
+    dev_scene = scene_to_device(scene, device)
+    camera = aerial_camera(scene, device)
+    args = parse_cmd(["--scene", f"terrain:{NUM_TRIS}", "--type", "bottom-up", "--pairs",
+                      "--tracer", "wide", "--bounces", str(LBVH_WIDE_BOUNCES), "--animate",
+                      "--width", str(RES), "--height", str(RES), "--device", str(device)])
+    tris = procedural.animate_triangles(torch.as_tensor(scene.triangles, device=device),
+                                        LBVH_WIDE_T)
+    hierarchy = lbvh_hierarchy_checks(device, card, tris)
+    for label in ("warm", "timed"):
+        timer = StageTimer()
+        bvh, pairs = app_main.build_accel(tris, args, timer)
+        trav, packed, tracers = build_trav(args, tris, bvh, pairs, timer)
+    print(f"  {tris.shape[0]} triangles at t = {LBVH_WIDE_T}: "
+          + ", ".join(f"{n.strip()} {ms!r} ms" for n, ms in timer.stages)
+          + f"; {int(trav.num_nodes)} fat rows  [{card}]")
+    require(set(tracers) == {t for t, _ in FRAME_TRACERS}, f"the app's tracers: {set(tracers)}")
+
+    def render(trs, seed=1):
+        img, rays = path_trace(trav, packed, dev_scene, camera, RES, RES,
+                               num_bounces=LBVH_WIDE_BOUNCES,
+                               generator=torch.Generator(device=device).manual_seed(seed), **trs)
+        return img, int(rays)
+
+    calls = []
+
+    def recording(key, tracer):
+        def wrapped(trav_, packed_, rays, active=None):
+            rec, stats = tracer(trav_, packed_, rays, active=active)
+            calls.append(dict(key=key, rays=rays, active=active, hit=rec.hit,
+                              overflow=stats.overflow))
+            return rec, stats
+        return wrapped
+
+    single = dict(tracer=wide_fat.make_tiled_fat_tracer(None, RES, RES, 8, 8))
+    frame_ms = {}
+    for label, trs in (("the app's four tracers", tracers), ("the tiled tracer alone", single)):
+        render(trs)
+        t0 = time.perf_counter()
+        for i in range(ITERS):
+            render(trs, seed=i + 2)
+        frame_ms[label] = sync_ms(t0) / ITERS
+    fat_traverse.launch_count = fat_traverse.count_launch_count = 0
+    fat_traverse.any_launch_count = 0
+    img, n_rays = render({k: recording(k, v) for k, v in tracers.items()})
+    launches = (fat_traverse.count_launch_count, fat_traverse.launch_count,
+                fat_traverse.any_launch_count)
+    img1, n_rays1 = render(single)
+    print(f"  8-bounce frame: {n_rays} rays; K6 launches counting / closest-hit / any-hit "
+          f"{launches}; " + ", ".join(f"{k} {v!r} ms a frame" for k, v in frame_ms.items())
+          + f"  [{card}]")
+    require(launches == (1, LBVH_WIDE_BOUNCES, 1 + LBVH_WIDE_BOUNCES),
+            f"K6 launches by instantiation {launches}")
+    require(torch.equal(img, img1) and n_rays == n_rays1,
+            "the fat-frame image differs from the tiled tracer's alone")
+    require(all(int(c["overflow"].sum()) == 0 for c in calls), "a K6 stack overflowed")
+    print("  the image and ray count bit-equal to the tiled tracer's alone")
+
+    rows256 = wide_fat.live_rows256(trav)
+    shadow = [c for c in calls if "shadow" in c["key"]]
+    require(len(shadow) == 1 + LBVH_WIDE_BOUNCES, f"{len(shadow)} shadow calls")
+    totals = [0.0, 0.0]
+    res = None
+    for i, c in enumerate(shadow):
+        rays, active = c["rays"], c["active"]
+        hit_in_order = c["hit"]
+        if c["key"] == "shadow_tracer":  # as the tiled tracer hands them over
+            rays = Rays(*(tile_reorder(getattr(rays, f), RES, RES, 8, 8)
+                          for f in ("origin", "direction", "tmin", "tmax")))
+            active = tile_reorder(active, RES, RES, 8, 8)
+            hit_in_order = tile_reorder(hit_in_order, RES, RES, 8, 8)
+        ops = fat_traverse.kernel_operands(rays, active)
+        any_ms, kout = event_ms(lambda: fat_traverse.fat_traverse(rows256, *ops, any_hit=True),
+                                5)
+        closest_ms, cout = event_ms(lambda: fat_traverse.fat_traverse(rows256, *ops), 5)
+        totals[0] += any_ms
+        totals[1] += closest_ms
+        require(torch.equal(kout[0], cout[0]) and torch.equal(kout[0] != 0, hit_in_order),
+                f"shadow call {i}: any-hit and closest-hit verdicts differ")
+        full = i < 2
+        idx = (torch.arange(ops[0].shape[0], device=device) if full
+               else sample_idx(active))
+        counts = {}
+        t0 = time.perf_counter()
+        pout = fat_traverse.trace_fat_plain(rows256, *(x[idx] for x in ops), counts=counts,
+                                            any_hit=True)
+        plain_ms = sync_ms(t0)
+        bad = fat_mismatches([x[idx] for x in kout[:6]] + [kout[6]], pout)
+        require(sum(bad) == 0, f"shadow call {i}: any-hit != plain on {bad}")
+        n_live = int(active.sum())
+        print(f"  {c['key']} call {i}: {ops[0].shape[0]} rays ({n_live} live, "
+              f"{int(kout[0].sum())} occluded): any-hit {any_ms!r} ms, closest-hit "
+              f"{closest_ms!r} ms; bit-equal to plain on {idx.shape[0]} rays "
+              f"(plain {plain_ms:.1f} ms)  [{card}]")
+        if i == 1:
+            # the bound as phase 9 counts K6's: box and triangle tests run; rays
+            # in (32 B) and out (24 B), the node words of each row visited and
+            # the pair words of each Tri entry entered
+            n_ops = (float(counts["box_tests"].sum()) * SLAB_OPS
+                     + float(counts["tri_tests"].sum()) * MT_OPS)
+            nbytes = (ops[0].shape[0] * (32 + 24) + int(counts["visited"].sum()) * 256
+                      + int(counts["visited_tri"].sum()) * 64)
+            res = dict(ms=any_ms, plain_ms=plain_ms, max_abs_err=0.0, **bound(n_ops, nbytes))
+            print(f"    any-hit bound {res['bound_ms']!r} ms ({res['bound_by']}); pops per live "
+                  f"ray {float(counts['pops'][active].sum()) / max(n_live, 1)!r}")
+    print(f"  the {len(shadow)} shadow passes: any-hit {totals[0]!r} ms, closest-hit "
+          f"{totals[1]!r} ms a frame  [{card}]")
+    return dict(res, launches=launches[2], hierarchy=hierarchy)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     parser.add_argument("--k1-only", action="store_true",
@@ -4266,6 +4503,10 @@ def main(argv=None) -> int:
     parser.add_argument("--multi-only", action="store_true",
                         help="run phases 1, 2 and 18 only (the multi-device renderers on "
                              "torch.distributed); prints no summary lines")
+    parser.add_argument("--lbvh-wide-only", action="store_true",
+                        help="run phases 1, 2 and 20 only (BASELINE config 5 as written: the "
+                             "Karras rebuild, the fat collapse and K6's any-hit shadows); "
+                             "prints no summary lines")
     # one rank of phase 18's world of 2 (the phase starts these itself)
     parser.add_argument("--multi-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--multi-world", type=int, help=argparse.SUPPRESS)
@@ -4347,6 +4588,10 @@ def main(argv=None) -> int:
         multi_phase(device, card)
         print("chip_smoke: stopped after phase 18 (--multi-only)")
         return 0
+    if args.lbvh_wide_only:
+        lbvh_wide_phase(device, card, baselines6)
+        print("chip_smoke: stopped after phase 20 (--lbvh-wide-only)")
+        return 0
     scene = procedural.terrain(NUM_TRIS)
     dev_scene = scene_to_device(scene, device)
     camera = aerial_camera(scene, device)
@@ -4388,6 +4633,8 @@ def main(argv=None) -> int:
     del front, karras
     multi = multi_phase(device, card, scene, dev_scene, camera, triangles, split_views,
                         split_packed)
+    del split_views, split_packed
+    any_hit = lbvh_wide_phase(device, card, baselines6)
 
     def entry(name, source, replaces, launches, res):
         # no single PyTorch call traces rays through a BVH: library_ms is null
@@ -4415,8 +4662,13 @@ def main(argv=None) -> int:
               binary_launches + builds["k6_launches"], k6),
         entry("fat_traverse count=True", "fat_traverse.cu",
               "tpu_raytracing/ops/pallas_traverse.py:71", app["launches"] + anim["k6c"], app),
+        entry("fat_traverse any_hit=True", "fat_traverse.cu",
+              "tpu_raytracing/ops/pallas_traverse.py:71", any_hit["launches"], any_hit),
         entry("bounce_shade", "bounce_shade.cu",
               "none (the JAX package shades with XLA operations)", shade["launches"], shade),
+        entry("lbvh_hierarchy", "lbvh_hierarchy.cu",
+              "none (the JAX package builds the hierarchy with XLA operations)",
+              any_hit["hierarchy"]["launches"], any_hit["hierarchy"]),
     ] + probes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -100,6 +100,21 @@ def test_cpl_duplicate_codes_break_ties_by_index():
     assert got[0] == 32 + 31 and got[5] == -1 and got[6] == -1
 
 
+@pytest.mark.parametrize("count", [2, 7, 10])
+def test_hierarchy_cpu_takes_plain_path(count):
+    """On CPU tensors the hierarchy is the plain version's, live count an int
+    or a 0-d tensor, and the card's kernel is never launched."""
+    codes = torch.tensor([3, 3, 5, 9, 9, 9, 17, 40, 40, 41, 0xFFFFFFFF, 0xFFFFFFFF])
+    before = lbvh.launch_count
+    want = lbvh.generate_hierarchy_plain(codes, count)
+    for c in (count, torch.tensor(count)):
+        got = lbvh.generate_hierarchy(codes, c)
+        for f in _FIELDS:
+            assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert lbvh.launch_count == before
+
+
 def test_hierarchy_on_duplicate_centroids():
     """Many triangles with one centroid: the index tie-break shapes the tree."""
     base = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)

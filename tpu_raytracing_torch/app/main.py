@@ -24,9 +24,12 @@ the binned-SAH tree, the Karras LBVH or the hybrid of the two) for every
 tracer, timed by ``StageTimer``, and prints its "Hierarchy stats" and any
 ``verify_hierarchy`` error (src/main.cu:248-259). ``--tracer wide`` (the
 default) collapses that tree to fat 8-wide rows (``bvh/wide.py:
-build_wide_fat``, after ``ops/fat_traverse.py:check_stack_depth``) and
-traces them with K6's counting instantiation over 8 x 8 screen tiles
-(``trace/wide_fat.py:make_tiled_fat_tracer``). ``--tracer scalar`` traces
+build_wide_fat``, after ``ops/fat_traverse.py:check_stack_depth``; the span
+``build.wide_collapse``) and traces them with K6's counting instantiation
+over 8 x 8 screen tiles (``trace/wide_fat.py:make_tiled_fat_tracer``); a
+path-traced frame (``--bounces N``) takes ``make_fat_frame_tracers``
+instead: K6's any-hit instantiation for both shadow passes, and the bounce
+rays traced in the order the compaction leaves them. ``--tracer scalar`` traces
 that tree with ``trace_rays``, ``--tracer packet`` with one stack per 8 x 8
 screen tile (``trace/packet.py:make_tiled_packet_tracer``). ``--tracer
 grid`` builds a uniform grid (``bvh/grid.py:build_grid``) over the
@@ -97,7 +100,8 @@ from tpu_raytracing_torch.trace.pathtrace import path_trace
 from tpu_raytracing_torch.trace.render import render_frame
 from tpu_raytracing_torch.trace.split_trace import LEAFW, make_frame_tracers
 from tpu_raytracing_torch.trace.traverse import f2i, i2f, pack_bvh, pack_pairs, trace_rays
-from tpu_raytracing_torch.trace.wide_fat import make_tiled_fat_tracer
+from tpu_raytracing_torch.trace.wide_fat import make_fat_frame_tracers, make_tiled_fat_tracer
+from tpu_raytracing_torch.utils import timing
 from tpu_raytracing_torch.utils.png import write_png
 from tpu_raytracing_torch.utils.timing import FPSCounter, StageTimer, block_until_ready
 
@@ -299,12 +303,19 @@ def build_trav(args, triangles, bvh=None, pairs=None, timer: StageTimer = None,
     if args.tracer == "grid":
         return grid_trav(args, triangles, pairs, timer, say)
     if args.tracer == "wide":
-        check_stack_depth(bvh)
         packed = pack_pairs(pairs)
-        fat = timer.run("WideFatCollapse     ", wide.build_wide_fat, bvh, packed.rows)
+
+        def collapse():
+            with timing.span("build.wide_collapse"):
+                check_stack_depth(bvh)
+                return wide.build_wide_fat(bvh, packed.rows)
+
+        fat = timer.run("WideFatCollapse     ", collapse)
         say("Fat wide BVH")
         say(f"  wide rows:      {int(fat.num_nodes)}")
         # wide=None: the fat rows ride in the trav argument, as in the reference
+        if args.bounces > 0:
+            return fat, packed, make_fat_frame_tracers(args.width, args.height)
         return fat, packed, dict(tracer=make_tiled_fat_tracer(None, args.width, args.height,
                                                               8, 8))
     if args.tracer == "lane":

@@ -102,11 +102,17 @@
 // modes' wide tracer takes it (trace/wide_fat.py); the binary frame keeps
 // the instantiation without counts.
 //
+// The any-hit instantiation (fat_traverse_any_kernel, a kernel of its own so
+// that the two above keep their code) ends a ray at its first occluder; the
+// wide path tracer's shadow passes take it
+// (trace/wide_fat.py:make_fat_frame_tracers).
+//
 // Bit-exactness: compiled with -fmad=false and without fast math, and every
 // expression keeps the order of the plain PyTorch version
 // (tpu_raytracing_torch/ops/fat_traverse.py:trace_fat_plain), so the kernel
 // and both diagnostics agree with it bit for bit on hit, t, prim, tri, u
-// and v, and the counting instantiation on both counts too.
+// and v, the counting instantiation on both counts too, and the any-hit
+// instantiation with trace_fat_plain(..., any_hit=True) on all six.
 
 #include <cuda_runtime.h>
 
@@ -472,6 +478,156 @@ fat_traverse_kernel(const int4* __restrict__ rows, const float* __restrict__ ori
   v_out[ray] = v;
 }
 
+// K6's any-hit instantiation (fat_traverse_any_launch), for shadow rays: a
+// ray ends at the first pop in which a triangle's t-free test accepts with
+// tt <= tmax, and reports hit = 1; its t stays tmax, and prim, tri, u and v
+// are 0. Since t never falls, phase 1's box tests against t_in are final:
+// the walk goes, a pop's Tri entries are tested as in K6's phase 2 (the
+// task lane ORs its ray's bit into a per-warp word when a triangle
+// occludes), and a pop with no occluder pushes its accepted Box entries as
+// K6's phase 3 does, with K6's stack and overflow check.
+// A closest-hit walk with the same tmax finds a hit exactly when this one
+// does: it tests the same boxes against a t no larger than tmax, and an
+// occluder it would reach lies in a box this walk enters.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fat_traverse_any_kernel(const int4* __restrict__ rows, const float* __restrict__ origin,
+                        const float* __restrict__ dir, const float* __restrict__ tmin,
+                        const float* __restrict__ tmax, int* __restrict__ hit_out,
+                        float* __restrict__ t_out, int* __restrict__ prim_out,
+                        int* __restrict__ tri_out, float* __restrict__ u_out,
+                        float* __restrict__ v_out, int* __restrict__ overflow, int num_rays,
+                        int stack_cap) {
+  __shared__ int s_task[kWarps][kMaxTasks];
+  __shared__ unsigned s_occluded[kWarps];
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const bool live = ray < num_rays;  // a lane past num_rays only serves the warp
+  Ray r{0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f};
+  float t = 0.0f;
+  if (live) {
+    r = load_ray(origin, dir, tmin, ray);
+    t = tmax[ray];
+  }
+  const float invx = safe_inverse(r.dx), invy = safe_inverse(r.dy), invz = safe_inverse(r.dz);
+  int hit = 0;
+  int stack[kMaxStack];
+  int sp = 0;
+  int node = live ? 0 : -1;  // the row being popped; -1 once the ray is done
+  while (__any_sync(kFull, node >= 0)) {
+    const bool act = node >= 0;
+    // 1. node words and box tests against t = tmax
+    const int4* row = rows + static_cast<size_t>(act ? node : 0) * kRowVec;
+    float front[kWide];
+    int child[kWide];
+    unsigned in_tri = 0, in_box = 0, second = 0;
+    if (act) {
+#pragma unroll
+      for (int e = 0; e < kWide; ++e) {
+        const int4 a = __ldg(row + 2 * e);
+        const int4 b = __ldg(row + 2 * e + 1);
+        const int meta = b.z;
+        const int ntype = meta & 3;
+        child[e] = meta >> 5;
+        float back;
+        front[e] = slab(a, b, r, invx, invy, invz, back);
+        const bool in = (back >= front[e]) && (front[e] <= t) && (back >= r.tmin);
+        in_tri |= (in && ntype == kTypeTri) ? 1u << e : 0u;
+        in_box |= (in && ntype == kTypeBox) ? 1u << e : 0u;
+        second |= (((meta >> 2) & 7) > 0) ? 1u << e : 0u;
+      }
+    }
+    // 2. the accepted Tri entries' triangles, spread over the warp as in K6
+    const int n_tri = __popc(in_tri);
+    int incl = n_tri;
+#pragma unroll
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int total = __shfl_sync(kFull, incl, kWarp - 1);
+    if (total > 0) {
+      int k = incl - n_tri;
+      for (unsigned m = in_tri; m; m &= m - 1) {
+        const int e = __ffs(m) - 1;
+        s_task[warp][k++] = lane << 4 | e << 1 | static_cast<int>((second >> e) & 1u);
+      }
+      if (lane == 0) s_occluded[warp] = 0u;
+      __syncwarp();
+      for (int first = 0; first < total; first += kWarp) {
+        const int idx = first + lane;
+        const bool has = idx < total;
+        const int code = has ? s_task[warp][idx] : 0;
+        const int owner = code >> 4;
+        Ray g;
+        g.ox = __shfl_sync(kFull, r.ox, owner);
+        g.oy = __shfl_sync(kFull, r.oy, owner);
+        g.oz = __shfl_sync(kFull, r.oz, owner);
+        g.dx = __shfl_sync(kFull, r.dx, owner);
+        g.dy = __shfl_sync(kFull, r.dy, owner);
+        g.dz = __shfl_sync(kFull, r.dz, owner);
+        g.tmin = __shfl_sync(kFull, r.tmin, owner);
+        const float g_t = __shfl_sync(kFull, t, owner);
+        const int g_node = __shfl_sync(kFull, node, owner);
+        if (has) {
+          const Pair p = load_pair(rows + static_cast<size_t>(g_node) * kRowVec + kPairVec +
+                                   4 * ((code >> 1) & 7));
+          if (triangle_t(g, p, false) <= g_t || ((code & 1) && triangle_t(g, p, true) <= g_t))
+            atomicOr(&s_occluded[warp], 1u << owner);
+        }
+      }
+      __syncwarp();
+      hit |= static_cast<int>((s_occluded[warp] >> lane) & 1u);
+      // every lane reads the word before the next pop's lane 0 clears it
+      __syncwarp();
+    }
+    // 3. an occluded ray is done; otherwise push far to near, as K6
+    if (act) {
+      const int n = __popc(in_box);
+      if (hit) {
+        node = -1;
+      } else if (sp + n > stack_cap) {
+        atomicOr(overflow, 1);
+        sp = 0;
+        node = -1;
+      } else if (n == 0) {
+        node = sp > 0 ? stack[--sp] : -1;
+      } else if (n == 1) {
+        int only = 0;
+#pragma unroll
+        for (int e = 0; e < kWide; ++e) only = ((in_box >> e) & 1u) ? child[e] : only;
+        node = only;
+      } else {
+        float cd[kWide];
+        int cc[kWide];
+#pragma unroll
+        for (int e = 0; e < kWide; ++e) {
+          const bool p = (in_box >> e) & 1u;
+          cd[e] = p ? front[e] : -kF32Max;
+          cc[e] = p ? child[e] : -1;
+        }
+        push_network(cd, cc);
+        int keep = -1;
+#pragma unroll
+        for (int e = 0; e < kWide; ++e) {
+          if (cc[e] >= 0) {
+            if (keep >= 0) stack[sp++] = keep;
+            keep = cc[e];
+          }
+        }
+        node = keep;
+      }
+    }
+  }
+  if (!live) return;
+  hit_out[ray] = hit;
+  t_out[ray] = t;
+  prim_out[ray] = 0;
+  tri_out[ray] = 0;
+  u_out[ray] = 0.0f;
+  v_out[ray] = 0.0f;
+}
+
 // A diagnostic, not K6: the kernel K6 replaced (one thread per ray, entries
 // walked in order with the running t, a Tri entry's pair loaded and tested
 // once its box passes, every child through the local stack), profiled per
@@ -599,6 +755,16 @@ extern "C" int fat_traverse_launch(FAT_PARAMS, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   fat_traverse_kernel<false, false>
       <<<blocks, kThreads, 0, s>>>(FAT_ARGS, nullptr, nullptr, nullptr, num_rays, stack_cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's any-hit instantiation: hit, t = tmax, and prim, tri, u, v = 0.
+extern "C" int fat_traverse_any_launch(FAT_PARAMS, void* stream) {
+  if (num_rays <= 0) return 0;
+  if (stack_cap <= 0 || stack_cap > kMaxStack) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (num_rays + kThreads - 1) / kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fat_traverse_any_kernel<<<blocks, kThreads, 0, s>>>(FAT_ARGS, num_rays, stack_cap);
   return static_cast<int>(cudaGetLastError());
 }
 

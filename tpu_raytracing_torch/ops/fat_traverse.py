@@ -12,7 +12,11 @@ bit for bit on all six outputs (the kernel is built with ``-fmad=false``
 and keeps the plain version's operation order). ``fat_traverse(...,
 count=True)`` launches K6's counting instantiation, which also returns each
 ray's box tests and triangle-entry tests (the counts the render modes read,
-``trace/wide_fat.py``); it has a launch count of its own.
+``trace/wide_fat.py``); it has a launch count of its own. ``fat_traverse(...,
+any_hit=True)`` launches K6's any-hit instantiation, which ends a ray at its
+first occluder (``tt <= tmax``) and returns hit, t = tmax and zero prim,
+tri, u and v; its plain version is ``trace_fat_plain(..., any_hit=True)``,
+and it has a launch count of its own too.
 ``fat_traverse_cycles`` is a diagnostic on the card: the clock64 split of
 K6's pop phases, or of the one-thread-per-ray kernel K6 replaced.
 
@@ -82,10 +86,11 @@ _F32_MAX = float(torch.finfo(torch.float32).max)
 _PLAIN_CHUNK = 1 << 18
 
 # K6 launches since the count was last set to 0: fat_traverse adds one
-# where it launches the kernel and nowhere else; count_launch_count likewise
-# for the counting instantiation.
+# where it launches the kernel and nowhere else; count_launch_count and
+# any_launch_count likewise for the counting and any-hit instantiations.
 launch_count = 0
 count_launch_count = 0
+any_launch_count = 0
 # clock64 phases of fat_traverse_cycles, in the order of its cycles rows
 PHASES = ("node loads and box tests", "Tri entries", "sort, push and pop")
 
@@ -154,7 +159,7 @@ def _mt(a, b, c, o, d, tmn, t):
     return acc, tt, uu, vv
 
 
-def _plain_chunk(rows, origin, direction, tmin, tmax, out, counts):
+def _plain_chunk(rows, origin, direction, tmin, tmax, out, counts, any_hit):
     """trace_fat_plain on one chunk of rays; writes into ``out``."""
     dev = origin.device
     num = origin.shape[0]
@@ -182,6 +187,8 @@ def _plain_chunk(rows, origin, direction, tmin, tmax, out, counts):
         ix, iy, iz = (inv[r, k] for k in range(3))
         tmn = tmin[r]
         tc, hc, pc, trc, uc, vc = t[r], hit[r], prim[r], tri[r], u[r], v[r]
+        # any-hit: the rays this pop finds occluded (t stays tmax)
+        done = torch.zeros_like(tmn, dtype=torch.bool)
         cand_d, cand_c = [], []
         if counts is not None:
             counts["pops"][r] += 1
@@ -212,21 +219,27 @@ def _plain_chunk(rows, origin, direction, tmin, tmax, out, counts):
             vq = (rf[:, p + 9], rf[:, p + 10], rf[:, p + 11])
             acc, tt, uu, vv = _mt(va, vb, vc3, o, d, tmn, tc)
             take = leaf & acc
-            tc = torch.where(take, tt, tc)
-            hc = torch.where(take, 1, hc)
-            pc = torch.where(take, row[:, p + 12], pc)
-            trc = torch.where(take, child << 1, trc)
-            uc = torch.where(take, uu, uc)
-            vc = torch.where(take, vv, vc)
+            if any_hit:
+                done |= take
+            else:
+                tc = torch.where(take, tt, tc)
+                hc = torch.where(take, 1, hc)
+                pc = torch.where(take, row[:, p + 12], pc)
+                trc = torch.where(take, child << 1, trc)
+                uc = torch.where(take, uu, uc)
+                vc = torch.where(take, vv, vc)
             second = leaf & (ccount > 0)
             acc, tt, uu, vv = _mt(vc3, vb, vq, o, d, tmn, tc)
             take = second & acc
-            tc = torch.where(take, tt, tc)
-            hc = torch.where(take, 1, hc)
-            pc = torch.where(take, row[:, p + 13], pc)
-            trc = torch.where(take, (child << 1) + 1, trc)
-            uc = torch.where(take, uu, uc)
-            vc = torch.where(take, vv, vc)
+            if any_hit:
+                done |= take
+            else:
+                tc = torch.where(take, tt, tc)
+                hc = torch.where(take, 1, hc)
+                pc = torch.where(take, row[:, p + 13], pc)
+                trc = torch.where(take, (child << 1) + 1, trc)
+                uc = torch.where(take, uu, uc)
+                vc = torch.where(take, vv, vc)
             if counts is not None:
                 counts["box_tests"][r] += (ntype != CHILD_NONE).to(torch.int32)
                 counts["tri_tests"][r] += leaf.to(torch.int32) + second.to(torch.int32)
@@ -247,14 +260,15 @@ def _plain_chunk(rows, origin, direction, tmin, tmax, out, counts):
         spr = sp[r]
         stopped = torch.zeros_like(tmn, dtype=torch.bool)
         for e in range(WIDE):
-            ok = (cand_c[e] >= 0) & ~stopped
+            ok = (cand_c[e] >= 0) & ~stopped & ~done
             full = ok & (spr >= STACK)
             stopped |= full
             ok &= ~full
             stack[r[ok], spr[ok]] = cand_c[e][ok]
             spr = spr + ok.to(torch.int64)
-        sp[r] = torch.where(stopped, 0, spr)
+        sp[r] = torch.where(stopped | done, 0, spr)
         overflow |= stopped.any()
+        hc = hc | done.to(torch.int32)
         t[r], hit[r], prim[r], tri[r], u[r], v[r] = tc, hc, pc, trc, uc, vc
 
     for dst, src in zip(out[:6], (hit, t, prim, tri, u, v)):
@@ -262,18 +276,22 @@ def _plain_chunk(rows, origin, direction, tmin, tmax, out, counts):
     out[6].copy_(out[6] | overflow.to(torch.int32))
 
 
-def trace_fat_plain(rows, origin, direction, tmin, tmax, counts: Optional[dict] = None):
+def trace_fat_plain(rows, origin, direction, tmin, tmax, counts: Optional[dict] = None,
+                    any_hit: bool = False):
     """K6's plain PyTorch version: the kernel's per-ray algorithm,
     vectorised over rays, one pop per live ray per iteration, with an
     explicit [R, STACK] stack; rays run in chunks of ``_PLAIN_CHUNK``.
 
     Returns (hit i32, t f32, prim i32, tri i32, u f32, v f32, overflow
-    i32 [1]). With ``counts`` (a dict), also fills per-ray ``pops``,
-    ``box_tests`` (non-empty entries tested), ``tri_tests`` (triangle
-    tests run, one or two an entry) and ``tri_entry_tests`` (Tri entries
-    whose box the ray passes: the counting instantiation's count), and the
-    ``visited`` rows [W] and ``visited_tri`` Tri entries [W, 8] whose pair
-    words were read.
+    i32 [1]). With ``any_hit``, the any-hit instantiation's: a ray stops
+    after the pop in which a triangle accepts with ``tt <= tmax`` (hit 1,
+    no pushes), t stays tmax, and prim, tri, u and v stay 0. With
+    ``counts`` (a dict), also fills per-ray ``pops``, ``box_tests``
+    (non-empty entries tested), ``tri_tests`` (triangle tests run, one or
+    two an entry) and ``tri_entry_tests`` (Tri entries whose box the ray
+    passes: the counting instantiation's count), and the ``visited`` rows
+    [W] and ``visited_tri`` Tri entries [W, 8] whose pair words were
+    read.
     """
     num = origin.shape[0]
     dev = origin.device
@@ -292,7 +310,7 @@ def trace_fat_plain(rows, origin, direction, tmin, tmax, counts: Optional[dict] 
             sub = dict(counts, **{k: counts[k][s:e] for k in (
                 "pops", "box_tests", "tri_tests", "tri_entry_tests")})
         _plain_chunk(rows, origin[s:e], direction[s:e], tmin[s:e], tmax[s:e],
-                     [x[s:e] for x in out[:6]] + [out[6]], sub)
+                     [x[s:e] for x in out[:6]] + [out[6]], sub, any_hit)
     return tuple(out)
 
 
@@ -347,26 +365,36 @@ def _launch(entry: str, argtypes, rows, origin, direction, tmin, tmax, *extra,
     return (*out, overflow)
 
 
-def fat_traverse(rows, origin, direction, tmin, tmax, count: bool = False):
+def fat_traverse(rows, origin, direction, tmin, tmax, count: bool = False,
+                 any_hit: bool = False):
     """K6: closest hit of every ray over padded fat rows (see the module
     docstring). rows [W, 256] i32 from ``pad_rows_256``, origin/direction
     [R, 3] f32 (direction as given: the kernel forms the safe inverse),
     tmin/tmax [R] f32 (tmax = -1 for dead rays). Returns (hit, t, prim,
     tri, u, v, overflow [1]); with ``count``, from the counting
     instantiation, then also each ray's box tests and triangle-entry tests
-    (int32 [R]: the plain version's ``box_tests`` and ``tri_entry_tests``).
+    (int32 [R]: the plain version's ``box_tests`` and ``tri_entry_tests``);
+    with ``any_hit``, from the any-hit instantiation (``trace_fat_plain``'s
+    ``any_hit``).
 
     CPU tensors run ``trace_fat_plain``; CUDA tensors launch the kernel or
     raise. The launch (the plain version on the CPU) is the span ``k6``.
     """
-    global launch_count, count_launch_count
+    global launch_count, count_launch_count, any_launch_count
+    if count and any_hit:
+        raise ValueError("fat_traverse: the any-hit instantiation does not count")
     if origin.device.type == "cpu":
         counts = {} if count else None
         with timing.span("k6"):
-            out = trace_fat_plain(rows, origin, direction, tmin, tmax, counts=counts)
+            out = trace_fat_plain(rows, origin, direction, tmin, tmax, counts=counts,
+                                  any_hit=any_hit)
         return out if not count else (*out, counts["box_tests"], counts["tri_entry_tests"])
     if origin.device.type != "cuda":
         raise ValueError(f"fat_traverse: unsupported device {origin.device}")
+    if any_hit:
+        out = _launch("fat_traverse_any_launch", _ARGTYPES, rows, origin, direction, tmin, tmax)
+        any_launch_count += 1
+        return out
     if not count:
         out = _launch("fat_traverse_launch", _ARGTYPES, rows, origin, direction, tmin, tmax)
         launch_count += 1
@@ -404,11 +432,14 @@ def kernel_operands(rays: Rays, active=None):
             rays.tmin.contiguous(), tmax.contiguous())
 
 
-def trace_rays_fat(rows256, rays: Rays, active=None) -> Tuple[HitRecord, TraceStats]:
+def trace_rays_fat(rows256, rays: Rays, active=None,
+                   any_hit: bool = False) -> Tuple[HitRecord, TraceStats]:
     """Trace rays with K6 over ``pad_rows_256`` rows (see
-    ``kernel_operands`` for dead rays). The statistics carry zero test
-    counts, as the reference's, and the overflow flag."""
-    hit, t, prim, tri, u, v, overflow = fat_traverse(rows256, *kernel_operands(rays, active))
+    ``kernel_operands`` for dead rays), or with its any-hit instantiation.
+    The statistics carry zero test counts, as the reference's, and the
+    overflow flag."""
+    hit, t, prim, tri, u, v, overflow = fat_traverse(rows256, *kernel_operands(rays, active),
+                                                     any_hit=any_hit)
     rec = HitRecord(hit=hit.to(torch.bool), t=t, prim_id=prim, tri_id=tri, bary_u=u, bary_v=v)
     zeros = torch.zeros_like(prim)
     return rec, TraceStats(box_tests=zeros, tri_tests=zeros, overflow=overflow)

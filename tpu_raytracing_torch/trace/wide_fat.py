@@ -1,7 +1,8 @@
 """Fat wide-BVH tracer of the render modes: the app's ``--tracer wide``.
 
 Port of ``tpu_raytracing/trace/wide_fat.py`` (``trace_rays_wide_fat``,
-``trace_rays_wide_fat_phased``, ``make_tiled_fat_tracer``). The reference
+``trace_rays_wide_fat_phased``, ``make_tiled_fat_tracer``), and the path
+tracer's four wide tracers (``make_fat_frame_tracers``). The reference
 walks 128-ray packets over ``FatWideBVH`` rows in a lockstep XLA
 ``while_loop`` with a shift-register stack. It computes the same closest
 hit over the same rows as the Pallas kernel ``pallas_traverse._kernel``,
@@ -45,13 +46,19 @@ Known divergences from the reference, both deliberate:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
 
 from tpu_raytracing_torch.bvh.types import CHILD_BOX, CHILD_NONE, CHILD_TRI
 from tpu_raytracing_torch.bvh.wide import WIDE, FatWideBVH
-from tpu_raytracing_torch.ops.fat_traverse import fat_traverse, kernel_operands, pad_rows_256
+from tpu_raytracing_torch.ops.fat_traverse import (
+    fat_traverse,
+    kernel_operands,
+    pad_rows_256,
+    trace_rays_fat,
+)
 from tpu_raytracing_torch.trace.brute import HitRecord
 from tpu_raytracing_torch.trace.packet import tile_reorder, tile_restore
 from tpu_raytracing_torch.trace.ray import Rays
@@ -89,6 +96,22 @@ def _trace_rows(rows256, rays: Rays, active=None) -> Tuple[HitRecord, TraceStats
     rec = HitRecord(hit=hit, t=torch.where(hit, t, rays.tmax), prim_id=prim, tri_id=tri,
                     bary_u=u, bary_v=v)
     return rec, TraceStats(box_tests=box, tri_tests=trit, overflow=overflow)
+
+
+def _trace_uncounted(rows256, rays: Rays, active=None,
+                     any_hit: bool = False) -> Tuple[HitRecord, TraceStats]:
+    """K6 without counts, or its any-hit instantiation: the record as
+    ``_trace_rows`` builds it (an any-hit record's t is tmax), zero
+    counts."""
+    rec, stats = trace_rays_fat(rows256, rays, active, any_hit=any_hit)
+    # a ray that hits nothing keeps its tmax, a dead one too (not K6's -1)
+    return dataclasses.replace(rec, t=torch.where(rec.hit, rec.t, rays.tmax)), stats
+
+
+def _trace_counted(rows256, rays: Rays, active=None) -> Tuple[HitRecord, TraceStats]:
+    # ``_trace_rows`` looked up at each call, so a tracer made before it is
+    # replaced (``rtbench/faults.py``) calls the replacement
+    return _trace_rows(rows256, rays, active)
 
 
 def _check_packets(num_rays: int, packet_size: int) -> None:
@@ -229,38 +252,38 @@ def trace_rays_wide_fat_phased(
     return trace_rays_wide_fat(wide, pairs, rays, active=active, packet_size=packet_size)
 
 
-def make_tiled_fat_tracer(wide, width: int, height: int,
-                          tile_w: int = 16, tile_h: int = 8,
-                          phased: bool = False):
-    """Tracer ``(trav, pairs, rays, max_width=2, active=None) ->
-    (HitRecord, TraceStats)`` over a row-major frame, traced in
-    ``tile_w`` x ``tile_h`` screen-tile order (so a warp's rays share a
-    tile) and restored.
-
-    With ``wide=None`` the FatWideBVH is taken from the tracer's ``trav``
-    argument instead, for per-frame rebuilds; its padded rows are kept
-    while the same rows come back. ``phased`` selects the same trace
-    (``tracer.host_staged`` records it, as the reference's).
-    """
+def _padded_rows(wide):
+    """``rows_of(trav)``: K6's padded rows of ``wide``, or with ``wide=None``
+    of the FatWideBVH that rides in the tracer's ``trav`` argument, for
+    per-frame rebuilds; kept while the same rows come back."""
     cache = {}
 
-    def rows_of(w: FatWideBVH) -> torch.Tensor:
+    def rows_of(trav) -> torch.Tensor:
+        w = wide if wide is not None else trav
         if cache.get("rows") is not w.rows:
             cache.update(rows=w.rows, rows256=live_rows256(w))
         return cache["rows256"]
 
     if wide is not None:
-        rows_of(wide)
+        rows_of(None)
+    return rows_of
+
+
+def _tiled(trace, rows_of, width: int, height: int, tile_w: int, tile_h: int):
+    """Tracer ``(trav, pairs, rays, max_width=2, active=None)`` over a
+    row-major frame: ``trace(rows256, rays, active)`` in ``tile_w`` x
+    ``tile_h`` screen-tile order (so a warp's rays share a tile), the
+    record and the counts restored."""
 
     def tracer(trav, pairs, rays, max_width=2, active=None):
         del pairs, max_width
-        rows256 = rows_of(wide if wide is not None else trav)
+        rows256 = rows_of(trav)
         num = rays.origin.shape[0]
         _check_packets(num, tile_w * tile_h)
         tiled = Rays(*(tile_reorder(getattr(rays, f), width, height, tile_w, tile_h)
                        for f in ("origin", "direction", "tmin", "tmax")))
         act = None if active is None else tile_reorder(active, width, height, tile_w, tile_h)
-        rec, stats = _trace_rows(rows256, tiled, act)
+        rec, stats = trace(rows256, tiled, act)
         rec = dataclasses.replace(rec, **{
             f.name: tile_restore(getattr(rec, f.name), width, height, tile_w, tile_h)
             for f in dataclasses.fields(rec)})
@@ -269,5 +292,54 @@ def make_tiled_fat_tracer(wide, width: int, height: int,
             tri_tests=tile_restore(stats.tri_tests, width, height, tile_w, tile_h))
         return rec, stats
 
+    return tracer
+
+
+def make_tiled_fat_tracer(wide, width: int, height: int,
+                          tile_w: int = 16, tile_h: int = 8,
+                          phased: bool = False):
+    """Tracer ``(trav, pairs, rays, max_width=2, active=None) ->
+    (HitRecord, TraceStats)`` over a row-major frame, traced with K6's
+    counting instantiation in ``tile_w`` x ``tile_h`` screen-tile order (so
+    a warp's rays share a tile) and restored.
+
+    With ``wide=None`` the FatWideBVH is taken from the tracer's ``trav``
+    argument instead, for per-frame rebuilds; its padded rows are kept
+    while the same rows come back. ``phased`` selects the same trace
+    (``tracer.host_staged`` records it, as the reference's).
+    """
+    tracer = _tiled(_trace_counted, _padded_rows(wide), width, height, tile_w, tile_h)
     tracer.host_staged = phased
     return tracer
+
+
+def make_fat_frame_tracers(width: int, height: int) -> dict:
+    """The path-traced frame's four tracers over fat rows that ride in
+    ``trav`` (per-frame rebuilds), the counterpart of
+    ``split_trace.make_frame_tracers``: the primary pass closest-hit with
+    K6's counting instantiation in 8 x 8 screen tiles (the render modes'
+    tracer), the primary shadow pass any-hit in the same tiles, the bounce
+    pass closest-hit in the order the compaction left the rays, and the
+    bounce shadow pass any-hit in the shadow sort's order, both without
+    counts. One copy of the padded rows serves all four. Returns
+    ``path_trace`` keyword arguments.
+
+    The image is bit-equal to one traced with the primary tracer alone:
+    K6 traces each ray on its own, and an any-hit verdict is the
+    closest-hit ``hit`` for the same tmax."""
+    rows_of = _padded_rows(None)
+
+    def in_order(any_hit: bool):
+        def tracer(trav, pairs, rays, active=None):
+            del pairs
+            return _trace_uncounted(rows_of(trav), rays, active, any_hit)
+
+        return tracer
+
+    return dict(
+        tracer=_tiled(_trace_counted, rows_of, width, height, 8, 8),
+        shadow_tracer=_tiled(functools.partial(_trace_uncounted, any_hit=True), rows_of,
+                             width, height, 8, 8),
+        bounce_tracer=in_order(False),
+        shadow_tracer_bounce=in_order(True),
+    )
