@@ -30,8 +30,10 @@ exits non-zero if any phase fails:
    ``nvidia-smi``'s name and power limit.
 2. Build: compiles ``csrc/split_trace.cu`` (K1), ``csrc/lane_trace.cu``
    (K5), ``csrc/fat_traverse.cu`` (K6), the probes'
-   ``csrc/micro_probe.cu`` and ``csrc/lane_probe.cu`` and the path
-   tracer's ``csrc/bounce_shade.cu`` with nvcc, in
+   ``csrc/micro_probe.cu`` and ``csrc/lane_probe.cu``, the path
+   tracer's ``csrc/bounce_shade.cu``, the Karras build's
+   ``csrc/lbvh_hierarchy.cu`` and the fat collapse's
+   ``csrc/wide_collapse.cu`` with nvcc, in
    parallel, into ``tpu_raytracing_torch/build/`` and prints each
    kernel's ptxas register and spill lines under its name.
 3. Split path: the frame ``bench.py`` times — ``terrain(1_000_000)``,
@@ -317,7 +319,21 @@ exits non-zero if any phase fails:
    outputs (every ray of the primary shadow pass and of the first bounce
    shadow pass, ``SLICE`` live rays of the others), and both
    instantiations timed on the operands the tracer hands over, with the
-   any-hit bound from the plain version's counts.
+   any-hit bound from the plain version's counts. Between the hierarchy
+   and the app's build, the collapse kernels (``csrc/wide_collapse.cu``
+   through ``wide.collapse_fat``) must equal ``build_wide_fat`` on the card,
+   rows and ``num_nodes``, one launch count a collapse, on the frame's 1M
+   Karras tree with and without pairs, the modes configuration's binned-SAH
+   tree (``--type sah --pairs``, root_count 1), a one-leaf root pair, a
+   two-leaf tree, a small single-root SAH tree and a 30-level caterpillar;
+   a 70- and a 5,000-level caterpillar must raise ``check_stack_depth``'s
+   error, word for word; on the paired 1M tree the collapse is timed by
+   CUDA events (with its one host read) and by kernel from
+   ``torch.profiler``'s trace, beside its bytes bound and the plain
+   ``check_stack_depth`` and ``build_wide_fat``, with its registers and
+   spills; the app's two warm and timed ``build_trav`` calls must count one
+   collapse each, and an animated app run of ``COLLAPSE_APP_FRAMES``
+   frames one a frame.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
@@ -378,7 +394,7 @@ from tpu_raytracing_torch.bvh import (  # noqa: E402
     treelet,
     wide,
 )
-from tpu_raytracing_torch.bvh.types import CHILD_TRI  # noqa: E402
+from tpu_raytracing_torch.bvh.types import BVH, CHILD_BOX, CHILD_NONE, CHILD_TRI  # noqa: E402
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy  # noqa: E402
 from tpu_raytracing_torch.ops import _cuda_build, fat_traverse  # noqa: E402
 from tpu_raytracing_torch.ops.scan import segmented_scan  # noqa: E402
@@ -442,7 +458,7 @@ TIE_LEAF_WIDTHS = (8, 40, split_trace.LEAFW, 128)
 TIE_LANE_WIDTHS = (24, 40, lane_trace.MAX_LEAFW)
 F32_MAX = float(torch.finfo(torch.float32).max)
 LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe",
-             "bounce_shade", "lbvh_hierarchy"]
+             "bounce_shade", "lbvh_hierarchy", "wide_collapse"]
 PROBE_MODULES = (micro_pallas, micro_control, probe_lane_machine, probe_lane_machine2,
                  probe_lane_machine3)
 PROBE_N_CHECK = 4096
@@ -537,6 +553,13 @@ LBVH_WIDE_BOUNCES = 8
 LBVH_WIDE_T = 0.7
 K6_SASS = ("12.9", "20a952e6150955da2d9c9501901f9899645bf034fdd9f5ed3e19e28e6da10d5a")
 K6_MANGLED = re.compile(r"fat_traverse_kernelILb([01])ELb([01])E")
+# Phase 20's collapse checks: CUDA-event repetitions on the 1M tree, the
+# caterpillars' depths (one K6's stack covers, two it does not: the second
+# past the depth walk's cap) and the animated app run's frames and size.
+COLLAPSE_REPS = 10
+CATERPILLARS = (30, 70, 5000)
+COLLAPSE_APP_FRAMES = 3
+COLLAPSE_APP_RES = 256
 INTERACTIVE_FIRST_S = 180.0
 INTERACTIVE_READ_S = 30.0
 
@@ -4354,6 +4377,135 @@ def lbvh_hierarchy_checks(device, card: str, tris) -> dict:
     return res
 
 
+def caterpillar(depth: int, device, seed: int = 0):
+    """A tree (root pair at slots 0-1) of ``depth + 1`` slot pairs, each
+    pair's first slot a Box over the next pair and its second a leaf, the
+    last pair two leaves: ``depth`` binary levels deep; with random boxes
+    and pair rows. Returns (BVH, pair rows)."""
+    gen = torch.Generator().manual_seed(seed)
+    n = 2 * (depth + 1)
+    slot = torch.arange(n, dtype=torch.int32)
+    pair = slot // 2
+    box = (slot % 2 == 0) & (pair < depth)
+    leaf_index = torch.cumsum((~box).to(torch.int32), 0, dtype=torch.int32) - 1
+    lo = torch.rand((n, 3), generator=gen) - 1.0
+    i32 = dict(dtype=torch.int32, device=device)
+    bvh = BVH(node_min=lo.to(device), node_max=(lo + torch.rand((n, 3), generator=gen)).to(device),
+              child=torch.where(box, 2 * pair + 2, leaf_index).to(**i32),
+              count=torch.where(box, 2, 1).to(**i32),
+              type=torch.where(box, CHILD_BOX, CHILD_TRI).to(**i32),
+              parent=torch.where(pair == 0, slot, 2 * pair - 2).to(**i32),
+              root=torch.tensor(0, **i32), root_count=torch.tensor(2, **i32))
+    rows = torch.randint(-2**31, 2**31 - 1, (depth + 2, 16), generator=gen, dtype=torch.int32)
+    return bvh, rows.to(device)
+
+
+def collapse_device_ms(fn, reps: int) -> dict:
+    """Mean device ms a call of ``fn`` by kernel (``torch.profiler``'s trace,
+    ``reps`` calls after a warm one), the memcpy and memset included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name[:60]] = out.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return out
+
+
+def wide_collapse_checks(device, card: str, tris) -> dict:
+    """Phase 20 (c): the collapse kernels (``csrc/wide_collapse.cu``, through
+    ``wide.collapse_fat``) against ``build_wide_fat`` on the same card (see
+    the module docstring). Returns their numbers on the paired 1M tree, for
+    the kernels line."""
+    log = demangled(_cuda_build.BUILD_INFO["wide_collapse"][1])
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            print(f"  {line.split(chr(39))[1][:100]}")
+        elif "registers" in line or "spill" in line:
+            print(f"    {line.strip()}")
+    modes_args = parse_cmd(["--scene", f"terrain:{NUM_TRIS}", "--type", "sah", "--pairs",
+                            "--tracer", "wide", "--device", str(device)])
+    static = torch.as_tensor(procedural.terrain(NUM_TRIS).triangles, device=device)
+    cases = []
+    for pairs in (True, False):
+        bvh, tp = lbvh.build_lbvh(tris, pairs)
+        cases.append((f"1M Karras, pairs {pairs}", bvh, pack_pairs(tp).rows))
+    bvh, tp = app_main.build_accel(static, modes_args, StageTimer())
+    cases.append(("the modes configuration's binned-SAH tree", bvh, pack_pairs(tp).rows))
+    del static
+    f = torch.tensor([[0.0, 1.0, 2.0], [3.0, 4.0, 5.0]], device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    one = BVH(node_min=f - 1.0, node_max=f + 1.0, child=torch.tensor([0, 0], **i32),
+              count=torch.tensor([1, 0], **i32), type=torch.tensor([CHILD_TRI, CHILD_NONE], **i32),
+              parent=torch.tensor([0, 1], **i32), root=torch.tensor(0, **i32),
+              root_count=torch.tensor(2, **i32))
+    cases.append(("a one-leaf root pair", one, torch.arange(100, 116, **i32)[None]))
+    two = torch.as_tensor(procedural.random_triangle_soup(2, seed=3).triangles, device=device)
+    bvh, tp = lbvh.build_lbvh(two, False)
+    cases.append(("a two-leaf tree", bvh, pack_pairs(tp).rows))
+    small = torch.as_tensor(procedural.cornell_box().triangles, device=device)
+    bvh, tp = app_main.build_accel(small, modes_args, StageTimer())
+    cases.append(("cornell's SAH tree (root_count 1)", bvh, pack_pairs(tp).rows))
+    cases.append((f"a {CATERPILLARS[0]}-level caterpillar", *caterpillar(CATERPILLARS[0], device)))
+    for label, bvh, rows in cases:
+        before = wide.launch_count
+        fat = wide.collapse_fat(bvh, rows)
+        plain = wide.build_wide_fat(bvh, rows)
+        require(wide.launch_count == before + 1,
+                f"{label}: {wide.launch_count - before} collapses counted for one")
+        require(fat.rows.shape == plain.rows.shape and torch.equal(fat.rows, plain.rows),
+                f"{label}: the collapse kernels' rows differ from build_wide_fat's")
+        require(fat.num_nodes.device == plain.num_nodes.device
+                and fat.num_nodes.dtype == plain.num_nodes.dtype
+                and int(fat.num_nodes) == int(plain.num_nodes),
+                f"{label}: num_nodes {fat.num_nodes} against {plain.num_nodes}")
+        print(f"  {label}: {bvh.num_slots} slots, root_count {int(bvh.root_count)}, depth "
+              f"{fat_traverse.binary_depth(bvh)}, {int(fat.num_nodes)} wide rows: bit-equal "
+              f"to build_wide_fat")
+    for depth in CATERPILLARS[1:]:
+        bvh, rows = caterpillar(depth, device)
+        want = got = None
+        try:
+            fat_traverse.check_stack_depth(bvh)
+        except ValueError as e:
+            want = str(e)
+        try:
+            wide.collapse_fat(bvh, rows)
+        except ValueError as e:
+            got = str(e)
+        require(want is not None and got == want,
+                f"a {depth}-level caterpillar: collapse_fat raised {got!r}, the check {want!r}")
+        print(f"  a {depth}-level caterpillar: both raise {got!r}")
+
+    label, bvh, rows = cases[0]
+    ms, fat = event_ms(lambda: wide.collapse_fat(bvh, rows), COLLAPSE_REPS)
+    kernels = collapse_device_ms(lambda: wide.collapse_fat(bvh, rows), COLLAPSE_REPS)
+    t0 = time.perf_counter()
+    fat_traverse.check_stack_depth(bvh)
+    wide.build_wide_fat(bvh, rows)
+    plain_ms = sync_ms(t0)
+    n, num_wide = bvh.num_slots, int(fat.num_nodes)
+    # bytes: each slot's parent and type (8 B), its flag written, scanned and
+    # read twice (16 B) and its scan written and read (8 B); each live
+    # entry's type, child, count and box (36 B) and a Tri entry's pair row
+    # (64 B); every output word written once
+    tri = int((((fat.rows[:num_wide, 6:64:8]) & 3) == CHILD_TRI).sum())
+    nbytes = n * 32 + num_wide * wide.WIDE * 36 + tri * 64 + fat.rows.numel() * 4
+    res = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, **bound(0.0, nbytes))
+    print(f"  {label}: the collapse {ms!r} ms a call (CUDA events, its host read included) "
+          f"against a {res['bound_ms']!r} ms bytes bound ({nbytes} B), plain {plain_ms:.1f} ms; "
+          f"device ms by kernel: " + ", ".join(f"{k} {v!r}" for k, v in kernels.items())
+          + f"  [{card}]")
+    return res
+
+
 def lbvh_wide_phase(device, card: str, baselines=()) -> dict:
     """Phase 20 (see the module docstring). Returns the any-hit
     instantiation's numbers on the first bounce shadow pass, for the
@@ -4371,10 +4523,14 @@ def lbvh_wide_phase(device, card: str, baselines=()) -> dict:
     tris = procedural.animate_triangles(torch.as_tensor(scene.triangles, device=device),
                                         LBVH_WIDE_T)
     hierarchy = lbvh_hierarchy_checks(device, card, tris)
+    collapse = wide_collapse_checks(device, card, tris)
+    wide.launch_count = 0
     for label in ("warm", "timed"):
         timer = StageTimer()
         bvh, pairs = app_main.build_accel(tris, args, timer)
         trav, packed, tracers = build_trav(args, tris, bvh, pairs, timer)
+    require(wide.launch_count == 2, f"{wide.launch_count} collapses in two build_trav calls")
+    collapse["launches"] = wide.launch_count
     print(f"  {tris.shape[0]} triangles at t = {LBVH_WIDE_T}: "
           + ", ".join(f"{n.strip()} {ms!r} ms" for n, ms in timer.stages)
           + f"; {int(trav.num_nodes)} fat rows  [{card}]")
@@ -4469,7 +4625,21 @@ def lbvh_wide_phase(device, card: str, baselines=()) -> dict:
                   f"ray {float(counts['pops'][active].sum()) / max(n_live, 1)!r}")
     print(f"  the {len(shadow)} shadow passes: any-hit {totals[0]!r} ms, closest-hit "
           f"{totals[1]!r} ms a frame  [{card}]")
-    return dict(res, launches=launches[2], hierarchy=hierarchy)
+
+    del trav, packed, tracers, rows256, calls, shadow, bvh, pairs
+    wide.launch_count = 0
+    res_app, _, wall, _ = run_app(
+        ["--scene", f"terrain:{NUM_TRIS}", "--type", "bottom-up", "--pairs", "--tracer", "wide",
+         "--bounces", str(LBVH_WIDE_BOUNCES), "--animate", "--frames", str(COLLAPSE_APP_FRAMES),
+         "--width", str(COLLAPSE_APP_RES), "--height", str(COLLAPSE_APP_RES),
+         "--output", str(OUT_DIR / "lbvh_wide_app")])
+    print(f"  the app, --animate --frames {COLLAPSE_APP_FRAMES}: wide.launch_count "
+          f"{wide.launch_count}; app wall {wall!r} s  [{card}]")
+    require(wide.launch_count == COLLAPSE_APP_FRAMES,
+            f"{wide.launch_count} collapses in {COLLAPSE_APP_FRAMES} animated app frames")
+    collapse["launches"] += wide.launch_count
+    del res_app
+    return dict(res, launches=launches[2], hierarchy=hierarchy, collapse=collapse)
 
 
 def main(argv=None) -> int:
@@ -4669,6 +4839,9 @@ def main(argv=None) -> int:
         entry("lbvh_hierarchy", "lbvh_hierarchy.cu",
               "none (the JAX package builds the hierarchy with XLA operations)",
               any_hit["hierarchy"]["launches"], any_hit["hierarchy"]),
+        entry("wide_collapse", "wide_collapse.cu",
+              "none (the JAX package collapses with XLA operations)",
+              any_hit["collapse"]["launches"], any_hit["collapse"]),
     ] + probes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -24,7 +24,8 @@ the binned-SAH tree, the Karras LBVH or the hybrid of the two) for every
 tracer, timed by ``StageTimer``, and prints its "Hierarchy stats" and any
 ``verify_hierarchy`` error (src/main.cu:248-259). ``--tracer wide`` (the
 default) collapses that tree to fat 8-wide rows (``bvh/wide.py:
-build_wide_fat``, after ``ops/fat_traverse.py:check_stack_depth``; the span
+collapse_fat``: ``build_wide_fat`` after ``ops/fat_traverse.py:
+check_stack_depth``, on the card ``csrc/wide_collapse.cu``; the span
 ``build.wide_collapse``) and traces them with K6's counting instantiation
 over 8 x 8 screen tiles (``trace/wide_fat.py:make_tiled_fat_tracer``); a
 path-traced frame (``--bounces N``) takes ``make_fat_frame_tracers``
@@ -87,7 +88,6 @@ from tpu_raytracing_torch.bvh.pairing import pair_vertices
 from tpu_raytracing_torch.bvh.refit_schedule import GuardedRefit
 from tpu_raytracing_torch.bvh.treelet import build_treelet_auto
 from tpu_raytracing_torch.bvh.verify import count_nodes, verify_hierarchy
-from tpu_raytracing_torch.ops.fat_traverse import check_stack_depth
 from tpu_raytracing_torch.scene import camera as cam
 from tpu_raytracing_torch.scene import procedural
 from tpu_raytracing_torch.scene.objio import load_obj
@@ -307,8 +307,7 @@ def build_trav(args, triangles, bvh=None, pairs=None, timer: StageTimer = None,
 
         def collapse():
             with timing.span("build.wide_collapse"):
-                check_stack_depth(bvh)
-                return wide.build_wide_fat(bvh, packed.rows)
+                return wide.collapse_fat(bvh, packed.rows)
 
         fat = timer.run("WideFatCollapse     ", collapse)
         say("Fat wide BVH")

@@ -17,20 +17,30 @@ Box entries and a pair index for Tri entries.
 ``build_wide_fat`` gathers the pair rows of all 8 entries in one [W, 8, 16]
 gather; the reference gathers one entry at a time to dodge a TPU tiling
 cost that the card does not have.
+
+``collapse_fat`` is ``build_wide_fat`` behind K6's stack-depth check, as the
+app's wide tracer runs it: on CPU tensors those two functions, on the card
+the collapse kernels (``csrc/wide_collapse.cu``), bit-equal to
+``build_wide_fat``, with one host read.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from tpu_raytracing_torch.bvh.types import BVH, CHILD_BOX, CHILD_NONE, CHILD_TRI
+from tpu_raytracing_torch.ops import _cuda_build
 from tpu_raytracing_torch.trace.traverse import f2i
 
 WIDE = 8
 ENTRY_WORDS = 24
 _F32_MAX = float(torch.finfo(torch.float32).max)
+# collapses run by the collapse kernels in this process: collapse_fat adds one
+# where it launches them and nowhere else
+launch_count = 0
 
 
 @dataclasses.dataclass
@@ -154,3 +164,69 @@ def build_wide_fat(bvh: BVH, pair_rows: torch.Tensor) -> FatWideBVH:
     pe = torch.where(((meta & 3) == CHILD_TRI)[..., None], pe, 0)
     fat = torch.cat([w.rows, pe.reshape(-1, WIDE * 16)], dim=1)
     return FatWideBVH(rows=fat, num_nodes=w.num_nodes)
+
+
+def collapse_fat(bvh: BVH, pair_rows: torch.Tensor) -> FatWideBVH:
+    """``build_wide_fat(bvh, pair_rows)`` after K6's stack-depth check
+    (``ops/fat_traverse.py:check_stack_depth``): the rows the wide tracer
+    traces. CPU tensors run those two functions; CUDA tensors launch the
+    collapse kernels (``csrc/wide_collapse.cu``: the depth and anchor pass, a
+    scan, the row emit), bit-equal to ``build_wide_fat`` with ``num_nodes``
+    left on the card, and read the live row count, the depth and
+    ``root_count`` back in one copy, or raise. A tree deeper than K6's stack
+    covers raises ``check_stack_depth``'s ValueError; so do ``pair_rows``
+    other than a contiguous [P >= 1, 16] int32 tensor and, on the card,
+    fields of other types or devices than ``BVH`` declares."""
+    from tpu_raytracing_torch.ops import fat_traverse  # it imports this module
+    global launch_count
+    if (pair_rows.dtype != torch.int32 or pair_rows.dim() != 2 or pair_rows.shape[0] < 1
+            or pair_rows.shape[1] != 16 or not pair_rows.is_contiguous()):
+        raise ValueError(f"collapse_fat: pair_rows must be a contiguous [P >= 1, 16] int32 "
+                         f"tensor, not {pair_rows.dtype} {tuple(pair_rows.shape)}"
+                         f"{'' if pair_rows.is_contiguous() else ' (non-contiguous)'}")
+    dev = bvh.child.device
+    if dev.type == "cpu":
+        fat_traverse.check_stack_depth(bvh)
+        return build_wide_fat(bvh, pair_rows)
+    fields = (bvh.node_min, bvh.node_max, bvh.child, bvh.count, bvh.type, bvh.parent,
+              bvh.root, bvh.root_count, pair_rows)
+    types = (torch.float32,) * 2 + (torch.int32,) * 7
+    n = bvh.num_slots
+    if (dev.type != "cuda" or n < 1 or pair_rows.data_ptr() % 16
+            or any(x.device != dev or x.dtype != t for x, t in zip(fields, types))):
+        raise ValueError(f"collapse_fat: a BVH of {n} slots on {dev} with fields of other types "
+                         f"or devices than BVH declares, or pair_rows not 16-byte aligned")
+    node_min, node_max, child, count, ntype, parent = (x.contiguous() for x in (
+        bvh.node_min, bvh.node_max, bvh.child, bvh.count, bvh.type, bvh.parent))
+    lib = _cuda_build.load_library("wide_collapse")
+    depth_fn, emit_fn = lib.wide_collapse_depth_launch, lib.wide_collapse_emit_launch
+    depth_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    emit_fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_void_p,
+                                                   ctypes.c_void_p, ctypes.c_int64,
+                                                   ctypes.c_void_p])
+    depth_fn.restype = emit_fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the stack covers L = (STACK - 1) // 7 wide levels: row 0's 2 or 3
+    # binary levels and 3 more a row, so a walk that reaches 3 L + 1 links
+    # fails the check for either root group
+    cap = 3 * ((fat_traverse.STACK - 1) // 7) + 1
+    info = torch.zeros((3,), dtype=torch.int64, device=dev)  # live rows, depth, root_count
+    flag = torch.empty((n,), dtype=torch.int32, device=dev)
+    err = depth_fn(parent.data_ptr(), ntype.data_ptr(), bvh.root_count.data_ptr(),
+                   flag.data_ptr(), info.data_ptr(), n, cap, stream)
+    if err != 0:
+        raise RuntimeError(f"wide_collapse depth kernel launch failed: cudaError {err}")
+    incl = torch.cumsum(flag, 0, dtype=torch.int32)
+    rows = torch.empty((n + 1, WIDE * ENTRY_WORDS), dtype=torch.int32, device=dev)
+    err = emit_fn(node_min.data_ptr(), node_max.data_ptr(), child.data_ptr(), count.data_ptr(),
+                  ntype.data_ptr(), flag.data_ptr(), incl.data_ptr(), bvh.root.data_ptr(),
+                  bvh.root_count.data_ptr(), pair_rows.data_ptr(), pair_rows.shape[0],
+                  rows.data_ptr(), info.data_ptr(), n, stream)
+    if err != 0:
+        raise RuntimeError(f"wide_collapse emit kernel launch failed: cudaError {err}")
+    launch_count += 1
+    _, depth, root_count = info.tolist()
+    if depth >= cap:  # the walk stopped at cap: the exact depth for the error
+        depth = fat_traverse.binary_depth(bvh)
+    fat_traverse.check_depth(depth, root_count)
+    return FatWideBVH(rows=rows, num_nodes=info[0])

@@ -115,8 +115,13 @@ def check_stack_depth(bvh: BVH) -> None:
     slots. The Karras build always passes; a binned-SAH tree can in
     principle go deeper (its midpoint levels past the SAH ones,
     ``bvh/sah.py:frontier_build``)."""
-    base = 2 if int(bvh.root_count) == 2 else 3
-    depth = binary_depth(bvh)
+    check_depth(binary_depth(bvh), int(bvh.root_count))
+
+
+def check_depth(depth: int, root_count: int) -> None:
+    """``check_stack_depth`` of a tree ``depth`` binary levels deep whose
+    root group has ``root_count`` slots."""
+    base = 2 if root_count == 2 else 3
     levels = 1 + -(-max(depth - base, 0) // 3)
     if 7 * levels + 1 > STACK:
         raise ValueError(
