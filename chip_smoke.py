@@ -136,9 +136,10 @@ exits non-zero if any phase fails:
    per live ray (node loads and box tests; the Tri entries; sort, push and
    pop): K6's, taken by the warp, and the replaced kernel's, taken per
    lane; the plain version is timed on the bounce pass.
-10. ``kernel_v`` 5, 4 and 2 (the reference's K3, v4 and K4) on phase 3's
-   bounce pass: each launches K1, with t and tri bit-equal to
-   ``kernel_v=3``, and v2's statistics have v2's shape.
+10. K1 with no selector for the reference's K3, v4 and K4 on phase 3's
+   bounce pass: one ``trace_rays_split`` call launches K1 once, and its
+   statistics are per ray, K1's own inner and leaf pops times the row
+   width and the window's triangles.
 11. The ``benchmarks/`` micro-probes (``tpu_raytracing_torch/benchmarks/``,
    kernels ``csrc/micro_probe.cu`` and ``csrc/lane_probe.cu``): every
    module's entry point at the reference's size (N = 200,000 loop
@@ -1952,37 +1953,26 @@ def time_fat_passes(rows256, passes, card: str, baselines=()) -> dict:
     return dict(plain_ms=plain_ms, **res["bounce"])
 
 
-def split_versions(split: dict) -> dict:
-    """Phase 10: kernel_v 5, 4 and 2 on phase 3's bounce pass; returns
-    {kernel_v: K1 launches}."""
-    print("phase 10: kernel_v 5, 4 and 2 (K3, v4, K4) on the bench frame's bounce pass")
+def split_versions(split: dict) -> int:
+    """Phase 10: K1, with no selector, for the reference's K3, v4 and K4 on
+    phase 3's bounce pass; returns the call's K1 launches."""
+    print("phase 10: K1 for K3, v4 and K4 (no selector) on the bench frame's bounce pass")
     cap = split["captured"]["bounce_tracer"]
     views, packed = split["views"], split["packed"]
-    ref, ref_stats = split_trace.trace_rays_split(views, packed, cap.rays, cap.active,
-                                                  kernel_v=3)
-    launches = {}
-    for v in (5, 4, 2):
-        split_trace.launch_count = 0
-        rec, stats = split_trace.trace_rays_split(views, packed, cap.rays, cap.active,
-                                                  kernel_v=v)
-        torch.cuda.synchronize()
-        launches[v] = split_trace.launch_count
-        bad_t = int((rec.t.view(torch.int32) != ref.t.view(torch.int32)).sum())
-        bad_tri = int((rec.tri_id != ref.tri_id).sum())
-        print(f"  kernel_v={v}: {launches[v]} K1 launch(es), t mismatches {bad_t}, "
-              f"tri mismatches {bad_tri} against kernel_v=3")
-        require(launches[v] > 0, f"kernel_v={v} launched no K1")
-        require(bad_t == 0 and bad_tri == 0, f"kernel_v={v} differs from kernel_v=3")
-        if v == 2:
-            w = views[0].shape[1]
-            total = (int(ref_stats.box_tests.sum()) // w
-                     + int(ref_stats.tri_tests.sum()) // (2 * split_trace.LEAFW))
-            print(f"  kernel_v=2 stats: box_tests[0] = {int(stats.box_tests[0])} total pops "
-                  f"(kernel_v=3: {total}), other entries nonzero "
-                  f"{int((stats.box_tests[1:] != 0).sum())}, tri_tests nonzero "
-                  f"{int((stats.tri_tests != 0).sum())}")
-            require(int(stats.box_tests[0]) == total and not bool(stats.box_tests[1:].any())
-                    and not bool(stats.tri_tests.any()), "kernel_v=2 stats are not v2's shape")
+    inner, pairs, stack_cap = views
+    split_trace.launch_count = 0
+    _, stats = split_trace.trace_rays_split(views, packed, cap.rays, cap.active)
+    torch.cuda.synchronize()
+    launches = split_trace.launch_count
+    _, _, ipops, lpops, _ = split_trace.split_traverse(
+        inner, pairs, *split_trace.kernel_operands(cap.rays, cap.active),
+        leafw=split_trace.LEAFW, any_hit=False, stack_cap=stack_cap)
+    per_ray = (torch.equal(stats.box_tests, ipops * inner.shape[1])
+               and torch.equal(stats.tri_tests, lpops * (2 * split_trace.LEAFW)))
+    print(f"  {launches} K1 launch(es) for one call; statistics per ray, K1's pops times the "
+          f"row width and the window's triangles: {per_ray}")
+    require(launches == 1, f"one trace_rays_split call launched {launches} K1s")
+    require(per_ray, "trace_rays_split's statistics are not K1's per-ray pops")
     return launches
 
 
@@ -3959,7 +3949,7 @@ def trips_run(card: str, camera, karras256, num_nodes, packed) -> None:
     rays = generate_primary_rays(camera, RES, RES)
     tiled = Rays(*(tile_reorder(getattr(rays, f), RES, RES, 8, 8)
                    for f in ("origin", "direction", "tmin", "tmax")))
-    fat = wide.FatWideBVH(rows=karras256, num_nodes=num_nodes)
+    fat = wide.FatWideBVH(rows=karras256, num_nodes=num_nodes, live_rows=int(num_nodes))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rec, stats, trips = wide_fat.trace_rays_wide_fat(fat, packed, tiled, packet_size=64,
@@ -4127,7 +4117,7 @@ def multi_legs(mesh, s: dict) -> dict:
         mesh, s["views"], s["packed"], s["dev_scene"], s["camera"], RES, RES,
         RenderType.TEXTURE_LIT_SHADOWS, k=128))
     timed("inst_split", lambda: flagship.trace_instanced_split_sharded(
-        mesh, s["ias"], s["inst_rays"], k_slots=s["k_slots"], k=128))
+        mesh, s["ias"], s["inst_rays"], k_slots=s["k_slots"]))
     timed("megakernel", lambda: prender.render_frame_sharded(
         mesh, s["trav"], s["pairs"], s["dev_scene"], s["camera"], MULTI_MEGA_RES,
         MULTI_MEGA_RES, RenderType.TEXTURE_LIT_SHADOWS))
@@ -4225,7 +4215,7 @@ def multi_phase(device, card: str, scene=None, dev_scene=None, camera=None, tria
     checks["split_render equal"] = bool(torch.equal(one["split_render"][0], rimg)) and \
         int(one["split_render"][1]) == int(rtests)
     single = instanced_split.trace_rays_instanced_split(s["ias"], s["inst_rays"],
-                                                        k_slots=s["k_slots"], k=128)
+                                                        k_slots=s["k_slots"])
     checks["inst_split equal"] = all(torch.equal(a, b) for a, b in zip(
         _tensors(single), _tensors(one["inst_split"])))
     mimg, mtests = render.render_frame(s["trav"], s["pairs"], s["dev_scene"], s["camera"],
@@ -4464,8 +4454,9 @@ def wide_collapse_checks(device, card: str, tris) -> dict:
                 f"{label}: the collapse kernels' rows differ from build_wide_fat's")
         require(fat.num_nodes.device == plain.num_nodes.device
                 and fat.num_nodes.dtype == plain.num_nodes.dtype
-                and int(fat.num_nodes) == int(plain.num_nodes),
-                f"{label}: num_nodes {fat.num_nodes} against {plain.num_nodes}")
+                and int(fat.num_nodes) == int(plain.num_nodes) == fat.live_rows,
+                f"{label}: num_nodes {fat.num_nodes} (read as {fat.live_rows}) against "
+                f"{plain.num_nodes}")
         print(f"  {label}: {bvh.num_slots} slots, root_count {int(bvh.root_count)}, depth "
               f"{fat_traverse.binary_depth(bvh)}, {int(fat.num_nodes)} wide rows: bit-equal "
               f"to build_wide_fat")
@@ -4813,19 +4804,20 @@ def main(argv=None) -> int:
                 "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": None}
 
-    # kernel_v only changes what the wrapper reports, so K1's measurements
-    # on the bounce pass (phase 4) serve the versions it stands in for
+    # K1 stands for the reference's other versions with no selector: their
+    # rows point to the split_trace entry, which counts phase 10's launch,
+    # and its measurements on the bounce pass (phase 4) serve them
     sp = "tpu_raytracing/trace/split_pallas.py"
     print(f"chip_smoke: full run {time.perf_counter() - T_PROCESS0:.2f} s of command time")
     print(json.dumps({"kernels": [
         entry("split_trace", "split_trace.cu", f"{sp}:143",
               k1_launches + anim["k1"] + tracers["instanced"]["launches"]
-              + modes["binned"]["launches"] + multi["k1"], k1),
+              + modes["binned"]["launches"] + multi["k1"] + versions, k1),
         entry("split_trace 16-wide", "split_trace.cu", f"{sp}:143",
               builds["wide16"]["launches"], builds["wide16"]),
-        entry("split_trace kernel_v=4", "split_trace.cu", f"{sp}:541", versions[4], k1),
-        entry("split_trace kernel_v=5", "split_trace.cu", f"{sp}:898", versions[5], k1),
-        entry("split_trace kernel_v=2", "split_trace.cu", f"{sp}:1250", versions[2], k1),
+        entry("split_trace for _kernel_v4", "split_trace.cu", f"{sp}:541", 0, k1),
+        entry("split_trace for _kernel_v5", "split_trace.cu", f"{sp}:898", 0, k1),
+        entry("split_trace for _kernel (v2)", "split_trace.cu", f"{sp}:1250", 0, k1),
         entry("lane_trace", "lane_trace.cu", "tpu_raytracing/trace/lane_pallas.py:107",
               lane_launches + anim["k5"], k5),
         entry("fat_traverse", "fat_traverse.cu", "tpu_raytracing/ops/pallas_traverse.py:71",

@@ -30,14 +30,21 @@ MIN_PSNR = 40.0
 @pytest.fixture(scope="module")
 def pallas_interpret():
     """The reference's Pallas kernels in interpret mode, as its own tests
-    run them off the TPU."""
+    run them off the TPU, with one packet slot (the reference's default
+    ``C`` set to 1): a frame here is one packet, and one slot keeps
+    interpret mode short, as the other port tests' ``c_slots=1`` does."""
     import functools
 
     from jax.experimental import pallas as pl
 
+    from tpu_raytracing.trace import lane_pallas, split_pallas
+
     orig = pl.pallas_call
     pl.pallas_call = functools.partial(orig, interpret=True)
-    yield
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(split_pallas, "C", 1)
+        mp.setattr(lane_pallas, "C", 1)
+        yield
     pl.pallas_call = orig
 
 

@@ -31,8 +31,15 @@ from tpu_raytracing_torch.ops import fat_traverse as ft  # noqa: E402
 from tpu_raytracing_torch.scene import procedural  # noqa: E402
 from tpu_raytracing_torch.trace import split_trace  # noqa: E402
 from tpu_raytracing_torch.trace.brute import brute_force_trace  # noqa: E402
+from tpu_raytracing_torch.trace.ray import Rays  # noqa: E402
 from tpu_raytracing_torch.trace.traverse import pack_bvh, pack_pairs, trace_rays  # noqa: E402
-from tests.test_torch_traverse import aimed_rays, both_rays, ray_sets  # noqa: E402
+from tests.test_torch_traverse import (  # noqa: E402
+    aimed_rays,
+    batched,
+    both_rays,
+    ray_sets,
+    record_rows,
+)
 
 torch.set_num_threads(2)
 _jbuild = jax.jit(jlbvh.build_lbvh, static_argnames="enable_pairs")
@@ -57,6 +64,15 @@ def _port_tree(scene, pairs):
     packed = pack_pairs(tp)
     fat = wide.build_wide_fat(bvh, packed.rows)
     return bvh, packed, ft.pad_rows_256(fat.rows)
+
+
+# the soup's and the sphere's fat and pair rows padded to one shape
+FAT_ROWS, PAIR_ROWS = 4000, 2000
+
+
+def _jpad(a, n):
+    assert a.shape[0] <= n
+    return jnp.concatenate([a, jnp.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)])
 
 
 def _camera_arrays(scene, width, height):
@@ -146,26 +162,31 @@ def test_pallas_active_mask(cornell, pallas_pt):
 def test_plain_matches_scalar_and_brute(soup, sphere, pairs):
     """The soup and sphere ray sets against the port's trace_rays on the
     same binary tree (the same Möller-Trumbore, so t is exact) and against
-    brute force."""
+    brute force. Each ray walks on its own, so a scene's ray sets trace as
+    one batch."""
     rng = np.random.default_rng(108)  # its own: the shared rng fixture depends on file order
     for scene in (soup, sphere):
         bvh, packed, rows = _port_tree(scene, pairs)
-        trav = pack_bvh(bvh)
         sets = dict(ray_sets(scene, rng), aimed=(aimed_rays(scene, rng, 1024), None))
-        hits = 0
-        for set_name, (arrays, active) in sets.items():
-            _, tr = both_rays(arrays)
-            act = None if active is None else torch.from_numpy(active)
-            rec, stats = ft.trace_rays_fat(rows, tr, active=act)
-            srec, _ = trace_rays(trav, packed, tr, active=act)
-            assert int(stats.overflow) == 0
-            assert_hits_match(rec, srec, t_rtol=0.0)
-            if active is None and not pairs:
-                # brute force tests each source triangle, as the unpaired tree
-                assert_hits_match(rec, brute_force_trace(torch.from_numpy(scene.triangles), tr),
-                                  t_rtol=1e-5, uv=False)
-            hits += int(rec.hit.sum())
-        assert hits > 16
+        arrays, live, slices = batched(sets)
+        _, tr = both_rays(arrays)
+        act = torch.from_numpy(live)
+        rec, stats = ft.trace_rays_fat(rows, tr, active=act)
+        srec, _ = trace_rays(pack_bvh(bvh), packed, tr, active=act)
+        assert int(stats.overflow) == 0
+        assert_hits_match(rec, srec, t_rtol=0.0)
+        if not pairs:
+            # brute force tests each source triangle, as the unpaired tree;
+            # on the sets without a mask
+            whole = np.zeros(live.shape[0], bool)
+            for name, sl in slices.items():
+                whole[sl] = sets[name][1] is None
+            sub = Rays(*(getattr(tr, f)[torch.from_numpy(whole)]
+                         for f in ("origin", "direction", "tmin", "tmax")))
+            assert_hits_match(record_rows(rec, whole),
+                              brute_force_trace(torch.from_numpy(scene.triangles), sub),
+                              t_rtol=1e-5, uv=False)
+        assert int(rec.hit.sum()) > 16
 
 
 @pytest.mark.parametrize("pairs", [False, True])
@@ -178,39 +199,52 @@ def test_plain_counts_match_reference_packets_of_one(soup, sphere, pairs):
     ray passes) equal on every live ray, and the hits too. ``tri_tests``
     (the triangles run) lies between one and two a counted entry. A dead
     ray (tmax = -1) pops the root row in the port and no row in the
-    reference."""
+    reference. With packets of one ray no ray's walk depends on another's,
+    so each scene's ray sets without a mask go to both sides as one batch
+    with ``active=None`` and the masked set as another, and are checked set
+    by set. Both sides trace the same rows, padded with zero rows to one
+    shape for both scenes: one compile of the reference's loop a batch."""
     from tpu_raytracing.trace import wide_fat as jwide_fat
 
     rng = np.random.default_rng(110)
+    entries = 0
     for scene in (soup, sphere):
         jb, jp = _jbuild(jnp.asarray(scene.triangles), enable_pairs=pairs)
         jpacked = jpack_pairs(jp)
         jfat = jax.jit(jwide.build_wide_fat)(jb, jpacked.rows)
+        jfat = jfat.replace(rows=_jpad(jfat.rows, FAT_ROWS))
+        jpacked = jpacked.replace(rows=_jpad(jpacked.rows, PAIR_ROWS))
         _, _, rows = _port_tree(scene, pairs)
+        rows = torch.cat([rows, rows.new_zeros((FAT_ROWS - rows.shape[0], rows.shape[1]))])
         sets = dict(ray_sets(scene, rng), aimed=(aimed_rays(scene, rng, 512), None))
-        entries = 0
-        for set_name, (arrays, active) in sets.items():
+        for masked in (False, True):
+            arrays, live, slices = batched(
+                {k: v for k, v in sets.items() if (v[1] is not None) == masked})
             jr, tr = both_rays(arrays)
-            live = np.ones(arrays[0].shape[0], bool) if active is None else active
             ref, jstats = jwide_fat.trace_rays_wide_fat(
-                jfat, jpacked, jr, active=None if active is None else jnp.asarray(active),
-                packet_size=1)
+                jfat, jpacked, jr, active=jnp.asarray(live) if masked else None, packet_size=1)
             counts = {}
-            ops = ft.kernel_operands(tr, None if active is None else torch.from_numpy(active))
-            out = ft.trace_fat_plain(rows, *ops, counts=counts)
-            box, ent, tri = (counts[k].numpy() for k in (
-                "box_tests", "tri_entry_tests", "tri_tests"))
-            np.testing.assert_array_equal(box[live], np.asarray(jstats.box_tests)[live],
-                                          err_msg=set_name)
-            np.testing.assert_array_equal(ent[live], np.asarray(jstats.tri_tests)[live],
-                                          err_msg=set_name)
-            assert (ent <= tri).all() and (tri <= 2 * ent).all()
-            assert (ent[~live] == 0).all()
-            np.testing.assert_array_equal(out[0].numpy().astype(bool), np.asarray(ref.hit))
-            hit = np.asarray(ref.hit)
-            np.testing.assert_array_equal(out[3].numpy()[hit], np.asarray(ref.tri_id)[hit])
-            entries += int(ent.sum())
-        assert entries > 20
+            out = ft.trace_fat_plain(
+                rows, *ft.kernel_operands(tr, torch.from_numpy(live) if masked else None),
+                counts=counts)
+            box, ent, tri = (counts[k].numpy()
+                             for k in ("box_tests", "tri_entry_tests", "tri_tests"))
+            ref_hit, ref_tri = np.asarray(ref.hit), np.asarray(ref.tri_id)
+            ref_box, ref_ent = np.asarray(jstats.box_tests), np.asarray(jstats.tri_tests)
+            for set_name, sl in slices.items():
+                lv = live[sl]
+                np.testing.assert_array_equal(box[sl][lv], ref_box[sl][lv], err_msg=set_name)
+                np.testing.assert_array_equal(ent[sl][lv], ref_ent[sl][lv], err_msg=set_name)
+                assert (ent[sl] <= tri[sl]).all() and (tri[sl] <= 2 * ent[sl]).all()
+                assert (ent[sl][~lv] == 0).all()
+                np.testing.assert_array_equal(out[0].numpy()[sl].astype(bool), ref_hit[sl],
+                                              err_msg=set_name)
+                hit = ref_hit[sl]
+                np.testing.assert_array_equal(out[3].numpy()[sl][hit], ref_tri[sl][hit],
+                                              err_msg=set_name)
+                entries += int(ent[sl].sum())
+            assert live.all() != masked
+    assert entries > 20
 
 
 def test_jax_built_fat_tree_traced_by_port(sphere):

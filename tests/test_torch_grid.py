@@ -5,11 +5,12 @@ The reference's ``build_grid_from_triangles`` is ``setup_leaves``,
 ``pack_pairs``, the rows past the live leaves zeroed, then ``build_grid``;
 its jitted ``build_grid`` is compiled once per row count here and fed the
 reference's own rows, and the port's ``build_grid_from_triangles`` and
-``build_grid`` are held to that. Bit-equality needs what the port's grid
-module does on purpose: the reciprocal-multiply XLA makes of the division
-by the constant cell counts, one rounding where XLA's CPU compiler fuses a
-multiply into the add that consumes it (the cell centres and the
-separating-axis sums), and a stable cell-key sort. A JAX-built grid,
+``build_grid`` are held to that. The soup has as many triangles as the
+terrain, so the two scenes share that compile. Bit-equality needs what
+the port's grid module does on purpose: the reciprocal-multiply XLA
+makes of the division by the constant cell counts, one rounding where
+XLA's CPU compiler fuses a multiply into the add that consumes it (the
+cell centres and the separating-axis sums), and a stable cell-key sort. A JAX-built grid,
 carried over by ``convert.grid_from_numpy``, traces in the port as the
 port's own grid does. The fixtures with the cornell box's big list, an
 explicit resolution and the tier overrides are in
@@ -68,9 +69,17 @@ def jax_grid(tris: np.ndarray, enable_pairs: bool, **kw):
     return _jbuild(rows, num_live, **kw), rows, num_live
 
 
+# terrain(2000) has 1,922 triangles; a soup of as many gives the reference's
+# build the same row count, so one compile of it serves both scenes
+SOUP_TRIS = 1922
+
+
 @pytest.fixture(scope="module")
 def scenes():
-    return {"soup": jproc.random_triangle_soup(600, seed=5), "terrain": jproc.terrain(2000)}
+    scenes = {"soup": jproc.random_triangle_soup(SOUP_TRIS, seed=5),
+              "terrain": jproc.terrain(2000)}
+    assert scenes["terrain"].num_triangles == SOUP_TRIS
+    return scenes
 
 
 @pytest.mark.parametrize("pairs", [False, True], ids=["pairs-off", "pairs-on"])

@@ -1,9 +1,8 @@
 """Instancing over the uniform grid (``trace/grid_instanced.py``) in the
 PyTorch port against the JAX reference, on the scenes of
 ``tests/test_tlas.py``'s instanced-grid tests: 12 instances of
-``icosphere(1)`` under random rotations, scales and shifts, and three
-nearly coincident ``icosphere(0)`` instances that overflow a work list of
-``work_factor=1``.
+``icosphere(1)`` under random rotations, scales and shifts, and 12 nearly
+coincident ones that overflow a work list of ``work_factor=1``.
 
 The reference's own structure (``build_instanced_grid``) is carried over by
 ``convert.instanced_grid_from_numpy`` and traced by both packages: hit,
@@ -96,7 +95,7 @@ def test_instanced_grid_matches_reference():
         ref = jax.jit(lambda i, p, r: jgi.trace_rays_instanced_grid(
             i, p, r, m_cand=16, any_hit=any_hit))(ias_j, jpacked, jr)
         rec, inst, stats, ov = grid_instanced.trace_rays_instanced_grid(
-            ias, packed, tr, m_cand=16, any_hit=any_hit)
+            ias, packed, tr, any_hit=any_hit)
         assert_same(rec, inst, stats, ov, ref)
         assert int(stats.overflow) == 0 and int(rec.hit.sum()) > 50
         grid_instanced.check_instanced_grid_capacity(ov)
@@ -121,12 +120,14 @@ def test_instanced_grid_matches_reference():
 
 
 def test_instanced_grid_overflow_count():
-    """Three nearly coincident instances and work_factor=1: both packages
-    count the same items past the cap and keep the same ones; the port also
-    sets TraceStats.overflow, and both checks raise."""
-    mesh = icosphere(subdivisions=0, radius=0.8)
-    tf = np.zeros((3, 3, 4), np.float32)
-    for i in range(3):
+    """Nearly coincident instances and work_factor=1: both packages count
+    the same items past the cap and keep the same ones; the port also sets
+    TraceStats.overflow, and both checks raise. The mesh and the instance
+    count are the first test's, so the reference's build compiles once for
+    both."""
+    mesh = icosphere(subdivisions=1, radius=0.8)
+    tf = np.zeros((12, 3, 4), np.float32)
+    for i in range(12):
         tf[i, :, :3] = np.eye(3, dtype=np.float32)
         tf[i, 2, 3] = i * 0.1
     ias_j, jpacked, ias, packed = reference_structure(mesh, tf)

@@ -30,6 +30,7 @@ from tpu_raytracing.trace.modes import RenderType as JRenderType  # noqa: E402
 from tpu_raytracing.trace.ray import Rays as JRays  # noqa: E402
 from tpu_raytracing.trace.ray import generate_primary_rays as jprimary  # noqa: E402
 from tpu_raytracing.trace.traverse import PackedPairs as JPackedPairs  # noqa: E402
+from test_torch_grid import SOUP_TRIS  # noqa: E402
 from tpu_raytracing_torch.app import main as app  # noqa: E402
 from tpu_raytracing_torch.bvh import grid  # noqa: E402
 from tpu_raytracing_torch.bvh.pairing import identity_pairs  # noqa: E402
@@ -63,7 +64,10 @@ def to_jax(ugrid, packed):
 def grids():
     """name -> (scene, port grid, port rows, reference grid, reference rows)."""
     out = {}
-    for name, scene, pairs in (("soup", jproc.random_triangle_soup(600, seed=5), True),
+    # the soup as large as the terrain (tests/test_torch_grid.py): the two
+    # grids are shaped alike, so one compile of the reference's tracer
+    # serves both
+    for name, scene, pairs in (("soup", jproc.random_triangle_soup(SOUP_TRIS, seed=5), True),
                                ("terrain", jproc.terrain(2000), False),
                                ("cornell", jproc.cornell_box(), False)):
         ugrid, packed = grid.build_grid_from_triangles(torch.from_numpy(scene.triangles), pairs)

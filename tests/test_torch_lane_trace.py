@@ -105,17 +105,27 @@ def _assert_matches(rec, ref, live=None):
                                   np.where(both, ref.prim_id.numpy(), 0))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_cornell_treelet():
+    """The reference's treelet BVH over cornell's unpaired bucket front,
+    built once for both cases."""
+    from tpu_raytracing.scene import procedural
+
+    front = jax.jit(lambda t: jbucket.split_front(t, enable_pairs=False))(
+        jnp.asarray(procedural.cornell_box().triangles))
+    tcap = jtreelet.treelet_capacity(front, 16) + 8
+    return jax.jit(lambda f: jtreelet.build_treelet(f, tcap, leaf_width=16))(front)
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_plain_matches_pallas_lane_kernel(cornell, any_hit):
-    """One 128-ray packet through the reference kernel in interpret mode."""
-    front = jax.jit(lambda t: jbucket.split_front(t, enable_pairs=False))(
-        jnp.asarray(cornell.triangles))
-    tcap = jtreelet.treelet_capacity(front, 16) + 8
-    jtb, jpacked = jax.jit(lambda f: jtreelet.build_treelet(f, tcap, leaf_width=16))(front)
+    """One 128-ray packet through the reference kernel in interpret mode, on
+    one packet slot (``c_slots=1`` keeps interpret mode short)."""
+    jtb, jpacked = _jax_cornell_treelet()
     o, d, lo, hi = _camera_rays(cornell, 16, 8)
     jrays = JRays(*(jnp.asarray(a) for a in (o, d, lo, hi)))
     (jt, jtri), _, jout, _ = lane_pallas.trace_rays_lane_pallas(
-        jtb, jpacked, jrays, any_hit=any_hit, raw=True)
+        jtb, jpacked, jrays, any_hit=any_hit, c_slots=1, raw=True)
     jrec = jreconstruct(jpacked, jrays, jt, jtri)
 
     _, tb, packed = _port_tree("cornell")
@@ -164,12 +174,23 @@ def _case_rays(scene, kind):
     return _interior_rays(scene, 384, seed=11), None
 
 
+@functools.lru_cache(maxsize=None)
+def _case_oracles(case):
+    """A case's rays and the two oracles' answers on them (brute force and
+    the numpy treelet walk), worked out once, not once a schedule."""
+    tree, kind, _ = CASES[case]
+    scene, tb, _ = _port_tree(*tree)
+    (o, d, lo, hi), live = _case_rays(scene, kind)
+    ref = brute_force_trace(torch.from_numpy(scene.triangles), _port_rays(o, d, lo, hi))
+    return (o, d, lo, hi), live, ref, ttreelet.reference_walk(tb, o, d, lo, hi)
+
+
 @pytest.mark.parametrize("driver", lt.DRIVERS)
 @pytest.mark.parametrize("case", list(CASES))
 def test_drivers_match_brute_and_walk(driver, case):
-    tree, kind, stack = CASES[case]
-    scene, tb, packed = _port_tree(*tree)
-    (o, d, lo, hi), live = _case_rays(scene, kind)
+    tree, _, stack = CASES[case]
+    _, tb, packed = _port_tree(*tree)
+    (o, d, lo, hi), live, ref, (wt, wtri) = _case_oracles(case)
     rays = _port_rays(o, d, lo, hi)
     active = None if live is None else torch.from_numpy(live)
     tracer = lt.make_lane_tracer(driver=driver, budgets=(3, 5) if driver != "single" else None,
@@ -177,10 +198,8 @@ def test_drivers_match_brute_and_walk(driver, case):
     rec, stats = tracer(tb, packed, rays, active=active)
     assert rec.hit.shape == (o.shape[0],) and stats.box_tests.shape == (o.shape[0],)
     check_overflow(stats.overflow)
-    ref = brute_force_trace(torch.from_numpy(scene.triangles), rays)
     assert int(ref.hit.sum()) > 8
     _assert_matches(rec, ref, live)
-    wt, wtri = ttreelet.reference_walk(tb, o, d, lo, hi)
     whit = wtri >= 0 if live is None else (wtri >= 0) & live
     both = _assert_hits_agree(rec.hit.numpy(), whit)
     np.testing.assert_allclose(np.where(both, rec.t.numpy(), 0), np.where(both, wt, 0), rtol=1e-5)

@@ -36,6 +36,7 @@ from tpu_raytracing_torch.trace.brute import make_brute_tracer  # noqa: E402
 from tpu_raytracing_torch.trace.modes import RenderType  # noqa: E402
 from tpu_raytracing_torch.trace.ray import Rays  # noqa: E402
 from tpu_raytracing_torch.utils.compare import psnr  # noqa: E402
+from tests.test_torch_traverse import padded_trees  # noqa: E402
 
 torch.set_num_threads(2)
 _jtrace = jax.jit(jpacket.trace_rays_packet, static_argnames=("packet_size",))
@@ -90,29 +91,32 @@ def _assert_records(rec, ref, uv=True):
 @pytest.mark.parametrize("name,kind", [("cornell", "karras"), ("sphere", "sah")])
 @pytest.mark.parametrize("masked", [False, True], ids=["all-on", "active-mask"])
 def test_trace_rays_packet_matches_jax(name, kind, masked, request):
-    """Camera packets (16 x 8 tiles) and incoherent random-ray packets."""
+    """Camera packets (16 x 8 tiles) and incoherent random-ray packets,
+    traced as one batch (both sets fill whole packets, so every packet is
+    the same as on its own): one compile of the reference's tracer."""
     scene = request.getfixturevalue(name)
     rng = np.random.default_rng(111)
-    (jtrav, jpacked), (trav, packed) = _trees(scene, kind)
-    hits = 0
-    for arrays in (_camera_rays(scene, 32, 16), _random_rays(scene, rng, 256)):
-        num = arrays[0].shape[0]
-        active = rng.random(num) < 0.6 if masked else None
-        jr, tr = _both(arrays)
-        ref, jstats = _jtrace(jtrav, jpacked, jr, packet_size=128,
-                              active=None if active is None else jnp.asarray(active))
-        rec, stats = packet.trace_rays_packet(
-            trav, packed, tr, packet_size=128,
-            active=None if active is None else torch.from_numpy(active))
-        _assert_records(rec, ref)
-        np.testing.assert_array_equal(stats.box_tests.numpy(), np.asarray(jstats.box_tests))
-        np.testing.assert_array_equal(stats.tri_tests.numpy(), np.asarray(jstats.tri_tests))
-        assert int(stats.overflow) == 0
-        if active is not None:
-            assert not rec.hit.numpy()[~active].any()
-            assert (stats.box_tests.numpy()[~active] == 0).all()
-        hits += int(rec.hit.sum())
-    assert hits > 32
+    jtrees, ttrees = _trees(scene, kind)
+    # both sides trace the same zero-padded rows: one compile for both scenes
+    (jtrav, jpacked), (trav, packed) = padded_trees(*jtrees, *ttrees)
+    sets = (_camera_rays(scene, 32, 16), _random_rays(scene, rng, 256))
+    arrays = tuple(np.concatenate(a) for a in zip(*sets))
+    active = (np.concatenate([rng.random(a[0].shape[0]) < 0.6 for a in sets]) if masked
+              else None)
+    jr, tr = _both(arrays)
+    ref, jstats = _jtrace(jtrav, jpacked, jr, packet_size=128,
+                          active=None if active is None else jnp.asarray(active))
+    rec, stats = packet.trace_rays_packet(
+        trav, packed, tr, packet_size=128,
+        active=None if active is None else torch.from_numpy(active))
+    _assert_records(rec, ref)
+    np.testing.assert_array_equal(stats.box_tests.numpy(), np.asarray(jstats.box_tests))
+    np.testing.assert_array_equal(stats.tri_tests.numpy(), np.asarray(jstats.tri_tests))
+    assert int(stats.overflow) == 0
+    if active is not None:
+        assert not rec.hit.numpy()[~active].any()
+        assert (stats.box_tests.numpy()[~active] == 0).all()
+    assert int(rec.hit.sum()) > 32
 
 
 def test_packet_hits_equal_the_scalar_tracer(sphere):

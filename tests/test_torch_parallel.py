@@ -222,8 +222,7 @@ def test_k1_legs_match_single_device(case):
     assert psnr(ref.clamp(0, 1).numpy(), sh_img.clamp(0, 1).numpy(), peak=1.0) >= 40.0
     assert bool(torch.isfinite(sh_img).all()) and int(rays) > 0
 
-    rec, inst, stats, guard = trace_rays_instanced_split(s["ias"], s["inst_rays"], k_slots=4,
-                                                         k=128)
+    rec, inst, stats, guard = trace_rays_instanced_split(s["ias"], s["inst_rays"], k_slots=4)
     srec, sinst, sstats, sguard = one["inst_split"]
     for a, b in zip(_flat((rec, inst, stats, guard)), _flat((srec, sinst, sstats, sguard))):
         assert torch.equal(a, b)
@@ -241,7 +240,7 @@ def test_instanced_split_guard_is_the_band_maximum(case, world):
     bands = [trace_rays_instanced_split(
         s["ias"], type(rays)(*(getattr(rays, f)[b * per:(b + 1) * per]
                                for f in ("origin", "direction", "tmin", "tmax"))),
-        k_slots=4, k=128)[3] for b in range(world)]
+        k_slots=4)[3] for b in range(world)]
     want = torch.stack(bands).amax(dim=0)
     for res in case["ranks"][world]:
         assert torch.equal(res["inst_split"][3], want)

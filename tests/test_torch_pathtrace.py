@@ -104,8 +104,8 @@ def test_bounce_stage_matches_jax(cornell_state, sort_kind, sample_next):
         s["tscene"], s["packed"], s["rays"], s["rec"], torch.from_numpy(srec_hit),
         torch.from_numpy(throughput), torch.from_numpy(radiance), torch.from_numpy(alive),
         torch.from_numpy(pixel).to(torch.int64), torch.from_numpy(u_frame),
-        torch.tensor(max_t), pair_loc=torch.from_numpy(pair_loc), sort_cells=True,
-        sample_next=sample_next, sort_kind=sort_kind)
+        torch.tensor(max_t), pair_loc=torch.from_numpy(pair_loc), sample_next=sample_next,
+        sort_kind=sort_kind)
     j_rad, j_thr, j_alive, j_pix, j_rays = ref
     t_rad, t_thr, t_alive, t_pix, t_rays = out
     np.testing.assert_array_equal(np.asarray(j_alive), t_alive.numpy())

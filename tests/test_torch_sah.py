@@ -202,8 +202,7 @@ def test_frontier_edges():
     same(ref_ids, ids, "ids")
 
     with pytest.raises(tsah.SahDeadlineExceeded):
-        tsc.build_sah_split(torch.from_numpy(tris), True, 64, host_stepped=True,
-                            deadline=time.monotonic() - 1.0)
+        tsc.build_sah_split(torch.from_numpy(tris), True, 64, deadline=time.monotonic() - 1.0)
     for name, pairs in (("cornell", True), ("sphere", False), ("duplicate", False)):
         t = torch.from_numpy(scene_tris(name))
         plain, _ = tsc.build_sah_split(t, pairs, 16)

@@ -28,6 +28,9 @@ from tpu_raytracing_torch.trace.brute import brute_force_trace as tbrute  # noqa
 from tpu_raytracing_torch.trace.ray import Rays  # noqa: E402
 
 torch.set_num_threads(2)
+# the reference's bucket tree and K1 views, one jit for the module's cases
+_jviews = jax.jit(lambda t: jbucket.emit_split_views(
+    jbucket.split_front(t, enable_pairs=True), leaf_width=st.LEAFW))
 
 
 def _np_rays(rays):
@@ -140,9 +143,7 @@ def test_non_tiling_frame(cornell):
 
 
 def test_jax_built_tree_traced_by_port(sphere):
-    fn = jax.jit(lambda t: jbucket.emit_split_views(
-        jbucket.split_front(t, enable_pairs=True), leaf_width=st.LEAFW))
-    (inner_i, inner_v, pairs_f), jpacked, _ = fn(jnp.asarray(sphere.triangles))
+    (inner_i, inner_v, pairs_f), jpacked, _ = _jviews(jnp.asarray(sphere.triangles))
     views = convert.split_views_from_numpy(np.asarray(inner_i), np.asarray(inner_v),
                                            np.asarray(pairs_f), "cpu")
     packed = convert.packed_from_numpy(np.asarray(jpacked.rows), "cpu")
@@ -174,52 +175,46 @@ def pallas_sp():
 
 @pytest.mark.parametrize("kernel_v", [2, 3, 4, 5])
 def test_plain_matches_pallas_kernel(sphere, pallas_sp, kernel_v):
-    """Every kernel_v runs K1's plain version here. kernel_v=5 is held to
-    the v3 kernel and brute force, not to the Pallas v5 kernel, whose stack
-    can drop entries (ROADMAP Queue 3); 2, 3 and 4 to their own kernels."""
-    fn = jax.jit(lambda t: jbucket.emit_split_views(
-        jbucket.split_front(t, enable_pairs=True), leaf_width=st.LEAFW))
-    jviews, jpacked, _ = fn(jnp.asarray(sphere.triangles))
+    """The port's one tracer (K1's plain version here) against each of the
+    reference's kernel versions. For kernel_v=5 the reference runs the v3
+    kernel and the port is also held to brute force, not to the Pallas v5
+    kernel, whose stack can drop entries (ROADMAP Queue 3); 2, 3 and 4 run
+    their own kernels, on one packet slot (``c_slots=1`` keeps interpret
+    mode short)."""
+    jviews, jpacked, _ = _jviews(jnp.asarray(sphere.triangles))
     o, d, lo, hi = _camera_rays(sphere, 16, 8)  # one 128-ray packet
     jr, tr = _both(o, d, lo, hi)
-    ref, _ = pallas_sp.trace_rays_split_pallas(jviews, jpacked, jr,
+    ref, _ = pallas_sp.trace_rays_split_pallas(jviews, jpacked, jr, c_slots=1,
                                                kernel_v=3 if kernel_v == 5 else kernel_v)
-    rec, _ = st.trace_rays_split(*_port_tree(sphere, True), tr, kernel_v=kernel_v)
+    rec, _ = st.trace_rays_split(*_port_tree(sphere, True), tr)
     _assert_matches(rec, ref)
     np.testing.assert_allclose(rec.bary_u.numpy(), np.asarray(ref.bary_u), rtol=1e-4, atol=1e-5)
     if kernel_v == 5:
         _assert_matches(rec, jbrute(jnp.asarray(sphere.triangles), jr))
 
 
-def test_kernel_v2_stats_and_refusals(sphere):
-    """v2's statistics: the launch's total pops in box_tests[0], zeros
-    elsewhere, as split_pallas.py:1865-1869; v2 refuses packet_tags and raw
-    (:1816-1817); the other versions take both, and root tags (0) for
-    every packet trace as no tags."""
+def test_per_ray_stats_raw_and_packet_tags(sphere):
+    """The statistics are per ray, in a padded tiled frame too; ``raw``
+    returns K1's (t, tri) before the reconstruction; ``packet_tags`` are
+    refused unless they tile the rays in packets of ``k``, and root tags
+    (0) for every packet trace as no tags."""
     views, packed = _port_tree(sphere, True)
     _, tr = _both(*_camera_rays(sphere, 16, 8))
     rec3, st3 = st.trace_rays_split(views, packed, tr)
-    rec2, st2 = st.trace_rays_split(views, packed, tr, kernel_v=2)
-    for a, b in ((rec2.t, rec3.t), (rec2.tri_id, rec3.tri_id), (rec2.hit, rec3.hit)):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
-    w = views[0].shape[1]
-    total = int(st3.box_tests.sum()) // w + int(st3.tri_tests.sum()) // (2 * st.LEAFW)
-    assert int(st2.box_tests[0]) == total > 0
-    assert not st2.box_tests[1:].any() and not st2.tri_tests.any()
-    _, tiled = st.make_split_tracer(24, 10, kernel_v=2)(views, packed, _both(
+    _, _, ipops, lpops, _ = st.split_traverse(
+        *views[:2], *st.kernel_operands(tr), leafw=st.LEAFW, any_hit=False,
+        stack_cap=views[2])
+    np.testing.assert_array_equal(st3.box_tests.numpy(), (ipops * views[0].shape[1]).numpy())
+    np.testing.assert_array_equal(st3.tri_tests.numpy(), (lpops * 2 * st.LEAFW).numpy())
+    _, tiled = st.make_split_tracer(24, 10)(views, packed, _both(
         *_camera_rays(sphere, 24, 10))[1])
-    assert tiled.box_tests.shape == (240,) and int(tiled.box_tests[0]) > 0
-    assert not tiled.box_tests[1:].any()
-    with pytest.raises(ValueError, match="v3 kernel"):
-        st.trace_rays_split(views, packed, tr, kernel_v=2, raw=True)
-    with pytest.raises(ValueError, match="v3 kernel"):
-        st.trace_rays_split(views, packed, tr, kernel_v=1, packet_tags=torch.zeros(1))
+    assert tiled.box_tests.shape == (240,) and bool((tiled.box_tests > 0).all())
     with pytest.raises(ValueError, match="packets of 256"):
-        st.trace_rays_split(views, packed, tr, kernel_v=5, packet_tags=torch.zeros(1))
-    (t5, tri5), _ = st.trace_rays_split(views, packed, tr, kernel_v=5, raw=True)
+        st.trace_rays_split(views, packed, tr, packet_tags=torch.zeros(1))
+    (t5, tri5), _ = st.trace_rays_split(views, packed, tr, raw=True)
     np.testing.assert_array_equal(tri5.numpy() >= 0, rec3.hit.numpy())
     np.testing.assert_array_equal(t5.numpy()[rec3.hit.numpy()], rec3.t.numpy()[rec3.hit.numpy()])
-    (t5t, tri5t), st5t = st.trace_rays_split(views, packed, tr, kernel_v=5, raw=True, k=128,
+    (t5t, tri5t), st5t = st.trace_rays_split(views, packed, tr, raw=True, k=128,
                                              packet_tags=torch.zeros(1, dtype=torch.int32))
     np.testing.assert_array_equal(t5t.numpy(), t5.numpy())
     np.testing.assert_array_equal(tri5t.numpy(), tri5.numpy())
@@ -278,9 +273,7 @@ def test_plain_matches_pallas_on_exact_ties(pallas_sp):
     needs one of the kernel's slots (``c_slots=1`` keeps interpret mode
     short)."""
     scene, tris = _tie_scene()
-    fn = jax.jit(lambda t: jbucket.emit_split_views(
-        jbucket.split_front(t, enable_pairs=True), leaf_width=st.LEAFW))
-    jviews, jpacked, _ = fn(jnp.asarray(tris))
+    jviews, jpacked, _ = _jviews(jnp.asarray(tris))
     front = tbucket.split_front(torch.from_numpy(tris), True)
     views, packed, split = tbucket.emit_split_views(front, leaf_width=st.LEAFW)
     assert int(split.num_inner) == 1 and packed.rows.shape[0] == st.LEAFW

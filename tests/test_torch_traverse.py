@@ -15,6 +15,9 @@ counters still are), and on the soup t is held to rtol 1e-5, the split
 tests' bar against brute force.
 """
 
+import dataclasses
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -101,28 +104,81 @@ def assert_records_close(rec, ref, exact=("hit", "tri_id", "prim_id"), uv=True, 
                                    rtol=1e-6, atol=1e-5, err_msg=f)
 
 
+# every scene's tree padded with zero rows to these counts, the same rows
+# on both sides: with the batched ray sets, whose size does not depend on
+# the scene, the reference's tracer compiles once here for each of the
+# unmasked and the masked batch
+TRAV_ROWS, PAIR_ROWS = 4096, 2048
+
+
+def padded_trees(jtrav, jpacked, trav, packed):
+    """The reference's and the port's tree and pair rows, zero rows
+    appended up to ``TRAV_ROWS`` and ``PAIR_ROWS``."""
+    def jpad(a, n):
+        assert a.shape[0] <= n
+        return jnp.concatenate([a, jnp.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)])
+
+    def tpad(a, n):
+        return torch.cat([a, a.new_zeros((n - a.shape[0],) + tuple(a.shape[1:]))])
+
+    return ((jtrav.replace(rows=jpad(jtrav.rows, TRAV_ROWS)),
+             jpacked.replace(rows=jpad(jpacked.rows, PAIR_ROWS))),
+            (dataclasses.replace(trav, rows=tpad(trav.rows, TRAV_ROWS)),
+             dataclasses.replace(packed, rows=tpad(packed.rows, PAIR_ROWS))))
+
+
+def batched(sets):
+    """``ray_sets``' arrays as one batch, its live mask (every ray of a set
+    without one) and each set's slice of it."""
+    arrays = tuple(np.concatenate(a) for a in zip(*(arr for arr, _ in sets.values())))
+    live = np.concatenate([np.ones(arr[0].shape[0], bool) if active is None else active
+                           for arr, active in sets.values()])
+    bounds = np.cumsum([0] + [arr[0].shape[0] for arr, _ in sets.values()])
+    return arrays, live, {name: slice(a, b) for name, a, b in zip(sets, bounds, bounds[1:])}
+
+
+def record_rows(rec, sl):
+    """A record's fields (torch or JAX) at ``sl``, a slice or a mask."""
+    return types.SimpleNamespace(**{f: torch.from_numpy(np.array(getattr(rec, f))[sl])
+                                    for f in ("hit", "t", "prim_id", "tri_id", "bary_u",
+                                              "bary_v")})
+
+
 @pytest.mark.parametrize("name,pairs", [("cornell", True), ("sphere", False),
                                         ("sphere", True), ("soup", True)])
 def test_trace_rays_matches_jax(name, pairs, request):
+    """Every ray walks on its own, so the ray sets without a mask trace as
+    one batch with ``active=None`` and the masked set as another, each held
+    set by set; with the padded trees, one compile of the reference's
+    tracer serves every case."""
     rng = np.random.default_rng(109)  # its own: the shared rng fixture depends on file order
     scene = request.getfixturevalue(name)
-    (jtrav, jpacked), (trav, packed) = _trees(scene, pairs)
+    jtrees, ttrees = _trees(scene, pairs)
+    (jtrav, jpacked), (trav, packed) = padded_trees(*jtrees, *ttrees)
+    sets = ray_sets(scene, rng)
     total_hits = 0
-    for set_name, (arrays, active) in ray_sets(scene, rng).items():
+    for masked in (False, True):
+        group = {k: v for k, v in sets.items() if (v[1] is not None) == masked}
+        arrays, live, slices = batched(group)
         jr, tr = both_rays(arrays)
-        ref, jstats = _jtrace(jtrav, jpacked, jr,
-                              active=None if active is None else jnp.asarray(active))
-        rec, stats = traverse.trace_rays(trav, packed, tr, active=None if active is None
-                                         else torch.from_numpy(active))
-        assert_records_close(rec, ref, uv=name != "soup" and set_name != "aimed",
-                             t_rtol=1e-5 if name == "soup" else 1e-6)
-        np.testing.assert_array_equal(stats.box_tests.numpy(), np.asarray(jstats.box_tests))
-        np.testing.assert_array_equal(stats.tri_tests.numpy(), np.asarray(jstats.tri_tests))
-        assert int(stats.overflow) == 0, set_name
-        if active is not None:
-            assert not rec.hit.numpy()[~active].any()
-            assert (stats.box_tests.numpy()[~active] == 0).all()
-        total_hits += int(rec.hit.sum())
+        ref, jstats = _jtrace(jtrav, jpacked, jr, active=jnp.asarray(live) if masked else None)
+        rec, stats = traverse.trace_rays(trav, packed, tr,
+                                         active=torch.from_numpy(live) if masked else None)
+        assert int(stats.overflow) == 0
+        for set_name, sl in slices.items():
+            assert_records_close(record_rows(rec, sl), record_rows(ref, sl),
+                                 uv=name != "soup" and set_name != "aimed",
+                                 t_rtol=1e-5 if name == "soup" else 1e-6)
+            np.testing.assert_array_equal(stats.box_tests.numpy()[sl],
+                                          np.asarray(jstats.box_tests)[sl], err_msg=set_name)
+            np.testing.assert_array_equal(stats.tri_tests.numpy()[sl],
+                                          np.asarray(jstats.tri_tests)[sl], err_msg=set_name)
+            if masked:
+                dead = ~live[sl]
+                assert dead.any()
+                assert not rec.hit.numpy()[sl][dead].any()
+                assert (stats.box_tests.numpy()[sl][dead] == 0).all()
+            total_hits += int(rec.hit[sl].sum())
     assert total_hits > 16
 
 

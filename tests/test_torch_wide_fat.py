@@ -56,6 +56,14 @@ def _jax_tree(name, build):
     return jb, jpacked, _jfat(jb, jpacked.rows)
 
 
+FAT_ROWS, PAIR_ROWS = 4352, 2048
+
+
+def _pad(a, n):
+    assert a.shape[0] <= n
+    return jnp.concatenate([a, jnp.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)])
+
+
 def _bvh_fields(jb):
     return {f: np.asarray(getattr(jb, f)) for f in (
         "node_min", "node_max", "child", "count", "type", "parent", "root", "root_count")}
@@ -79,18 +87,19 @@ def test_tiled_tracer_matches_jax(build, name):
     jb, jpacked, jfat = _jax_tree(name, build)
     scene = SCENES[name]()
     jr, tr = both_rays(_camera_arrays(scene, W, H))
-    ref, _ = jwide_fat.make_tiled_fat_tracer(None, W, H, 8, 8)(jfat, jpacked, jr)
+    # both sides trace the rows padded with zero rows to one shape for every
+    # case: the reference's loop compiles once for the four
+    jfat = jfat.replace(rows=_pad(jfat.rows, FAT_ROWS))
+    jpacked = jpacked.replace(rows=_pad(jpacked.rows, PAIR_ROWS))
     fat = convert.fat_from_numpy(np.asarray(jfat.rows), np.asarray(jfat.num_nodes), "cpu")
     packed = convert.packed_from_numpy(np.asarray(jpacked.rows), "cpu")
-    for phased in (False, True):
-        tracer = wide_fat.make_tiled_fat_tracer(None, W, H, 8, 8, phased=phased)
-        rec, stats = tracer(fat, packed, tr)
-        assert tracer.host_staged == phased
-        assert int(stats.overflow) == 0
-        assert int(rec.hit.sum()) > 16
-        assert_hits_match(rec, ref)
-        assert stats.box_tests.shape == stats.tri_tests.shape == (W * H,)
-        assert int(stats.box_tests.min()) > 0
+    ref, _ = jwide_fat.make_tiled_fat_tracer(None, W, H, 8, 8)(jfat, jpacked, jr)
+    rec, stats = wide_fat.make_tiled_fat_tracer(None, W, H, 8, 8)(fat, packed, tr)
+    assert int(stats.overflow) == 0
+    assert int(rec.hit.sum()) > 16
+    assert_hits_match(rec, ref)
+    assert stats.box_tests.shape == stats.tri_tests.shape == (W * H,)
+    assert int(stats.box_tests.min()) > 0
 
 
 def _repeated_tile_rays(scene):
@@ -119,8 +128,8 @@ def test_per_ray_counts_equal_per_packet_counts(build, name):
 
 
 def test_untiled_forms_and_active_mask():
-    """``trace_rays_wide_fat`` and its phased form give the same records
-    as the reference's; a dead ray hits nothing and keeps its tmax (the
+    """``trace_rays_wide_fat`` gives the same records as the reference's;
+    a dead ray hits nothing and keeps its tmax (the
     reference's reconstruction), and ``with_trips`` runs the reference's
     lockstep loop instead of K6, with the same hits and a trip count per
     packet (``tests/test_torch_trips.py`` holds it to the reference's)."""
@@ -130,12 +139,11 @@ def test_untiled_forms_and_active_mask():
     active = np.arange(128) % 3 != 0
     ref, _ = jwide_fat.trace_rays_wide_fat(jfat, jpacked, jr, active=jnp.asarray(active))
     fat = convert.fat_from_numpy(np.asarray(jfat.rows), np.asarray(jfat.num_nodes), "cpu")
-    for fn in (wide_fat.trace_rays_wide_fat, wide_fat.trace_rays_wide_fat_phased):
-        rec, _ = fn(fat, None, tr, active=torch.from_numpy(active))
-        assert_hits_match(rec, ref)
-        hit = rec.hit.numpy()
-        assert not hit[~active].any() and hit.any()
-        np.testing.assert_array_equal(rec.t.numpy()[~hit], np.asarray(ref.t)[~hit])
+    rec, _ = wide_fat.trace_rays_wide_fat(fat, None, tr, active=torch.from_numpy(active))
+    assert_hits_match(rec, ref)
+    hit = rec.hit.numpy()
+    assert not hit[~active].any() and hit.any()
+    np.testing.assert_array_equal(rec.t.numpy()[~hit], np.asarray(ref.t)[~hit])
     rec, _ = wide_fat.trace_rays_wide_fat(fat, None, tr)
     packed = convert.packed_from_numpy(np.asarray(jpacked.rows), "cpu")
     trec, _, trips = wide_fat.trace_rays_wide_fat(fat, packed, tr, with_trips=True)

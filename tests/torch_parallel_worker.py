@@ -90,7 +90,7 @@ def run_legs(mesh, triangles: np.ndarray, uniforms) -> dict:
         uniforms, flagship.path_trace_sharded, mesh, s["grid"], s["packed"], s["scene"],
         s["camera"], W, H, num_bounces=1, k=128, tracer_kind="grid")
     out["inst_split"] = flagship.trace_instanced_split_sharded(mesh, s["ias"], s["inst_rays"],
-                                                               k_slots=4, k=128)
+                                                               k_slots=4)
     out["inst"] = flagship.trace_instanced_sharded(mesh, s["inst_as"], s["pairs"],
                                                    s["inst_as_rays"])
     return out

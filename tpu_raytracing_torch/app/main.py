@@ -38,7 +38,7 @@ grid`` builds a uniform grid (``bvh/grid.py:build_grid``) over the
 ``tier_params(--grid-scale)``, checks its capacity, and traces it with the
 DDA tracer (``trace/grid_trace.py``) on every pass. ``--tracer split``
 traces its own build with K1: with ``--type sah`` the SAH tree in the split format
-(``bvh/split_convert.py:build_sah_split_auto``), otherwise the bucket
+(``bvh/split_convert.py:build_sah_split``), otherwise the bucket
 build (``bvh/bucket.py:build_bucket_split``). ``--tracer lane`` traces a
 treelet BVH over the bucket front (``bvh/treelet.py:build_treelet_auto``)
 with the per-ray treelet tracer (K5, ``wave`` rounds), whatever the ``--type``,
@@ -265,7 +265,7 @@ def split_tree(args, triangles):
     capacity-checked: the SAH tree in the split format with ``--type sah``,
     else the bucket build. Both carry ``e_ranges`` for ``refit_split``."""
     if args.build_type == BuildType.SAH:
-        split, packed = split_convert.build_sah_split_auto(
+        split, packed = split_convert.build_sah_split(
             triangles, args.pairs, LEAFW, args.splits, debug=args.debug_checks)
         split_convert.check_sah_split_capacity(split)
     else:
@@ -311,7 +311,7 @@ def build_trav(args, triangles, bvh=None, pairs=None, timer: StageTimer = None,
 
         fat = timer.run("WideFatCollapse     ", collapse)
         say("Fat wide BVH")
-        say(f"  wide rows:      {int(fat.num_nodes)}")
+        say(f"  wide rows:      {fat.live_rows}")
         # wide=None: the fat rows ride in the trav argument, as in the reference
         if args.bounces > 0:
             return fat, packed, make_fat_frame_tracers(args.width, args.height)

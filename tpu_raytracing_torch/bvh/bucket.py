@@ -323,7 +323,7 @@ def build_bucket_fat(triangles: torch.Tensor, enable_pairs: bool = False):
                       torch.zeros((w_cap, WIDE, 1), dtype=torch.int32, device=dev)], dim=2)
     pair = torch.where(tri, packed.rows[pid], 0)
     rows = torch.cat([node.reshape(w_cap, WIDE * 8), pair.reshape(w_cap, WIDE * 16)], dim=1)
-    return FatWideBVH(rows=rows, num_nodes=total_rows), packed
+    return FatWideBVH(rows=rows, num_nodes=total_rows, live_rows=int(total_rows)), packed
 
 
 @timing.spanned("build.morton_sort_front")

@@ -27,7 +27,7 @@ def build(triangles: torch.Tensor, build_type: BuildType = BuildType.SAH,
     so does ``debug`` (the SAH build's invariants as host checks).
     """
     if build_type == BuildType.SAH:
-        return sah.build_sah_auto(triangles, enable_pairs, enable_splits, debug=debug)
+        return sah.build_sah(triangles, enable_pairs, enable_splits, debug=debug)
     if build_type == BuildType.BOTTOM_UP:
         return lbvh.build_lbvh(triangles, enable_pairs=enable_pairs)
     if build_type == BuildType.HYBRID:

@@ -119,5 +119,5 @@ def build_implicit_wide_fat(triangles: torch.Tensor):
         k += 1
     rows = torch.cat(rows_per_level)
     fat = FatWideBVH(rows=rows, num_nodes=torch.tensor(rows.shape[0], dtype=torch.int64,
-                                                        device=dev))
+                                                        device=dev), live_rows=rows.shape[0])
     return fat, pairs, bvh

@@ -1,7 +1,8 @@
 """SAH-quality trees for the split tracer (K1).
 
 Port of ``tpu_raytracing/bvh/split_convert.py`` (``_setup``, ``_split_cap``,
-``build_sah_split``, ``build_sah_split_auto``, ``check_sah_split_capacity``,
+``build_sah_split``, which also stands for ``build_sah_split_auto``: the
+port has one frontier form, ``bvh/sah.py``; ``check_sah_split_capacity``,
 ``_emit_from_arena``), bit-equal to it, and ``sah_split_views``: K1's
 views of an SAH tree (``bucket.split_views``) with the tree's own stack
 bound.
@@ -50,8 +51,7 @@ def _split_cap(n: int, leaf_width: int) -> int:
 
 
 def build_sah_split(triangles: torch.Tensor, enable_pairs: bool = False, leaf_width: int = 64,
-                    host_stepped: bool = False, enable_splits: bool = False,
-                    deadline: float = None, debug: bool = False,
+                    enable_splits: bool = False, deadline: float = None, debug: bool = False,
                     stats: Optional[dict] = None) -> Tuple[SplitBVH, PackedPairs]:
     """Binned-SAH build emitting the split format: one global SAH frontier
     over the leaves (pairs and spatial splits optional), then
@@ -60,8 +60,7 @@ def build_sah_split(triangles: torch.Tensor, enable_pairs: bool = False, leaf_wi
     real geometry, so duplicates only re-test.
 
     ``deadline`` (``time.monotonic()``) bounds the frontier
-    (``sah.SahDeadlineExceeded``); ``host_stepped`` is accepted and changes
-    nothing (``bvh/sah.py``); ``debug`` runs the build invariants. A
+    (``sah.SahDeadlineExceeded``); ``debug`` runs the build invariants. A
     ``stats`` dict gets each stage's seconds (``setup_s``, ``frontier_s``,
     ``emit_s``; the device is synchronised between stages), the frontier's
     ``levels``, the arena's ``tree_depth`` and the ``deepest_anchor``'s
@@ -86,7 +85,7 @@ def build_sah_split(triangles: torch.Tensor, enable_pairs: bool = False, leaf_wi
     zero = torch.zeros((1,), dtype=torch.int32, device=dev)
     arena, ids_final = sah.frontier_build(
         leaves, arena, zero, leaves.num_leaves.reshape(1).to(torch.int32), zero, 1,
-        return_ids=True, host_stepped=host_stepped, deadline=deadline, debug=debug, stats=stats)
+        return_ids=True, deadline=deadline, debug=debug, stats=stats)
     lap("frontier_s")
     out = _emit_from_arena(arena, ids_final, leaves, pairs, leaf_width)
     lap("emit_s")
@@ -105,17 +104,6 @@ def _anchors(arena: sah.Arena, leaf_width: int) -> torch.Tensor:
     depth = arena.depth[:n]
     return ((arena.type[:n] == CHILD_BOX) & (arena.seg_count[:n] > leaf_width)
             & (depth >= 3) & (depth % 3 == 0))
-
-
-def build_sah_split_auto(triangles: torch.Tensor, enable_pairs: bool = False,
-                         leaf_width: int = 64, enable_splits: bool = False,
-                         debug: bool = False) -> Tuple[SplitBVH, PackedPairs]:
-    """build_sah_split with the frontier mode the reference selects by scene
-    size (``sah.SAH_HOST_STEP_THRESHOLD``); both run the same loop."""
-    return build_sah_split(
-        triangles, enable_pairs, leaf_width,
-        host_stepped=triangles.shape[0] >= sah.SAH_HOST_STEP_THRESHOLD,
-        enable_splits=enable_splits, debug=debug)
 
 
 def check_sah_split_capacity(split: SplitBVH) -> None:

@@ -53,10 +53,12 @@ class WideBVH:
 class FatWideBVH:
     """Wide BVH with each Tri entry's packed pair inlined: per row the 64
     node words, then entry 0..7's 16 pair words (v0..v3 bitcast, prim0,
-    prim1, rot0, rot1; zeros for non-Tri entries)."""
+    prim1, rot0, rot1; zeros for non-Tri entries). ``live_rows`` is
+    ``num_nodes`` as read on the host by the builder that made the rows."""
 
     rows: torch.Tensor  # [W, 64 + 8 * 16] int32
     num_nodes: torch.Tensor  # [] int64
+    live_rows: int
 
 
 def _frontier(bvh: BVH) -> torch.Tensor:
@@ -163,7 +165,7 @@ def build_wide_fat(bvh: BVH, pair_rows: torch.Tensor) -> FatWideBVH:
     pe = pair_rows[child]  # [W, 8, 16]
     pe = torch.where(((meta & 3) == CHILD_TRI)[..., None], pe, 0)
     fat = torch.cat([w.rows, pe.reshape(-1, WIDE * 16)], dim=1)
-    return FatWideBVH(rows=fat, num_nodes=w.num_nodes)
+    return FatWideBVH(rows=fat, num_nodes=w.num_nodes, live_rows=int(w.num_nodes))
 
 
 def collapse_fat(bvh: BVH, pair_rows: torch.Tensor) -> FatWideBVH:
@@ -173,7 +175,8 @@ def collapse_fat(bvh: BVH, pair_rows: torch.Tensor) -> FatWideBVH:
     collapse kernels (``csrc/wide_collapse.cu``: the depth and anchor pass, a
     scan, the row emit), bit-equal to ``build_wide_fat`` with ``num_nodes``
     left on the card, and read the live row count, the depth and
-    ``root_count`` back in one copy, or raise. A tree deeper than K6's stack
+    ``root_count`` back in one copy, or raise. Either way the live row count
+    comes back read, as ``live_rows``. A tree deeper than K6's stack
     covers raises ``check_stack_depth``'s ValueError; so do ``pair_rows``
     other than a contiguous [P >= 1, 16] int32 tensor and, on the card,
     fields of other types or devices than ``BVH`` declares."""
@@ -225,8 +228,8 @@ def collapse_fat(bvh: BVH, pair_rows: torch.Tensor) -> FatWideBVH:
     if err != 0:
         raise RuntimeError(f"wide_collapse emit kernel launch failed: cudaError {err}")
     launch_count += 1
-    _, depth, root_count = info.tolist()
+    live_rows, depth, root_count = info.tolist()
     if depth >= cap:  # the walk stopped at cap: the exact depth for the error
         depth = fat_traverse.binary_depth(bvh)
     fat_traverse.check_depth(depth, root_count)
-    return FatWideBVH(rows=rows, num_nodes=info[0])
+    return FatWideBVH(rows=rows, num_nodes=info[0], live_rows=live_rows)

@@ -135,7 +135,8 @@ def fat_from_numpy(rows, num_nodes, device) -> FatWideBVH:
     """``FatWideBVH`` (``build_wide_fat``) fields -> the port's; pad its
     rows with ``ops/fat_traverse.pad_rows_256`` for K6."""
     return FatWideBVH(rows=_t(np.asarray(rows, np.int32), device),
-                      num_nodes=_t(np.asarray(num_nodes, np.int64), device))
+                      num_nodes=_t(np.asarray(num_nodes, np.int64), device),
+                      live_rows=int(num_nodes))
 
 
 def grid_from_numpy(fields: Mapping, device) -> UniformGrid:

@@ -2,7 +2,7 @@
 // the whole warp.
 //
 // Replaces the TPU kernels tpu_raytracing/trace/split_pallas.py:_kernel_v3
-// (line 143) and _kernel_v4 (line 541), and through kernel_v also _kernel_v5
+// (line 143) and _kernel_v4 (line 541), and with no selector also _kernel_v5
 // (line 898) and _kernel (v2, line 1250). They compute one function and
 // differ only in how they schedule DMAs and scalar work on the TPU; this
 // kernel serves them all, in a closest-hit and an any-hit instantiation.

@@ -457,8 +457,8 @@ def make_fat_tracer(rows256, width: int, height: int):
     argument, as with the reference's ``make_pallas_tracer``.
     """
 
-    def tracer(trav, pairs, rays, max_width=2, active=None):
-        del pairs, max_width
+    def tracer(trav, pairs, rays, active=None):
+        del pairs
         rows = rows256 if rows256 is not None else trav
         tiled = Rays(*(tile_reorder(getattr(rays, f), width, height, 16, 8)
                        for f in ("origin", "direction", "tmin", "tmax")))

@@ -14,7 +14,7 @@ The reference's semantics, kept as they are:
   every per-ray array stays in tiled order; pixel ids ride along and the
   final scatter (``pathtrace._finalize``) undoes the permutation.
 * Compaction is band-local: each rank sorts its own live rays
-  (``_bounce_stage(..., compaction=True, sort_cells=True)``); pixel ids
+  (``_bounce_stage``); pixel ids
   keep the image exact.
 * The bounce uniforms are full-frame and the same on every rank, indexed
   by global pixel id: every rank draws them from a generator seeded alike.
@@ -49,8 +49,7 @@ from tpu_raytracing_torch.trace.traverse import PackedPairs
 
 def _band_tracer(k: int, any_hit: bool = False):
     """K1 on a band of tile-ordered rays, in the caller's order."""
-    def tracer(views, pairs, rays, max_width=2, active=None):
-        del max_width
+    def tracer(views, pairs, rays, active=None):
         return trace_rays_split(views, pairs, rays, active=active, any_hit=any_hit, k=k)
     return tracer
 
@@ -151,15 +150,14 @@ def path_trace_sharded(
         u_frame = torch.rand((num, 2), generator=generator, device=dev)
         radiance, throughput, alive, pixel, rays = _bounce_stage(
             scene, packed, rays, rec, srec.hit, throughput, radiance, alive, pixel, u_frame,
-            max_t, compaction=True, sort_cells=True)
+            max_t)
 
     check_overflow(all_reduce(mesh, overflow))
     img = _finalize(all_gather(mesh, radiance), all_gather(mesh, pixel))
     return img.reshape(height, width, 3), rays_traced
 
 
-def trace_instanced_split_sharded(mesh: Mesh, ias, rays: Rays, k_slots: int = 8,
-                                  k: int = 128, c_slots: int = 4):
+def trace_instanced_split_sharded(mesh: Mesh, ias, rays: Rays, k_slots: int = 8):
     """The instanced split tracer (``trace/instanced_split.py``: candidate
     bitmasks, then K1 on the band's object-space items) with the rays split
     into bands and ``ias`` replicated. Returns (HitRecord, hit instance,
@@ -169,7 +167,7 @@ def trace_instanced_split_sharded(mesh: Mesh, ias, rays: Rays, k_slots: int = 8,
     from tpu_raytracing_torch.trace.instanced_split import trace_rays_instanced_split
 
     rec, inst, stats, guard = trace_rays_instanced_split(
-        ias, band_rays(mesh, rays), k_slots=k_slots, k=k, c_slots=c_slots)
+        ias, band_rays(mesh, rays), k_slots=k_slots)
     return (gather_fields(mesh, rec), all_gather(mesh, inst), gather_fields(mesh, stats),
             all_reduce(mesh, guard, op="max"))
 

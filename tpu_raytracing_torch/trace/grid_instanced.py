@@ -92,13 +92,12 @@ def candidate_mask(ias: InstancedGridAS, rays: Rays) -> torch.Tensor:
 
 
 def trace_rays_instanced_grid(ias: InstancedGridAS, pairs: PackedPairs, rays: Rays,
-                              m_cand: int = 8, work_factor: int = 4, any_hit: bool = False,
-                              block: int = 4):
+                              work_factor: int = 4, any_hit: bool = False, block: int = 4):
     """Closest-hit (or any-hit) trace over the instanced grid (see the
     module docstring). Returns (HitRecord, hit instance [R] int32 (-1:
     none), TraceStats, overflow [] int64: items past the work list's cap).
-    ``m_cand`` is accepted and not read, as in the reference."""
-    del m_cand
+    The reference's candidate count, which it does not read, has no
+    counterpart."""
     num = rays.origin.shape[0]
     n_inst = ias.inst_min.shape[0]
     dev = rays.origin.device

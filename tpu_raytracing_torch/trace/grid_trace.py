@@ -191,20 +191,19 @@ def _run_dda(grid: UniformGrid, rows: torch.Tensor, ctx: dict, st: dict, max_ite
         st["steps"][r] = s["steps"] + 1
 
 
-def trace_rays_grid(grid: UniformGrid, pairs: PackedPairs, rays: Rays, max_width: int = 2,
-                    active=None, any_hit: bool = False, block: int = 4, segments: int = 1,
+def trace_rays_grid(grid: UniformGrid, pairs: PackedPairs, rays: Rays, active=None,
+                    any_hit: bool = False, block: int = 4, segments: int = 1,
                     residue_after: int = 0,
                     residue_width: int = 0) -> Tuple[HitRecord, TraceStats]:
     """Closest-hit (or any-hit) trace of a ray batch through the grid.
     Returns (HitRecord, TraceStats); the grid keeps no stack, so
-    ``overflow`` is always 0. ``max_width`` is not read.
+    ``overflow`` is always 0.
 
     ``segments`` > 1 traces that many equal ray slices one after another;
     ``residue_after`` > 0 runs that many iterations over every ray, then
     the rays still walking, in ray order, in chunks of ``residue_width``
     (0: max(4096, R / 8), rounded up to a multiple of 1024) each run to
     completion. Both give the single-phase result bit for bit."""
-    del max_width
     num = rays.origin.shape[0]
     dev = rays.origin.device
     if segments > 1:
@@ -322,10 +321,10 @@ def trace_rays_grid(grid: UniformGrid, pairs: PackedPairs, rays: Rays, max_width
 
 def make_grid_tracer(any_hit: bool = False, block: int = 4, segments: int = 1,
                      residue_after: int = 0, residue_width: int = 0):
-    """Tracer ``(grid, pairs, rays, max_width=2, active=None) ->
+    """Tracer ``(grid, pairs, rays, active=None) ->
     (HitRecord, TraceStats)`` with the render pipeline's signature: the
     structure argument is the UniformGrid."""
-    def tracer(grid, pairs, rays, max_width=2, active=None):
+    def tracer(grid, pairs, rays, active=None):
         return trace_rays_grid(grid, pairs, rays, active=active, any_hit=any_hit, block=block,
                                segments=segments, residue_after=residue_after,
                                residue_width=residue_width)

@@ -30,6 +30,7 @@ from tpu_raytracing_torch.trace.ray import Rays
 from tpu_raytracing_torch.trace.traverse import (
     _COUNT_MASK,
     _ENTRY_SHIFT,
+    _GROUP_WIDTH,
     _META_CHILD_SHIFT,
     _META_COUNT_MASK,
     _META_COUNT_SHIFT,
@@ -57,8 +58,8 @@ def transform_rays(tf: torch.Tensor, origin: torch.Tensor, direction: torch.Tens
     return row_sum(origin) + tf[:, :, 3], row_sum(direction)
 
 
-def trace_rays_instanced(inst_as: InstancedAS, pairs: PackedPairs, rays: Rays,
-                         max_width: int = 2) -> Tuple[HitRecord, torch.Tensor, TraceStats]:
+def trace_rays_instanced(inst_as: InstancedAS, pairs: PackedPairs,
+                         rays: Rays) -> Tuple[HitRecord, torch.Tensor, TraceStats]:
     """Closest hit over the two-level structure. Returns (HitRecord,
     hit instance [R] int32 (-1: none), TraceStats)."""
     trav = inst_as.trav
@@ -113,7 +114,7 @@ def trace_rays_instanced(inst_as: InstancedAS, pairs: PackedPairs, rays: Rays,
             stack_inst[r[ok], sz[ok]] = value_inst[ok]
             return sz + mask.to(torch.int64)
 
-        for i in range(max_width):
+        for i in range(_GROUP_WIDTH):
             slot = (index + i).clamp(0, num_slots - 1)
             row = trav.rows[slot]
             meta = row[:, 6]

@@ -24,8 +24,9 @@ Port of ``tpu_raytracing/trace/instanced_split.py``
 Statistics are K1's per item, summed per ray over the ray's live items.
 The reference adds every item's, so its dead and padding items (ray 0's
 in the budgeted path) land on ray 0 (instanced_split.py:299-302); here
-only live items count. ``k`` and ``c_slots`` schedule TPU packets and
-have no counterpart here: K1 takes the items as they come, unpadded.
+only live items count. The reference's ``k`` and ``c_slots`` schedule TPU
+packets and have no counterpart here: K1 takes the items as they come,
+unpadded.
 """
 
 from __future__ import annotations
@@ -145,8 +146,8 @@ def max_overlap(ias: InstancedSplitAS, rays: Rays) -> int:
 
 
 def trace_rays_instanced_split(
-    ias: InstancedSplitAS, rays: Rays, active=None, k_slots: int = 8, k: int = 256,
-    c_slots: int = 8, kernel_v: Optional[int] = None, item_budget: Optional[int] = None,
+    ias: InstancedSplitAS, rays: Rays, active=None, k_slots: int = 8,
+    item_budget: Optional[int] = None,
 ) -> Tuple[HitRecord, torch.Tensor, TraceStats, torch.Tensor]:
     """Closest hit over instances sharing one BLAS (module docstring).
 
@@ -160,7 +161,6 @@ def trace_rays_instanced_split(
     goes to base[r] + j, base the exclusive prefix sum of nov_k); live
     items past the budget are dropped, which the guard reports.
     """
-    del k, c_slots
     dev = rays.origin.device
     num_r = rays.origin.shape[0]
     words, nov = candidate_masks(ias.wmin, ias.wmax, rays, active=active)
@@ -197,8 +197,7 @@ def trace_rays_instanced_split(
                                   rays.direction[s_ray])
     srt = Rays(origin=o_obj, direction=d_obj, tmin=rays.tmin[s_ray], tmax=rays.tmax[s_ray])
     (t_it, tri_it), stats = split_trace.trace_rays_split(
-        ias.views, ias.packed, srt, active=act, raw=True,
-        kernel_v=split_trace.KERNEL_V if kernel_v is None else kernel_v)
+        ias.views, ias.packed, srt, active=act, raw=True)
 
     # each ray's winner: the smallest t, then the first item with it
     nitems = s_ray.shape[0]

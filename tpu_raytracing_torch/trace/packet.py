@@ -37,6 +37,7 @@ from tpu_raytracing_torch.trace.ray import Rays
 from tpu_raytracing_torch.trace.traverse import (
     _COUNT_MASK,
     _ENTRY_SHIFT,
+    _GROUP_WIDTH,
     _META_CHILD_SHIFT,
     _META_COUNT_MASK,
     _META_COUNT_SHIFT,
@@ -103,7 +104,7 @@ def pad_live_mask(width: int, height: int, pw: int, ph: int, device=None) -> tor
     return (row & col).reshape(ph * pw)
 
 
-def trace_rays_packet(trav, pairs, rays: Rays, max_width: int = 2, active=None,
+def trace_rays_packet(trav, pairs, rays: Rays, active=None,
                       packet_size: int = 128) -> Tuple[HitRecord, TraceStats]:
     """Closest-hit trace with one stack per packet of ``packet_size``
     consecutive rays (see the module docstring). ``trav`` is a
@@ -163,7 +164,7 @@ def trace_rays_packet(trav, pairs, rays: Rays, max_width: int = 2, active=None,
             stack[p[ok], sz[ok]] = value[ok]
             return sz + mask.to(torch.int64)
 
-        for i in range(max_width):
+        for i in range(_GROUP_WIDTH):
             slot = (index + i).clamp(0, num_slots - 1)
             row = trav.rows[slot]  # one node row per packet
             meta = row[:, 6]
@@ -231,16 +232,16 @@ def trace_rays_packet(trav, pairs, rays: Rays, max_width: int = 2, active=None,
 
 
 def make_tiled_packet_tracer(width: int, height: int, tile_w: int = 16, tile_h: int = 8):
-    """Tracer ``(trav, pairs, rays, max_width=2, active=None) ->
+    """Tracer ``(trav, pairs, rays, active=None) ->
     (HitRecord, TraceStats)`` that reorders a row-major frame into
     ``tile_w`` x ``tile_h`` screen tiles, traces one packet a tile and
     restores row-major order."""
 
-    def tracer(trav, pairs, rays, max_width=2, active=None):
+    def tracer(trav, pairs, rays, active=None):
         tiled = Rays(*(tile_reorder(getattr(rays, f), width, height, tile_w, tile_h)
                        for f in ("origin", "direction", "tmin", "tmax")))
         act = None if active is None else tile_reorder(active, width, height, tile_w, tile_h)
-        rec, stats = trace_rays_packet(trav, pairs, tiled, max_width=max_width, active=act,
+        rec, stats = trace_rays_packet(trav, pairs, tiled, active=act,
                                        packet_size=tile_w * tile_h)
         back = lambda a: tile_restore(a, width, height, tile_w, tile_h)  # noqa: E731
         rec = HitRecord(*(back(getattr(rec, f)) for f in

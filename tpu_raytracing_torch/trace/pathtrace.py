@@ -255,58 +255,59 @@ def bounce_shade(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughpu
     return rad_out, thr_out, alive_out, new_rays
 
 
+# Morton bits below the origin cell of the ``"cell"`` bounce key, and
+# pair-index bits below the ``"leaf"`` key's window (the reference's
+# defaults, the only values its callers pass)
+_CELL_SHIFT = 15
+_LEAF_SHIFT = 6
+
+
 def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput,
                   radiance, alive, pixel, u_frame, max_t, pair_loc=None,
-                  compaction: bool = True, sort_cells: bool = False,
-                  cell_shift: int = 15, sample_next: bool = True,
-                  sort_kind: str = "cell", leaf_shift: int = 6):
+                  sample_next: bool = True, sort_kind: str = "cell"):
     """Shading + NEE + next-ray sampling (``bounce_shade``) + compaction
-    for one bounce.
+    for one bounce: a stable sort of the next rays by ``sort_kind``'s key,
+    dead rays last.
 
     Returns (radiance, throughput, alive, pixel, rays). With
     ``sample_next=False`` (the final bounce) sampling and compaction are
     skipped. The spans ``path_trace.shade`` and ``path_trace.compact``
     cover the two parts.
     """
-    if sort_cells:
-        _check_sort_kind(sort_kind, pair_loc)
+    _check_sort_kind(sort_kind, pair_loc)
     with timing.span("path_trace.shade"):
         radiance, throughput, alive, new_rays = bounce_shade(
             scene, pairs, rays, rec, srec_hit, throughput, radiance, alive, pixel, u_frame,
             max_t, sample_next=sample_next)
     if not sample_next:
         return radiance, throughput, alive, pixel, rays
-    if compaction:
-        with timing.span("path_trace.compact"):
-            dead = (~alive).to(torch.int64)
-            if sort_cells:
-                octant = _octant(new_rays.direction)
-                pair = torch.clamp(rec.tri_id.to(torch.int64) >> 1, min=0)
-                if sort_kind == "tid_cell":
-                    # treelet major, then octant, then the coarse origin cell
-                    tid = pair_loc[pair].to(torch.int64)
-                    cellm = morton3d(_unit_cube(new_rays.origin))
-                    key = ((dead << 30) | ((tid & 0xFFF) << 18) | (octant << 15)
-                           | ((cellm >> 15) & 0x7FFF))
-                else:
-                    if sort_kind == "tid":
-                        # the origin hit pair's treelet: subtree-aligned groups
-                        loc = pair_loc[pair].to(torch.int64)
-                    elif sort_kind == "leaf":
-                        # hit pair's sorted index: a space-filling-curve position
-                        # at leaf granularity, aligned to the tree's windows
-                        loc = pair >> leaf_shift
-                    else:
-                        loc = morton3d(_unit_cube(new_rays.origin)) >> cell_shift
-                    key = (dead << 30) | (loc << 3) | octant
+    with timing.span("path_trace.compact"):
+        dead = (~alive).to(torch.int64)
+        octant = _octant(new_rays.direction)
+        pair = torch.clamp(rec.tri_id.to(torch.int64) >> 1, min=0)
+        if sort_kind == "tid_cell":
+            # treelet major, then octant, then the coarse origin cell
+            tid = pair_loc[pair].to(torch.int64)
+            cellm = morton3d(_unit_cube(new_rays.origin))
+            key = ((dead << 30) | ((tid & 0xFFF) << 18) | (octant << 15)
+                   | ((cellm >> 15) & 0x7FFF))
+        else:
+            if sort_kind == "tid":
+                # the origin hit pair's treelet: subtree-aligned groups
+                loc = pair_loc[pair].to(torch.int64)
+            elif sort_kind == "leaf":
+                # hit pair's sorted index: a space-filling-curve position
+                # at leaf granularity, aligned to the tree's windows
+                loc = pair >> _LEAF_SHIFT
             else:
-                key = dead
-            perm = torch.sort(key, stable=True).indices
-            new_rays = new_rays.take(perm)
-            throughput = throughput[perm]
-            radiance = radiance[perm]
-            alive = alive[perm]
-            pixel = pixel[perm]
+                loc = morton3d(_unit_cube(new_rays.origin)) >> _CELL_SHIFT
+            key = (dead << 30) | (loc << 3) | octant
+        perm = torch.sort(key, stable=True).indices
+        new_rays = new_rays.take(perm)
+        throughput = throughput[perm]
+        radiance = radiance[perm]
+        alive = alive[perm]
+        pixel = pixel[perm]
     return radiance, throughput, alive, pixel, new_rays
 
 
@@ -341,12 +342,10 @@ def path_trace(
     height: int,
     num_bounces: int = 4,
     generator: Optional[torch.Generator] = None,
-    compaction: bool = True,
     tracer=None,
     shadow_tracer=None,
     shadow_tracer_bounce=None,
     bounce_tracer=None,
-    bounce_trav=None,
     pair_loc=None,
     sort_kind: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -379,7 +378,6 @@ def path_trace(
     shadow_t = tracer if shadow_tracer is None else shadow_tracer
     shadow_tb = shadow_t if shadow_tracer_bounce is None else shadow_tracer_bounce
     traced_b = tracer if bounce_tracer is None else bounce_tracer
-    trav_b = trav if bounce_trav is None else bounce_trav
 
     rays = generate_primary_rays(camera, width, height)
     num = width * height
@@ -394,12 +392,12 @@ def path_trace(
     for bounce in range(num_bounces + 1):
         ct = tracer if bounce == 0 else traced_b
         with timing.span("path_trace.primary" if bounce == 0 else "path_trace.bounce"):
-            rec, stats = ct(trav if bounce == 0 else trav_b, pairs, rays, active=alive)
+            rec, stats = ct(trav, pairs, rays, active=alive)
         if bounce >= 1:
             with timing.span("path_trace.shadow_sort"):
                 srt, act_s, inv_s = _shadow_pair(scene, rays, rec, alive)
             with timing.span("path_trace.bounce_shadow"):
-                srec, sstats = shadow_tb(trav_b, pairs, srt, active=act_s)
+                srec, sstats = shadow_tb(trav, pairs, srt, active=act_s)
             with timing.span("path_trace.shadow_sort"):
                 srec_hit = srec.hit[inv_s]
             n_shadow = act_s.sum()
@@ -416,8 +414,8 @@ def path_trace(
         u_frame = torch.rand((num, 2), generator=generator, device=dev)
         radiance, throughput, alive, pixel, rays = _bounce_stage(
             scene, pairs, rays, rec, srec_hit, throughput, radiance, alive, pixel,
-            u_frame, max_t, pair_loc=pair_loc, compaction=compaction, sort_cells=True,
-            sample_next=bounce < num_bounces, sort_kind=sort_kind)
+            u_frame, max_t, pair_loc=pair_loc, sample_next=bounce < num_bounces,
+            sort_kind=sort_kind)
 
     check_overflow(overflow)
     img = _finalize(radiance, pixel)

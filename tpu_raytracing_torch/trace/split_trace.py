@@ -7,12 +7,9 @@ Port of ``tpu_raytracing/trace/split_pallas.py`` (``LEAFW``,
 None and ``"presorted"``). The Pallas kernels ``_kernel_v3``, ``_kernel_v4``,
 ``_kernel_v5`` and ``_kernel`` (v2) compute one function and differ only in
 how they schedule DMAs and scalar work on the TPU; on the card one CUDA
-kernel, ``csrc/split_trace.cu``, serves all four (closest-hit and any-hit
-instantiations). ``kernel_v`` picks the reference's version as
-``split_pallas.py:1635-1818`` maps it (5, >= 4, 3, < 3; default 3, the
-reference's ``KERNEL_V``): every value launches that kernel on the card and
-its plain version on the CPU, and ``kernel_v < 3`` returns v2's statistics
-(below). The reference's ``TPURT_SPLIT_V`` variable is not read.
+kernel, ``csrc/split_trace.cu``, stands for all four (closest-hit and
+any-hit instantiations) with no selector. The reference's version switch
+(``split_pallas.py:1635-1818``, ``TPURT_SPLIT_V``) has no counterpart.
 
 ``split_traverse`` is the kernel's wrapper. Given CPU tensors it runs
 ``trace_split_plain``, the same per-ray algorithm vectorised over rays in
@@ -24,10 +21,7 @@ Statistics are per ray: ``box_tests = inner_pops * w`` and
 ``tri_tests = leaf_pops * 2 * leafw``. The TPU kernels count pops per packet
 of k rays and give every ray of the packet the packet's count, so each of
 their per-ray values is at least the largest per-ray value of the packet's
-rays. The tests never compare the two. With ``kernel_v < 3`` the statistics
-take v2's shape: ``box_tests[0]`` holds the launch's total pops (here the
-sum of every ray's inner and leaf pops, which is not comparable with the
-TPU's packet pops), every other entry is 0, and ``tri_tests`` is 0.
+rays. The tests never compare the two.
 
 ``trace_rays_split(raw=True)`` returns K1's (t, tri) before the hit
 record is rebuilt, for ``trace/instanced_split.py`` and
@@ -422,26 +416,19 @@ def kernel_operands(rays: Rays, active=None):
             tmin.contiguous(), tmax.contiguous())
 
 
-KERNEL_V = 3
-
-
 def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
-                     any_hit: bool = False, kernel_v: int = KERNEL_V, packet_tags=None,
-                     raw: bool = False, k: int = K):
+                     any_hit: bool = False, packet_tags=None, raw: bool = False, k: int = K):
     """Trace against a SplitBVH: ``views`` (inner, pairs, stack bound) from
     bucket.emit_split_views or split_convert.sah_split_views, with
     ``leaf_width=LEAFW``. See ``kernel_operands`` for dead rays and
     direction sanitising. Any-hit records carry ``rays.tmax`` as
-    t. ``kernel_v`` names the reference kernel (see the module docstring).
-    ``packet_tags`` ([R / k] int32, ``kernel_v >= 3``) starts each packet of
-    ``k`` consecutive rays at its tag; the ray count must then be a multiple
-    of ``k``. Returns (HitRecord, TraceStats); with ``raw`` (``kernel_v >=
-    3``), ((t, tri), TraceStats): K1's winning t and encoded triangle per
-    ray (tri -1 for none), before the reconstruction, as
-    ``split_pallas.py:1746-1749`` returns them.
+    t. ``packet_tags`` ([R / k] int32) starts each packet of ``k``
+    consecutive rays at its tag; the ray count must then be a multiple of
+    ``k``. Returns (HitRecord, TraceStats); with ``raw``, ((t, tri),
+    TraceStats): K1's winning t and encoded triangle per ray (tri -1 for
+    none), before the reconstruction, as ``split_pallas.py:1746-1749``
+    returns them.
     """
-    if kernel_v < 3 and (packet_tags is not None or raw):
-        raise ValueError("packet_tags/raw need the v3 kernel (kernel_v >= 3)")
     inner, pairs, stack_cap = views
     w = inner.shape[1]
     start = None
@@ -456,13 +443,7 @@ def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,
         stack_cap=stack_cap, start=start)
     if any_hit:
         t = rays.tmax
-    if kernel_v < 3:
-        box = torch.zeros_like(ipops)
-        box[:1] = (ipops.sum() + lpops.sum()).to(torch.int32)
-        stats = TraceStats(box_tests=box, tri_tests=torch.zeros_like(lpops), overflow=overflow)
-    else:
-        stats = TraceStats(box_tests=ipops * w, tri_tests=lpops * (2 * LEAFW),
-                           overflow=overflow)
+    stats = TraceStats(box_tests=ipops * w, tri_tests=lpops * (2 * LEAFW), overflow=overflow)
     if raw:
         return (t, tri), stats
     return reconstruct(packed, rays, t, tri, any_hit=any_hit), stats
@@ -509,8 +490,7 @@ _SORT_MODES = (None, "presorted", "binned", "origin", "cell_octant")
 
 
 def make_split_tracer(width: int, height: int, any_hit: bool = False,
-                      sort_mode: str = None, kernel_v: int = KERNEL_V,
-                      sort_origin: bool = False):
+                      sort_mode: str = None, sort_origin: bool = False):
     """Tracer ``(views, packed, rays, active=None) -> (HitRecord,
     TraceStats)`` over 16 x (K/16) screen tiles.
 
@@ -524,8 +504,7 @@ def make_split_tracer(width: int, height: int, any_hit: bool = False,
     an any-hit tracer (its record's other fields and its statistics stay in
     the sorted order, as the reference's). ``sort_origin`` with sort_mode
     None sorts as ``"origin"`` and restores only ``.hit``, for any-hit
-    consumers. With ``kernel_v < 3`` the statistics are v2's (the module
-    docstring), which a tile order does not permute.
+    consumers.
     """
     if sort_mode not in _SORT_MODES:
         raise ValueError(f"unknown split tracer sort_mode {sort_mode!r}; choose from "
@@ -538,16 +517,14 @@ def make_split_tracer(width: int, height: int, any_hit: bool = False,
         inv[perm] = torch.arange(perm.shape[0], device=perm.device)
         srt = rays.take(perm)
         act = None if active is None else active[perm]
-        rec, stats = trace_rays_split(views, packed, srt, active=act, any_hit=any_hit,
-                                      kernel_v=kernel_v)
+        rec, stats = trace_rays_split(views, packed, srt, active=act, any_hit=any_hit)
         if hit_only:
             return dataclasses.replace(rec, hit=rec.hit[inv]), stats
         return _map(lambda a: a[inv], rec), _map(lambda a: a[inv], stats)
 
     def tracer(views, packed, rays, active=None):
         if sort_mode == "presorted":
-            return trace_rays_split(views, packed, rays, active=active, any_hit=any_hit,
-                                    kernel_v=kernel_v)
+            return trace_rays_split(views, packed, rays, active=active, any_hit=any_hit)
         if sort_mode == "binned":
             from tpu_raytracing_torch.trace.binned import trace_rays_binned
             return trace_rays_binned(views, packed, rays, active=active, any_hit=any_hit)
@@ -566,17 +543,12 @@ def make_split_tracer(width: int, height: int, any_hit: bool = False,
                 pad_frame(active, width, height, pw, ph) & live)
         tiled = _map(lambda a: tile_reorder(a, pw, ph, tw, th), rays)
         act = None if active is None else tile_reorder(active, pw, ph, tw, th)
-        rec, stats = trace_rays_split(views, packed, tiled, active=act, any_hit=any_hit,
-                                      kernel_v=kernel_v)
+        rec, stats = trace_rays_split(views, packed, tiled, active=act, any_hit=any_hit)
         rec = _map(lambda a: tile_restore(a, pw, ph, tw, th), rec)
-        if kernel_v >= 3:
-            stats = _map(lambda a: tile_restore(a, pw, ph, tw, th), stats)
+        stats = _map(lambda a: tile_restore(a, pw, ph, tw, th), stats)
         if padded:
             rec = _map(lambda a: crop_frame(a, width, height, pw, ph), rec)
-            if kernel_v >= 3:
-                stats = _map(lambda a: crop_frame(a, width, height, pw, ph), stats)
-            else:
-                stats = _map(lambda a: a[:width * height], stats)
+            stats = _map(lambda a: crop_frame(a, width, height, pw, ph), stats)
         return rec, stats
 
     return tracer
@@ -584,9 +556,8 @@ def make_split_tracer(width: int, height: int, any_hit: bool = False,
 
 def make_frame_tracers(width: int, height: int) -> dict:
     """The four tracers of the path-traced frame, as ``bench.py:251-271``
-    sets them up, each with the default ``kernel_v`` (bench.py's
-    ``c_slots`` schedule TPU packets and have no counterpart here):
-    tiled closest-hit and any-hit tracers for the coherent primary and
+    sets them up (bench.py's ``c_slots`` schedule TPU packets and have no
+    counterpart here): tiled closest-hit and any-hit tracers for the coherent primary and
     primary-shadow passes, presorted ones for the bounce and bounce-shadow
     passes. Returns ``path_trace`` keyword arguments."""
     return dict(

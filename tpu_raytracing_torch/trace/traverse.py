@@ -47,6 +47,9 @@ from tpu_raytracing_torch.trace.ray import Rays
 # bitfields (src/Common.cuh:152-159).
 _ENTRY_SHIFT = 3
 _COUNT_MASK = 7
+# Children a stack entry's node group holds at most: 2 in a binary tree, the
+# one width any caller of the reference's tracers asks for.
+_GROUP_WIDTH = 2
 
 _F32_MAX = float(torch.finfo(torch.float32).max)
 
@@ -117,11 +120,10 @@ def pack_bvh(bvh: BVH) -> TraversalBVH:
     return TraversalBVH(rows=rows, root=bvh.root, root_count=bvh.root_count)
 
 
-def trace_rays(trav: TraversalBVH, pairs: PackedPairs, rays: Rays, max_width: int = 2,
+def trace_rays(trav: TraversalBVH, pairs: PackedPairs, rays: Rays,
                active=None) -> Tuple[HitRecord, TraceStats]:
     """Closest-hit trace of a ray batch against the binary BVH.
 
-    ``max_width`` bounds a node group's child count (2 for binary trees);
     ``active`` ([R] bool) starts dead rays with an empty stack.
     """
     dev = rays.origin.device
@@ -167,7 +169,7 @@ def trace_rays(trav: TraversalBVH, pairs: PackedPairs, rays: Rays, max_width: in
             stack[r[ok], sz[ok]] = value[ok]
             return sz + mask.to(torch.int64)
 
-        for i in range(max_width):
+        for i in range(_GROUP_WIDTH):
             slot = (index + i).clamp(0, num_slots - 1)
             row = trav.rows[slot]
             meta = row[:, 6]

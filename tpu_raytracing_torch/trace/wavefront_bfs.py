@@ -191,12 +191,11 @@ def trace_rays_bfs(views: BFSViews, packed: PackedPairs, rays: Rays, active=None
 
 def make_bfs_tracer(views=None, packed=None, cap_factor: float = 3.0,
                     leaf_factor: float = 3.0, cap_floor: int = 65536, any_hit: bool = False):
-    """Tracer ``(trav, pairs, rays, max_width=2, active=None) ->
+    """Tracer ``(trav, pairs, rays, active=None) ->
     (HitRecord, TraceStats)``; with ``views`` None the ``BFSViews`` ride in
     ``trav`` (and with ``packed`` None the pairs in ``pairs``). The overflow
     flag is ``TraceStats.overflow``."""
-    def tracer(trav, pairs, rays, max_width=2, active=None):
-        del max_width
+    def tracer(trav, pairs, rays, active=None):
         rec, stats, _ = trace_rays_bfs(views if views is not None else trav,
                                        packed if packed is not None else pairs, rays,
                                        active=active, cap_factor=cap_factor,

@@ -1,7 +1,7 @@
 """Fat wide-BVH tracer of the render modes: the app's ``--tracer wide``.
 
 Port of ``tpu_raytracing/trace/wide_fat.py`` (``trace_rays_wide_fat``,
-``trace_rays_wide_fat_phased``, ``make_tiled_fat_tracer``), and the path
+``make_tiled_fat_tracer``), and the path
 tracer's four wide tracers (``make_fat_frame_tracers``). The reference
 walks 128-ray packets over ``FatWideBVH`` rows in a lockstep XLA
 ``while_loop`` with a shift-register stack. It computes the same closest
@@ -11,10 +11,10 @@ pallas_traverse.py:17-19). So here every form traces with K6
 (``ops/fat_traverse.py:fat_traverse``), in its counting instantiation,
 over ``pad_rows_256`` of the rows: one thread per ray, no packets.
 
-``trace_rays_wide_fat_phased`` is the same function. The reference's
-phased compaction (wide_fat.py:11-20) works around the lockstep loop, which
-pays for every packet until the slowest drains; a per-ray kernel has no
-lockstep, so the phased form makes the same K6 call.
+The reference's phased form of the tracer is not ported: its compaction
+(wide_fat.py:11-20) works around the lockstep loop, which pays for every
+packet until the slowest drains, and a per-ray kernel has no lockstep, so
+it would make the same K6 call.
 
 ``with_trips=True`` is the reference's diagnostic of that lockstep loop
 (``benchmarks/profile_trips.py``): how many pops each packet needs. It
@@ -84,8 +84,8 @@ _F32_MAX = float(torch.finfo(torch.float32).max)
 def live_rows256(wide: FatWideBVH) -> torch.Tensor:
     """K6's operand for ``wide``: its first ``num_nodes`` rows (the rows a
     walk from row 0 can reach; ``build_wide`` leaves the rest zero) padded
-    by ``pad_rows_256``. One host read."""
-    return pad_rows_256(wide.rows[:max(int(wide.num_nodes), 1)])
+    by ``pad_rows_256``, with no host read: ``live_rows`` holds the count."""
+    return pad_rows_256(wide.rows[:max(wide.live_rows, 1)])
 
 
 def _trace_rows(rows256, rays: Rays, active=None) -> Tuple[HitRecord, TraceStats]:
@@ -237,21 +237,6 @@ def _trips_trace(rows: torch.Tensor, pairs: PackedPairs, rays: Rays, active, k: 
     return rec, stats, trips
 
 
-def trace_rays_wide_fat_phased(
-    wide: FatWideBVH,
-    pairs: PackedPairs,
-    rays: Rays,
-    active=None,
-    packet_size: int = 128,
-    shrink: int = 4,
-    min_packets: int = 256,
-) -> Tuple[HitRecord, TraceStats]:
-    """``trace_rays_wide_fat``: a per-ray kernel has no lockstep to compact
-    (module docstring), so ``shrink`` and ``min_packets`` change nothing."""
-    del shrink, min_packets
-    return trace_rays_wide_fat(wide, pairs, rays, active=active, packet_size=packet_size)
-
-
 def _padded_rows(wide):
     """``rows_of(trav)``: K6's padded rows of ``wide``, or with ``wide=None``
     of the FatWideBVH that rides in the tracer's ``trav`` argument, for
@@ -270,13 +255,13 @@ def _padded_rows(wide):
 
 
 def _tiled(trace, rows_of, width: int, height: int, tile_w: int, tile_h: int):
-    """Tracer ``(trav, pairs, rays, max_width=2, active=None)`` over a
+    """Tracer ``(trav, pairs, rays, active=None)`` over a
     row-major frame: ``trace(rows256, rays, active)`` in ``tile_w`` x
     ``tile_h`` screen-tile order (so a warp's rays share a tile), the
     record and the counts restored."""
 
-    def tracer(trav, pairs, rays, max_width=2, active=None):
-        del pairs, max_width
+    def tracer(trav, pairs, rays, active=None):
+        del pairs
         rows256 = rows_of(trav)
         num = rays.origin.shape[0]
         _check_packets(num, tile_w * tile_h)
@@ -296,21 +281,17 @@ def _tiled(trace, rows_of, width: int, height: int, tile_w: int, tile_h: int):
 
 
 def make_tiled_fat_tracer(wide, width: int, height: int,
-                          tile_w: int = 16, tile_h: int = 8,
-                          phased: bool = False):
-    """Tracer ``(trav, pairs, rays, max_width=2, active=None) ->
+                          tile_w: int = 16, tile_h: int = 8):
+    """Tracer ``(trav, pairs, rays, active=None) ->
     (HitRecord, TraceStats)`` over a row-major frame, traced with K6's
     counting instantiation in ``tile_w`` x ``tile_h`` screen-tile order (so
     a warp's rays share a tile) and restored.
 
     With ``wide=None`` the FatWideBVH is taken from the tracer's ``trav``
     argument instead, for per-frame rebuilds; its padded rows are kept
-    while the same rows come back. ``phased`` selects the same trace
-    (``tracer.host_staged`` records it, as the reference's).
+    while the same rows come back.
     """
-    tracer = _tiled(_trace_counted, _padded_rows(wide), width, height, tile_w, tile_h)
-    tracer.host_staged = phased
-    return tracer
+    return _tiled(_trace_counted, _padded_rows(wide), width, height, tile_w, tile_h)
 
 
 def make_fat_frame_tracers(width: int, height: int) -> dict:

@@ -205,13 +205,13 @@ def trace_rays_wide(wide: WideBVH, pairs: PackedPairs, rays: Rays, active=None,
 
 def make_tiled_wide_tracer(wide: WideBVH, width: int, height: int, tile_w: int = 16,
                            tile_h: int = 8):
-    """Tracer ``(trav, pairs, rays, max_width=2, active=None) ->
+    """Tracer ``(trav, pairs, rays, active=None) ->
     (HitRecord, TraceStats)``: rays reordered into ``tile_w`` x ``tile_h``
     screen-tile packets, traced against the bound ``wide`` (``trav`` is not
     read), results back in row-major order."""
 
-    def tracer(trav, pairs, rays, max_width=2, active=None):
-        del trav, max_width
+    def tracer(trav, pairs, rays, active=None):
+        del trav
         tiled = Rays(*(tile_reorder(getattr(rays, f), width, height, tile_w, tile_h)
                        for f in ("origin", "direction", "tmin", "tmax")))
         act = None if active is None else tile_reorder(active, width, height, tile_w, tile_h)
