@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check, render.
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --k1-only    # phases 1-4, 19 and 12
+    python3 chip_smoke.py --k1-only    # phases 1-4, 19, 21 and 12
     python3 chip_smoke.py --shade-only # phases 1-3 and 19
+    python3 chip_smoke.py --front-only # phases 1-3 and 21
     python3 chip_smoke.py --app-only   # phases 1, 2 and 13 (with phase 9's fixtures)
     python3 chip_smoke.py --animate-only   # phases 1, 2 and 14
     python3 chip_smoke.py --tracers-only   # phases 1, 2 and 15
@@ -32,17 +33,19 @@ exits non-zero if any phase fails:
    (K5), ``csrc/fat_traverse.cu`` (K6), the probes'
    ``csrc/micro_probe.cu`` and ``csrc/lane_probe.cu``, the path
    tracer's ``csrc/bounce_shade.cu``, the Karras build's
-   ``csrc/lbvh_hierarchy.cu`` and the fat collapse's
-   ``csrc/wide_collapse.cu`` with nvcc, in
+   ``csrc/lbvh_hierarchy.cu``, the fat collapse's
+   ``csrc/wide_collapse.cu`` and the split front's ``csrc/split_front.cu``
+   with nvcc, in
    parallel, into ``tpu_raytracing_torch/build/`` and prints each
    kernel's ptxas register and spill lines under its name.
 3. Split path: the frame ``bench.py`` times — ``terrain(1_000_000)``,
    aerial camera, per-frame split-BVH rebuild + capacity check,
    fixed-topology refit, the ``tid`` bounce sort from ``build_pair_tid``,
    then a 1024x1024 path-traced frame with 1 bounce: one warm frame and 2
-   timed ones. K1's and the bounce-shade kernel's launch counts are set to
-   0 before these frames and read after them; every frame must launch K1
-   at least 4 times and the bounce-shade kernel ``BOUNCES + 1`` times, no
+   timed ones. K1's, the bounce-shade kernel's and the split front's two
+   kernels' launch counts are set to 0 before these frames and read after
+   them; every frame must launch K1 at least 4 times, each front kernel as
+   often as K1 and the bounce-shade kernel ``BOUNCES + 1`` times, no
    ray may overflow its stack, and the image must be finite with a nonzero
    mean.
    Two frames with the ``leaf`` sort are timed after, for comparison.
@@ -335,6 +338,21 @@ exits non-zero if any phase fails:
    spills; the app's two warm and timed ``build_trav`` calls must count one
    collapse each, and an animated app run of ``COLLAPSE_APP_FRAMES``
    frames one a frame.
+21. The split front's kernels (``csrc/split_front.cu``; right after phase
+   19, on phase 3's scene, tree, tracers and ``tid`` sort; ``--front-only``
+   runs phases 1-3 and 21): first the 8-wide K1 kernels' SASS against
+   ``K1_8WIDE_SASS``, as in phase 17; then an ``FRONT_BOUNCES``-bounce frame
+   (the benchmark's split cells: 18 K1 calls, 9 closest-hit and 9 any-hit)
+   must launch the operand kernel (``split_trace.kernel_operands``) and the
+   record kernel (``traverse.reconstruct``) once a call, and match, image and
+   ray count bit for bit, the frame with ``kernel_operands_plain`` and
+   ``reconstruct_plain`` in their places; on every call's captured operands,
+   each kernel must match its plain version bit for bit on every output and
+   every ray; each launch as the frame made it is timed on the device from
+   ``torch.profiler``'s trace against its bytes bound, and by CUDA events
+   around the wrapper's call and around the plain version. Their entries in
+   the ``kernels`` line count the launches of phase 3's frames and of this
+   phase's captured frame.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
@@ -411,6 +429,7 @@ from tpu_raytracing_torch.trace import (  # noqa: E402
     lane_trace,
     render,
     split_trace,
+    traverse,
     wavefront_bfs,
     wide_fat,
     wide_packet,
@@ -459,7 +478,7 @@ TIE_LEAF_WIDTHS = (8, 40, split_trace.LEAFW, 128)
 TIE_LANE_WIDTHS = (24, 40, lane_trace.MAX_LEAFW)
 F32_MAX = float(torch.finfo(torch.float32).max)
 LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe",
-             "bounce_shade", "lbvh_hierarchy", "wide_collapse"]
+             "bounce_shade", "lbvh_hierarchy", "wide_collapse", "split_front"]
 PROBE_MODULES = (micro_pallas, micro_control, probe_lane_machine, probe_lane_machine2,
                  probe_lane_machine3)
 PROBE_N_CHECK = 4096
@@ -545,6 +564,12 @@ WIDE16_TIES = (((7, 15), False), ((0, 8), False), ((7, 8), False), (tuple(range(
 SHADE_BOUNCES = (8, BOUNCES)
 SHADE_FIELDS = ("radiance", "throughput", "alive", "origin", "direction", "tmin", "tmax")
 SHADE_REPS = 5
+# Phase 21: the split front's kernels in an 8-bounce frame on phase 3's scene
+# and tree (rtbench/configs/terrain1m-split.json): a closest-hit and an
+# any-hit K1 call for the primary rays and for each bounce.
+FRONT_BOUNCES = 8
+FRONT_CALLS = 2 * (FRONT_BOUNCES + 1)
+FRONT_RECORD_FIELDS = ("hit", "t", "prim_id", "tri_id", "bary_u", "bary_v")
 INTERACTIVE_W, INTERACTIVE_H = 256, 192
 # Phase 20: BASELINE config 5 as written (rtbench/configs/terrain1m-lbvh-wide.json)
 # at an animated frame's time, and the SASS digest (``k6_sass``) of K6's
@@ -736,6 +761,8 @@ def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
     tracers = split_trace.make_frame_tracers(RES, RES)
     captured = {k: Capture(v) for k, v in tracers.items()}
     split_trace.launch_count = 0
+    split_trace.operands_launch_count = 0
+    traverse.launch_count = 0
     pathtrace.launch_count = 0
     frame = frame_fn(views, packed, dev_scene, camera, device, **captured)
     frame(0, 0.0, pair_loc=pair_loc)
@@ -743,11 +770,15 @@ def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
     ttff_s = time.perf_counter() - T_PROCESS0
     img, frame_ms, total_rays = timed_frames(frame, pair_loc=pair_loc)
     launches = split_trace.launch_count
+    front_launches = (split_trace.operands_launch_count, traverse.launch_count)
     shade_launches = pathtrace.launch_count
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     require(launches >= 4 * (ITERS + 1),
             f"K1 launched {launches} times in {ITERS + 1} frames (< 4 per frame)")
+    require(front_launches == (launches, launches),
+            f"the split front's operand and record kernels launched {front_launches} times "
+            f"in {ITERS + 1} frames, not once for each of K1's {launches} launches")
     require(shade_launches == (ITERS + 1) * (BOUNCES + 1),
             f"the bounce-shade kernel launched {shade_launches} times in {ITERS + 1} "
             f"{BOUNCES}-bounce frames (not {(ITERS + 1) * (BOUNCES + 1)})")
@@ -769,8 +800,11 @@ def split_path(device, card: str, scene, dev_scene, camera, triangles) -> dict:
         print(f"  {key} = {val!r}  [{card}]")
     print(f"  K1 launches in {ITERS + 1} main-path frames = {launches}")
     print(f"  bounce-shade launches in {ITERS + 1} main-path frames = {shade_launches}")
+    print(f"  split front operand and record launches in {ITERS + 1} main-path frames = "
+          f"{front_launches[0]}, {front_launches[1]}")
     return dict(front=front, views=views, packed=packed, captured=captured, launches=launches,
-                shade_launches=shade_launches, img=img, pair_loc=pair_loc, **out)
+                shade_launches=shade_launches, front_launches=front_launches, img=img,
+                pair_loc=pair_loc, **out)
 
 
 class ShadeCapture:
@@ -832,9 +866,9 @@ def shade_bytes(num: int, hits: int, sample_next: bool) -> int:
     return num * per_ray + hits * (4 + 36 + 4)
 
 
-def shade_device_ms(calls) -> list:
-    """The bounce-shade kernel's device time in ms, from torch.profiler's
-    trace: each of ``calls`` (functions that each launch the kernel once)
+def kernel_device_ms(calls, kernel: str) -> list:
+    """A kernel's device time in ms, from torch.profiler's trace: each of
+    ``calls`` (functions that each launch the kernel named ``kernel`` once)
     is called once to warm and then SHADE_REPS times; returns the mean
     device time of each call's kernels, in order."""
     from torch.autograd import DeviceType
@@ -849,10 +883,9 @@ def shade_device_ms(calls) -> list:
                 fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and "bounce_shade_kernel" in e.name)
+                   if e.device_type == DeviceType.CUDA and kernel in e.name)
     require(len(spans) == SHADE_REPS * len(calls),
-            f"the profiler saw {len(spans)} bounce-shade kernels, not "
-            f"{SHADE_REPS * len(calls)}")
+            f"the profiler saw {len(spans)} {kernel} launches, not {SHADE_REPS * len(calls)}")
     us = [us for _, us in spans]
     return [sum(us[k:k + SHADE_REPS]) / SHADE_REPS / 1000.0
             for k in range(0, len(us), SHADE_REPS)]
@@ -865,7 +898,7 @@ def shade_checks(device, card: str, split: dict, dev_scene, camera) -> dict:
     bit for bit; on every call's captured inputs, with both sample_next
     values and every ray (the dead ones at the back too), the kernel must
     match the plain version bit for bit. Each launch, as the frame made
-    it, is timed on the device by the profiler (shade_device_ms) against
+    it, is timed on the device by the profiler (kernel_device_ms) against
     its bytes bound; the wrapper's call and the plain version by CUDA
     events (5 after a warm one; the plain version 3). Returns the
     benchmark's frame (the first count) for the kernels line, with the
@@ -914,7 +947,7 @@ def shade_checks(device, card: str, split: dict, dev_scene, camera) -> dict:
                                  f"(elements, largest ulp): {bad}")
             as_launched.append(functools.partial(pathtrace.bounce_shade, *args,
                                                  sample_next=b < bounces))
-        device_ms = shade_device_ms(as_launched)
+        device_ms = kernel_device_ms(as_launched, "bounce_shade_kernel")
         k_ms = call_ms = p_ms = nbytes = 0.0
         for b, (args, fn, ms) in enumerate(zip(cap.calls, as_launched, device_ms)):
             num, alive_in, sample_next = args[8].shape[0], int(args[7].sum()), b < bounces
@@ -938,6 +971,166 @@ def shade_checks(device, card: str, split: dict, dev_scene, camera) -> dict:
     print(f"  bounce-shade launches in phase 3's and this phase's main-path frames = "
           f"{launches_all}")
     return dict(out, launches=launches_all)
+
+
+class FrontCapture:
+    """Stands in for ``split_trace.kernel_operands`` and the
+    ``reconstruct`` that ``trace_rays_split`` calls while entered: keeps
+    each call's arguments and passes the call on."""
+
+    def __init__(self):
+        self.real = (split_trace.kernel_operands, split_trace.reconstruct)
+        self.operands, self.records = [], []
+
+    def __enter__(self):
+        split_trace.kernel_operands, split_trace.reconstruct = self.take_operands, self.record
+        return self
+
+    def __exit__(self, *exc):
+        split_trace.kernel_operands, split_trace.reconstruct = self.real
+
+    def take_operands(self, rays, active=None):
+        self.operands.append((rays, active))
+        return self.real[0](rays, active)
+
+    def record(self, pairs, rays, t, tri, any_hit=False):
+        self.records.append((pairs, rays, t, tri, any_hit))
+        return self.real[1](pairs, rays, t, tri, any_hit=any_hit)
+
+
+@contextlib.contextmanager
+def plain_front():
+    """``trace_rays_split`` with the plain versions of its glue."""
+    real = (split_trace.kernel_operands, split_trace.reconstruct)
+    split_trace.kernel_operands = split_trace.kernel_operands_plain
+    split_trace.reconstruct = traverse.reconstruct_plain
+    try:
+        yield
+    finally:
+        split_trace.kernel_operands, split_trace.reconstruct = real
+
+
+def differing_bits(a, b) -> int:
+    """Elements of two same-shaped tensors whose bits differ (floats as
+    int32 words); a dtype or shape mismatch counts every element."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return max(a.numel(), b.numel(), 1)
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return int((a != b).sum())
+
+
+def operands_bytes(num: int, masked: bool) -> int:
+    """Bytes one operand launch must move: the direction, tmin and tmax (20
+    B a ray) in and out, and the active mask in."""
+    return num * (2 * 20 + int(masked))
+
+
+def record_bytes(tri, hit) -> int:
+    """Bytes one record launch must move: t and tri in and the record (21
+    B) out for every ray; a miss reads its tmax, a hit its origin and
+    direction (24 B); each pair row a hit names (64 B), once."""
+    num, hits = tri.shape[0], int(hit.sum())
+    rows = int(torch.unique(tri[hit] >> 1).numel())
+    return num * (8 + 21) + (num - hits) * 4 + hits * 24 + rows * 64
+
+
+def front_checks(device, card: str, split: dict, dev_scene, camera) -> dict:
+    """Phase 21: the split front's two kernels (csrc/split_front.cu) on
+    phase 3's scene, tree, tracers and tid sort, in a FRONT_BOUNCES-bounce
+    frame: each must launch once a K1 call, the frame must match the frame
+    with the plain glue bit for bit, and on every call's captured operands
+    each kernel must match its plain version bit for bit. Each launch, as
+    the frame made it, is timed on the device by the profiler
+    (kernel_device_ms) against its bytes bound; the wrapper's call and the
+    plain version by CUDA events (5 after a warm one; the plain version 3).
+    Returns the kernels line's entries, with the launches of phase 3's
+    frames and of this phase's captured frame."""
+    print("phase 21: the split front's kernels against their plain versions on an "
+          f"{FRONT_BOUNCES}-bounce frame of phase 3's scene")
+    k1_sass_check()
+    tracers = split_trace.make_frame_tracers(RES, RES)
+
+    def frame(seed):
+        return path_trace(split["views"], split["packed"], dev_scene, camera, RES, RES,
+                          num_bounces=FRONT_BOUNCES,
+                          generator=torch.Generator(device=device).manual_seed(seed),
+                          pair_loc=split["pair_loc"], **tracers)
+
+    frame(ITERS + 4)  # warm
+    split_trace.launch_count = split_trace.operands_launch_count = traverse.launch_count = 0
+    with FrontCapture() as cap:
+        img, rays_traced = frame(ITERS + 5)
+        torch.cuda.synchronize()
+    counts = (split_trace.launch_count, split_trace.operands_launch_count, traverse.launch_count,
+              len(cap.operands), len(cap.records))
+    require(counts == (FRONT_CALLS,) * 5,
+            f"a {FRONT_BOUNCES}-bounce frame: K1, operand and record launches and captured "
+            f"operand and record calls {counts}, not {FRONT_CALLS} each")
+    any_hits = sum(int(r[4]) for r in cap.records)
+    require(any_hits == FRONT_CALLS // 2, f"{any_hits} any-hit records of {FRONT_CALLS}")
+    with plain_front():
+        plain_img, plain_rays = frame(ITERS + 5)
+    differ = differing_bits(img, plain_img)
+    require(differ == 0 and int(rays_traced) == int(plain_rays),
+            f"{FRONT_BOUNCES}-bounce frame: {differ} image words differ from the plain-glue "
+            f"frame's, rays {int(rays_traced)} against {int(plain_rays)}")
+    print(f"  {FRONT_BOUNCES}-bounce frame: {FRONT_CALLS} launches of each kernel, image and "
+          f"{int(rays_traced)} rays bit-equal to the frame with the plain glue")
+
+    for c, (rays, active) in enumerate(cap.operands):
+        kout = split_trace.kernel_operands(rays, active)
+        pout = split_trace.kernel_operands_plain(rays, active)
+        bad = {n: differing_bits(k, p) for n, k, p in zip(("origin", "direction", "tmin", "tmax"),
+                                                          kout, pout)}
+        require(not any(bad.values()), f"call {c}: the operand kernel and its plain version "
+                                       f"differ (elements): {bad}")
+    for c, (pairs, rays, t, tri, any_hit) in enumerate(cap.records):
+        kout = traverse.reconstruct(pairs, rays, t, tri, any_hit=any_hit)
+        pout = traverse.reconstruct_plain(pairs, rays, t, tri, any_hit=any_hit)
+        bad = {n: differing_bits(getattr(kout, n), getattr(pout, n))
+               for n in FRONT_RECORD_FIELDS}
+        require(not any(bad.values()), f"call {c} (any_hit={any_hit}): the record kernel and "
+                                       f"its plain version differ (elements): {bad}")
+    print(f"  every ray of all {FRONT_CALLS} calls: both kernels bit-equal to their plain "
+          f"versions on every output")
+
+    # per kernel: its calls' arguments, the kernel's and the plain version's
+    # call on them, and the bytes and rays of a call
+    kernels = (
+        ("operands", "split_operands_kernel", cap.operands,
+         lambda a: functools.partial(split_trace.kernel_operands, *a),
+         lambda a: functools.partial(split_trace.kernel_operands_plain, *a),
+         lambda a: (operands_bytes(a[0].origin.shape[0], a[1] is not None),
+                    a[0].origin.shape[0])),
+        ("record", "split_record_kernel", cap.records,
+         lambda a: functools.partial(traverse.reconstruct, *a[:4], any_hit=a[4]),
+         lambda a: functools.partial(traverse.reconstruct_plain, *a[:4], any_hit=a[4]),
+         lambda a: (record_bytes(a[3], traverse.reconstruct_plain(*a[:4], any_hit=a[4]).hit),
+                    a[1].origin.shape[0])),
+    )
+    out = {}
+    for label, name, calls, launch, plain, size in kernels:
+        device_ms = kernel_device_ms([launch(a) for a in calls], name)
+        k_ms = call_ms = p_ms = total = 0.0
+        for c, (args, ms) in enumerate(zip(calls, device_ms)):
+            c_ms, _ = event_ms(launch(args), 5)
+            plain_ms, _ = event_ms(plain(args), 3)
+            nb, num = size(args)
+            k_ms, call_ms, p_ms, total = k_ms + ms, call_ms + c_ms, p_ms + plain_ms, total + nb
+            print(f"    {label} call {c} ({num} rays): kernel {ms!r} ms on the device, bound "
+                  f"{bound(0.0, nb)['bound_ms']!r} ms ({nb} bytes), call {c_ms!r} ms, plain "
+                  f"{plain_ms!r} ms  [{card}]")
+        # a few dozen operations a ray: the bytes bound
+        b = bound(0.0, total)
+        launches = split["front_launches"][0 if label == "operands" else 1] + FRONT_CALLS
+        print(f"  {label} kernel: {k_ms!r} ms an {FRONT_BOUNCES}-bounce frame on the device, "
+              f"bound {b['bound_ms']!r} ms ({b['bound_by']}), calls {call_ms!r} ms, plain "
+              f"{p_ms!r} ms; {launches} launches in phase 3's and this phase's main-path "
+              f"frames  [{card}]")
+        out[label] = dict(ms=k_ms, call_ms=call_ms, plain_ms=p_ms, max_abs_err=0.0,
+                          launches=launches, **b)
+    return out
 
 
 def k1_mismatches(kout, pout) -> dict:
@@ -3588,6 +3781,22 @@ def k1_8wide_sass(so: Path) -> str:
     return digest.hexdigest()
 
 
+def k1_sass_check() -> str:
+    """The built 8-wide K1 kernels' SASS digest, required to equal
+    ``K1_8WIDE_SASS`` when nvcc is the recorded release; returns it."""
+    release = nvcc_release()
+    cur = k1_8wide_sass(_cuda_build.LIB_PATHS["split_trace"])
+    want_release, want = K1_8WIDE_SASS
+    if release == want_release:
+        print(f"  8-wide K1 SASS (cuobjdump -sass, 8 kernels, nvcc {release}): {cur} "
+              f"{'unchanged' if cur == want else 'CHANGED'} against the recorded {want}")
+        require(cur == want, "the 8-wide K1 kernels' SASS changed")
+    else:
+        print(f"  8-wide K1 SASS: {cur} from nvcc {release}; the recorded digest is from nvcc "
+              f"{want_release}, not comparable")
+    return cur
+
+
 def k1_build_checks(baselines=()) -> None:
     """Phase 17 (a): K1's registers by instantiation, and the 8-wide
     kernels' SASS against ``K1_8WIDE_SASS`` (and beside each baseline's)."""
@@ -3605,16 +3814,7 @@ def k1_build_checks(baselines=()) -> None:
                                                f"{label} kernels: {rows}")
         print(f"  K1 {label}: registers at 1-4 pair slots a lane (leafw <= 32, 64, 96, 128): "
               f"closest-hit {rows[0]}, any-hit {rows[1]}")
-    release = nvcc_release()
-    cur = k1_8wide_sass(_cuda_build.LIB_PATHS["split_trace"])
-    want_release, want = K1_8WIDE_SASS
-    if release == want_release:
-        print(f"  8-wide K1 SASS (cuobjdump -sass, 8 kernels, nvcc {release}): {cur} "
-              f"{'unchanged' if cur == want else 'CHANGED'} against the recorded {want}")
-        require(cur == want, "the 8-wide K1 kernels' SASS changed")
-    else:
-        print(f"  8-wide K1 SASS: {cur} from nvcc {release}; the recorded digest is from nvcc "
-              f"{want_release}, not comparable")
+    cur = k1_sass_check()
     for b in baselines:
         other = k1_8wide_sass(_cuda_build.LIB_PATHS[b.name])
         print(f"  8-wide K1 SASS of {b.source}: {other} "
@@ -4641,6 +4841,9 @@ def main(argv=None) -> int:
     parser.add_argument("--shade-only", action="store_true",
                         help="stop after phases 3 and 19 (the bench frame and the bounce-shade "
                              "kernel's checks and timings); prints no summary lines")
+    parser.add_argument("--front-only", action="store_true",
+                        help="run phases 1-3 and 21 only (the bench frame and the split "
+                             "front's kernels' checks and timings); prints no summary lines")
     parser.add_argument("--app-only", action="store_true",
                         help="run phases 1, 2 and 13 only (the app's render modes, K6's "
                              "counting instantiation with phase 9's fixtures, the rock); "
@@ -4758,10 +4961,15 @@ def main(argv=None) -> int:
     camera = aerial_camera(scene, device)
     triangles = torch.as_tensor(scene.triangles, device=device)
     split = split_path(device, card, scene, dev_scene, camera, triangles)
+    if args.front_only:
+        front_checks(device, card, split, dev_scene, camera)
+        print("chip_smoke: stopped after phase 21 (--front-only)")
+        return 0
     shade = shade_checks(device, card, split, dev_scene, camera)
     if args.shade_only:
         print("chip_smoke: stopped after phase 19 (--shade-only)")
         return 0
+    front = front_checks(device, card, split, dev_scene, camera)
     k1 = k1_checks(device, card, split)
     sah_frame = sah_checks(device, card, scene, dev_scene, camera, triangles, split)
     if args.k1_only:
@@ -4834,6 +5042,13 @@ def main(argv=None) -> int:
         entry("wide_collapse", "wide_collapse.cu",
               "none (the JAX package collapses with XLA operations)",
               any_hit["collapse"]["launches"], any_hit["collapse"]),
+        entry("split_operands", "split_front.cu",
+              "none (the JAX package prepares K1's operands with XLA operations, "
+              f"{sp}:1601)", front["operands"]["launches"], front["operands"]),
+        entry("split_record", "split_front.cu",
+              "none (the JAX package rebuilds the hit record with XLA operations, "
+              "tpu_raytracing/trace/wide_fat.py:_reconstruct)", front["record"]["launches"],
+              front["record"]),
     ] + probes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -17,6 +17,12 @@ PyTorch; given CUDA tensors it launches the kernel or raises. The two agree
 bit for bit (the kernel is built with ``-fmad=false`` and keeps the plain
 version's operation order).
 
+The glue around each K1 call is one launch before it and one after it on
+the card, both kernels of ``csrc/split_front.cu``: ``kernel_operands``
+(the dead rays' empty interval and the direction clamp; plain version
+``kernel_operands_plain``) and ``traverse.reconstruct`` (the hit record;
+``reconstruct_plain``). The CPU runs the plain versions.
+
 Statistics are per ray: ``box_tests = inner_pops * w`` and
 ``tri_tests = leaf_pops * 2 * leafw``. The TPU kernels count pops per packet
 of k rays and give every ray of the packet the packet's count, so each of
@@ -63,7 +69,13 @@ from tpu_raytracing_torch.trace.packet import (
     tile_restore,
 )
 from tpu_raytracing_torch.trace.ray import Rays
-from tpu_raytracing_torch.trace.traverse import PackedPairs, TraceStats, i2f, reconstruct
+from tpu_raytracing_torch.trace.traverse import (
+    PackedPairs,
+    TraceStats,
+    check_kernel_operands,
+    i2f,
+    reconstruct,
+)
 from tpu_raytracing_torch.utils import timing
 
 # Rays per screen tile for the tiled tracers (16 x K/16 pixels).
@@ -82,6 +94,9 @@ _PLAIN_CHUNK = 1 << 16
 # K1 launches since the count was last set to 0: split_traverse adds one
 # where it launches the kernel and nowhere else.
 launch_count = 0
+# Operand-kernel launches (csrc/split_front.cu) since the count was last set
+# to 0: kernel_operands adds one where it launches the kernel and nowhere else.
+operands_launch_count = 0
 
 
 def _mt(a, b, c, o, d, tmn, t_cur):
@@ -398,13 +413,14 @@ def check_overflow(overflow: torch.Tensor) -> None:
             "work list (trace/grid_instanced.py, work_factor)")
 
 
-def kernel_operands(rays: Rays, active=None):
-    """(origin, direction, tmin, tmax) as K1 takes them.
+def kernel_operands_plain(rays: Rays, active=None):
+    """(origin, direction, tmin, tmax) as K1 takes them; the operand
+    kernel's plain version (``kernel_operands``).
 
     Dead rays (``active`` False) get an empty interval (tmin = +max,
     tmax = -max) so no box or triangle accepts. Direction components with
-    |d| < 1e-30 become +-1e-30 (-0.0 -> +1e-30) here, outside the kernel,
-    so its 1/d stays finite and its slab test NaN-free.
+    |d| < 1e-30 become +-1e-30 (-0.0 -> +1e-30) here, outside K1, so its
+    1/d stays finite and its slab test NaN-free.
     """
     tmin, tmax = rays.tmin, rays.tmax
     if active is not None:
@@ -414,6 +430,53 @@ def kernel_operands(rays: Rays, active=None):
     d = torch.where(d.abs() < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d)
     return (rays.origin.contiguous(), d.to(torch.float32).contiguous(),
             tmin.contiguous(), tmax.contiguous())
+
+
+def check_operand_inputs(rays: Rays, active=None) -> None:
+    """Raises unless ``kernel_operands``' inputs are what the operand kernel
+    takes: origin and direction [R, 3], tmin and tmax [R] float32, active
+    [R] bool or None."""
+    num = rays.origin.shape[0]
+    specs = [("rays.origin", rays.origin, torch.float32, (num, 3)),
+             ("rays.direction", rays.direction, torch.float32, (num, 3)),
+             ("rays.tmin", rays.tmin, torch.float32, (num,)),
+             ("rays.tmax", rays.tmax, torch.float32, (num,))]
+    if active is not None:
+        specs.append(("active", active, torch.bool, (num,)))
+    check_kernel_operands("kernel_operands", specs)
+
+
+_OPERANDS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def kernel_operands(rays: Rays, active=None):
+    """``kernel_operands_plain``'s (origin, direction, tmin, tmax); origin is
+    ``rays.origin`` itself. CPU tensors run ``kernel_operands_plain``; CUDA
+    tensors launch the operand kernel (``csrc/split_front.cu``), one launch
+    a call, or raise."""
+    global operands_launch_count
+    dev = rays.origin.device
+    if dev.type == "cpu":
+        return kernel_operands_plain(rays, active)
+    if dev.type != "cuda":
+        raise ValueError(f"kernel_operands: unsupported device {dev}")
+    check_operand_inputs(rays, active)
+    num = rays.origin.shape[0]
+    direction = torch.empty((num, 3), dtype=torch.float32, device=dev)
+    tmin = torch.empty((num,), dtype=torch.float32, device=dev)
+    tmax = torch.empty((num,), dtype=torch.float32, device=dev)
+    if num == 0:
+        return rays.origin, direction, tmin, tmax
+    fn = _cuda_build.load_library("split_front").split_operands_launch
+    fn.argtypes = _OPERANDS_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(rays.direction.data_ptr(), rays.tmin.data_ptr(), rays.tmax.data_ptr(),
+             None if active is None else active.data_ptr(), direction.data_ptr(),
+             tmin.data_ptr(), tmax.data_ptr(), num, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_operands kernel launch failed: cudaError {err}")
+    operands_launch_count += 1
+    return rays.origin, direction, tmin, tmax
 
 
 def trace_rays_split(views, packed: PackedPairs, rays: Rays, active=None,

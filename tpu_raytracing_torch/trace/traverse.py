@@ -5,7 +5,9 @@ Port of ``tpu_raytracing/trace/traverse.py`` (the ``_META_*`` and entry
 constants, ``TraversalBVH``, ``PackedPairs``, ``TraceStats``, ``pack_bvh``,
 ``pack_pairs``, ``trace_rays``) and of ``tpu_raytracing/trace/wide_fat.py:
 _reconstruct`` (``reconstruct``, which the split, lane, grid and
-instanced tracers share). ``trace_rays`` is the scalar tracer, the
+instanced tracers share; on the card one launch of the record kernel,
+``csrc/split_front.cu``, bit-equal to ``reconstruct_plain``, which the CPU
+runs). ``trace_rays`` is the scalar tracer, the
 reference-exact oracle: every ray pops one (index, count) stack entry per
 step, with near-child buffering and ties to the higher child id, triangle
 A then B, and per-ray box-test and triangle-test counts. Each step runs
@@ -21,6 +23,7 @@ reference, so node and pair rows compare bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Tuple
 
@@ -34,6 +37,7 @@ from tpu_raytracing_torch.bvh.types import (
     STACK_DEPTH,
     TrianglePairs,
 )
+from tpu_raytracing_torch.ops import _cuda_build
 from tpu_raytracing_torch.ops.intersect import (
     cross,
     dot,
@@ -52,6 +56,10 @@ _COUNT_MASK = 7
 _GROUP_WIDTH = 2
 
 _F32_MAX = float(torch.finfo(torch.float32).max)
+
+# Record-kernel launches (csrc/split_front.cu) since the count was last set to
+# 0: reconstruct adds one where it launches the kernel and nowhere else.
+launch_count = 0
 
 # Node meta word: child << 5 | count << 2 | type.
 _META_TYPE_MASK = 3
@@ -228,10 +236,11 @@ def trace_rays(trav: TraversalBVH, pairs: PackedPairs, rays: Rays,
     return rec, TraceStats(box_tests=box_tests, tri_tests=tri_tests, overflow=overflow)
 
 
-def reconstruct(pairs: PackedPairs, rays: Rays, t_flat, tri_flat,
-                any_hit: bool = False) -> HitRecord:
+def reconstruct_plain(pairs: PackedPairs, rays: Rays, t_flat, tri_flat,
+                      any_hit: bool = False) -> HitRecord:
     """Full hit record from a tracer's winning (t, tri) per ray: one pair
-    gather and one Möller-Trumbore per ray (wide_fat.py:_reconstruct).
+    gather and one Möller-Trumbore per ray (wide_fat.py:_reconstruct). The
+    record kernel's plain version (``reconstruct``).
 
     A closest hit also needs t < F32_MAX. A split or lane window none of
     whose triangles hits still names its last slot when the ray's t is
@@ -265,3 +274,72 @@ def reconstruct(pairs: PackedPairs, rays: Rays, t_flat, tri_flat,
         bary_u=torch.where(hit, bu, 0.0),
         bary_v=torch.where(hit, bv, 0.0),
     )
+
+
+def check_kernel_operands(fn: str, specs) -> None:
+    """Raises unless every (name, tensor, dtype, shape) of ``specs`` is a
+    contiguous, 16-byte aligned tensor of that dtype and shape on the first
+    one's device: what the split front's kernels (``csrc/split_front.cu``)
+    take."""
+    dev = specs[0][1].device
+    for name, x, dtype, shape in specs:
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous {dtype} tensor of shape {tuple(shape)} "
+                f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+                f"{'' if x.is_contiguous() else ', not contiguous'}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+
+
+def check_record_operands(pairs: PackedPairs, rays: Rays, t_flat, tri_flat) -> None:
+    """Raises unless ``reconstruct``'s operands are what the record kernel
+    takes: pair rows [P >= 1, 16] int32, the rays' origin and direction
+    [R, 3] and tmax [R] float32, t [R] float32 and tri [R] int32."""
+    num = rays.origin.shape[0]
+    check_kernel_operands("reconstruct", [
+        ("rays.origin", rays.origin, torch.float32, (num, 3)),
+        ("rays.direction", rays.direction, torch.float32, (num, 3)),
+        ("rays.tmax", rays.tmax, torch.float32, (num,)),
+        ("t", t_flat, torch.float32, (num,)),
+        ("tri", tri_flat, torch.int32, (num,)),
+        ("pairs.rows", pairs.rows, torch.int32, (max(pairs.rows.shape[0], 1), 16))])
+
+
+_RECORD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def reconstruct(pairs: PackedPairs, rays: Rays, t_flat, tri_flat,
+                any_hit: bool = False) -> HitRecord:
+    """``reconstruct_plain``'s record (the same fields, values and dtypes).
+    CPU tensors run ``reconstruct_plain``; CUDA tensors launch the record
+    kernel (``csrc/split_front.cu``), one launch a call, or raise."""
+    global launch_count
+    dev = rays.origin.device
+    if dev.type == "cpu":
+        return reconstruct_plain(pairs, rays, t_flat, tri_flat, any_hit=any_hit)
+    if dev.type != "cuda":
+        raise ValueError(f"reconstruct: unsupported device {dev}")
+    check_record_operands(pairs, rays, t_flat, tri_flat)
+    num = rays.origin.shape[0]
+    rec = HitRecord(hit=torch.empty((num,), dtype=torch.bool, device=dev),
+                    t=torch.empty((num,), dtype=torch.float32, device=dev),
+                    prim_id=torch.empty((num,), dtype=torch.int32, device=dev),
+                    tri_id=torch.empty((num,), dtype=torch.int32, device=dev),
+                    bary_u=torch.empty((num,), dtype=torch.float32, device=dev),
+                    bary_v=torch.empty((num,), dtype=torch.float32, device=dev))
+    if num == 0:
+        return rec
+    fn = _cuda_build.load_library("split_front").split_record_launch
+    fn.argtypes = _RECORD_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(pairs.rows.data_ptr(), rays.origin.data_ptr(), rays.direction.data_ptr(),
+             rays.tmax.data_ptr(), t_flat.data_ptr(), tri_flat.data_ptr(), rec.hit.data_ptr(),
+             rec.t.data_ptr(), rec.prim_id.data_ptr(), rec.tri_id.data_ptr(),
+             rec.bary_u.data_ptr(), rec.bary_v.data_ptr(), num, pairs.rows.shape[0],
+             int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_record kernel launch failed: cudaError {err}")
+    launch_count += 1
+    return rec
