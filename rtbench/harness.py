@@ -8,6 +8,26 @@ metric is data found by name (``BENCHMARK.json``):
 
 - a configuration: its file (``configs/<config>.json``): the scene, the
   build and tracer, the image size, the bounces;
+- a scene kind: ``scenes/<kind>.py``, named by the configuration's
+  ``scene.kind``; it supplies
+  - ``inputs(scene, seed)``: the host inputs both sides are handed, with
+    ``aabb`` (the world box the camera moves about), ``material`` and
+    ``light`` (what both sides shade with) and ``counts`` (numbers the
+    metric readers take, such as ``num_triangles``);
+  - ``Program(scene, inputs, argv, device)``: the program's set-up through
+    its app's own functions, from ``argv`` (the app's flags for the build,
+    tracer, image and animation) and the scene's own flags; it holds
+    ``args``, ``dev_scene``, the first structures ``trav`` and ``packed``,
+    and ``tracers`` (the keyword arguments of ``path_trace``; ``tracer``
+    serves ``render_frame``); ``step(t)`` updates the structures of an
+    animated step and returns its build time in ms, ``reseed()`` goes back
+    to set-up's state;
+  - ``Reference(inputs, device)``: the reference's side, whose
+    ``geometry(t, dtype)`` gives a capture's (caster, normals): an object
+    with ``reference.Caster``'s ``closest`` and ``occluded``, and the
+    normals of its hit ids;
+- a camera: ``cameras/<camera>.py``, named by the traffic's ``camera``,
+  whose ``pose(aabb_min, aabb_max, step, period)`` gives a step's camera;
 - a traffic mix: ``traffic/<traffic>.json``, the parameters of the one
   frame loop below (camera path and its period, animation, render modes,
   warm steps, the profiled stretch, the capture frames);
@@ -15,9 +35,12 @@ metric is data found by name (``BENCHMARK.json``):
   the metric's value or None;
 - a cell's limits for the comparison: ``limits/<workload>.json``.
 
+Each of these files is loaded from the checkout (``root``) that
+``resolve`` was given.
+
 The program under test is ``tpu_raytracing_torch``, driven through its
-app's own functions (``app/main.py``): the split tree and its refit
-schedule, the ``--type`` build and its fat collapse, ``path_trace`` and
+app's own functions (``app/main.py``), which the scene kind calls for the
+structures and the loop below calls for each image: ``path_trace`` and
 ``render_frame`` with the tracers the app makes.
 """
 
@@ -35,7 +58,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from rtbench import judge, reference, tracefold
+from rtbench import judge, tracefold
 
 BENCH_DIR = Path(__file__).resolve().parent
 REPO = BENCH_DIR.parent
@@ -86,14 +109,19 @@ def resolve(workload: str, root: Path = REPO) -> dict:
     )
 
 
-def load_reader(name: str, root: Path = REPO):
-    """The reader module of the per-layer metric ``name``."""
-    path = root / "rtbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"rtbench_metric_{name.replace('.', '_')}",
-                                                  path)
+def load_module(folder: str, name: str, root: Path = REPO):
+    """The module ``rtbench/<folder>/<name>.py`` of the checkout ``root``."""
+    path = root / "rtbench" / folder / f"{name}.py"
+    tag = f"rtbench_{folder}_{name}".replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(tag, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reader(name: str, root: Path = REPO):
+    """The reader module of the per-layer metric ``name``."""
+    return load_module("metrics", name, root)
 
 
 def forbidden_loaded(modules=None) -> List[str]:
@@ -188,15 +216,9 @@ class Cell:
     """One configuration under one traffic mix, set up on ``device``."""
 
     def __init__(self, resolved: dict, seed: int, device, trace: bool, overrides=None):
-        from tpu_raytracing_torch.app import main as app
-        from tpu_raytracing_torch.bvh.refit_schedule import GuardedRefit
-        from tpu_raytracing_torch.scene import procedural
-        from tpu_raytracing_torch.scene.types import Library, scene_to_device
-        from tpu_raytracing_torch.utils.timing import StageTimer
-
         overrides = overrides or {}
-        self.app = app
-        self.cfg = cfg = _merge(resolved["config"], overrides.get("config"))
+        root = resolved["root"]
+        cfg = _merge(resolved["config"], overrides.get("config"))
         self.traffic = tr = _merge(resolved["traffic"], overrides.get("traffic"))
         self.seed = seed
         self.device = torch.device(device)
@@ -204,53 +226,29 @@ class Cell:
         if cfg["precision"] != "float32":
             raise ValueError(f"the program runs float32 only, not {cfg['precision']}")
         sc = cfg["scene"]
-        # the inputs: triangles from the seed, handed to both sides
-        self.triangles_np = reference.terrain_triangles(sc["triangles"], sc["extent"],
-                                                        sc["height"], seed)
-        lib = Library()
-        lib.add_material("ground")
-        lib.materials[-1].diffuse = np.asarray(sc["material"]["diffuse"], np.float32)
-        lib.materials[-1].ambient = np.asarray(sc["material"]["ambient"], np.float32)
-        scene = procedural._finish(self.triangles_np,
-                                   np.zeros(self.triangles_np.shape[0], np.int32), lib,
-                                   np.asarray(sc["light"], np.float32))
-        self.aabb = (self.triangles_np.reshape(-1, 3).min(0),
-                     self.triangles_np.reshape(-1, 3).max(0))
+        self.kind = load_module("scenes", sc["kind"], root)
+        self.cam = load_module("cameras", tr["camera"], root)
+        # the inputs: made from the seed, handed to both sides
+        self.inputs = self.kind.inputs(sc, seed)
+        self.aabb = self.inputs["aabb"]
         self.width, self.height = cfg["width"], cfg["height"]
         self.bounces = cfg["bounces"]
         self.modes = tr.get("modes")
         self.period = tr["period"]
         anim = tr.get("animate")
-        argv = ["--scene", f"terrain:{sc['triangles']}", "--type", cfg["build"]["type"],
-                "--tracer", cfg["build"]["tracer"], "--width", str(self.width),
-                "--height", str(self.height), "--bounces", str(self.bounces),
-                "--device", str(self.device)]
-        if sc["pairs"]:
-            argv.append("--pairs")
+        argv = ["--type", cfg["build"]["type"], "--tracer", cfg["build"]["tracer"],
+                "--width", str(self.width), "--height", str(self.height),
+                "--bounces", str(self.bounces), "--device", str(self.device)]
         if anim:
             argv.append("--animate")
             if anim.get("refit"):
                 argv += ["--refit", "--refit-interval", str(anim["refit_interval"]),
                          "--refit-bound", str(anim["refit_bound"])]
         with contextlib.redirect_stdout(sys.stderr):
-            self.args = args = app.parse_cmd(argv)
-            self.dev_scene = scene_to_device(scene, self.device)
-            self.tris0 = torch.as_tensor(self.triangles_np, device=self.device)
-            self.sched = None
-            if anim and anim.get("refit"):
-                self.sched = GuardedRefit(rebuild=lambda tris: app.split_tree(args, tris),
-                                          quality_bound=args.refit_bound,
-                                          max_interval=args.refit_interval)
-            bvh = pairs = None
-            if args.tracer != "split":
-                bvh, pairs = app.build_accel(self.tris0, args, StageTimer())
-            self.trav, self.packed, tracers = app.build_trav(args, self.tris0, bvh, pairs,
-                                                             StageTimer(), self.sched)
-        self.trav0 = self.trav
-        self.seed0 = None if self.sched is None else (self.sched.split0, self.sched.rows0)
+            self.prog = self.kind.Program(sc, self.inputs, argv, self.device)
         sampler = Sampler(seed, HIT_SAMPLES)
-        self.recorders = {k: Recorder(v, "shadow" in k, sampler) for k, v in tracers.items()}
-        self.rest: dict = {}
+        self.recorders = {k: Recorder(v, "shadow" in k, sampler)
+                          for k, v in self.prog.tracers.items()}
         self.gen = torch.Generator(device=self.device)
         self.anim = anim
         # per-step records
@@ -261,7 +259,7 @@ class Cell:
     # -- the loop's pieces ---------------------------------------------------
 
     def camera(self, pos: int) -> dict:
-        return reference.CAMERAS[self.traffic["camera"]](*self.aabb, pos, self.period)
+        return self.cam.pose(*self.aabb, pos, self.period)
 
     def anim_time(self, pos: int) -> Optional[float]:
         return None if not self.anim else pos * self.anim["dt"]
@@ -280,7 +278,7 @@ class Cell:
         from tpu_raytracing_torch.scene import camera as cam
         from tpu_raytracing_torch.trace import pathtrace, render
 
-        app = self.app
+        prog = self.prog
         pos = k % self.period
         host_cam = self.camera(pos)
         times: List[float] = []
@@ -291,10 +289,7 @@ class Cell:
                 if i == 0:
                     if self.anim:
                         with self._span("build"):
-                            self.trav, self.packed, _, record = app.animated_trees(
-                                self.args, self.tris0, self.anim_time(pos), self.trav,
-                                self.sched, self.rest)
-                            self.build_ms.append(sum(ms for _, ms in record["stages"]))
+                            self.build_ms.append(prog.step(self.anim_time(pos)))
                     cam_dev = cam.camera_to_device(cam.Camera(
                         position=host_cam["position"], w=host_cam["w"], u=host_cam["u"],
                         v=host_cam["v"], max_depth=float(host_cam["max_depth"])), self.device)
@@ -302,7 +297,7 @@ class Cell:
                     self.gen.manual_seed(sub_seed(self.seed, 1, pos))
                     with self._span("path_trace"):
                         img, rays_traced = pathtrace.path_trace(
-                            self.trav, self.packed, self.dev_scene, cam_dev, self.width,
+                            prog.trav, prog.packed, prog.dev_scene, cam_dev, self.width,
                             self.height, num_bounces=self.bounces, generator=self.gen,
                             **self.recorders)
                     with self._span("readback"):
@@ -311,7 +306,7 @@ class Cell:
                 else:
                     with self._span("render_frame"):
                         img_dev, tests_dev = render.render_frame(
-                            self.trav, self.packed, self.dev_scene, cam_dev, self.width,
+                            prog.trav, prog.packed, prog.dev_scene, cam_dev, self.width,
                             self.height, mode, tracer=self.recorders["tracer"])
                     with self._span("readback"):
                         img = img_dev.cpu().numpy()
@@ -322,26 +317,17 @@ class Cell:
             self.last = now
         return times
 
-    def reseed(self) -> None:
-        """Back to the state set-up left: frame 0's tree, and the refit
-        schedule seeded with it."""
-        self.trav = self.trav0
-        self.rest = {}
-        if self.sched is not None:
-            from tpu_raytracing_torch.trace.traverse import PackedPairs
-
-            self.sched.seed(self.seed0[0], PackedPairs(rows=self.seed0[1]))
-
     def setting(self) -> dict:
-        """What the reference is handed: the same inputs as the program."""
-        sc = self.cfg["scene"]
-        return dict(triangles=self.triangles_np, width=self.width, height=self.height,
-                    bounces=self.bounces, albedo=sc["material"]["diffuse"],
-                    material=sc["material"], light=sc["light"])
+        """What the reference is handed: the same inputs as the program, and
+        the scene kind's reference side, made on a given device."""
+        kind, inputs = self.kind, self.inputs
+        return dict(reference=lambda device: kind.Reference(inputs, device),
+                    width=self.width, height=self.height, bounces=self.bounces,
+                    albedo=inputs["material"]["diffuse"], material=inputs["material"],
+                    light=inputs["light"])
 
     def free(self) -> None:
-        for name in ("trav", "trav0", "packed", "dev_scene", "tris0", "sched", "seed0",
-                     "recorders", "rest", "images"):
+        for name in ("prog", "recorders", "images"):
             if hasattr(self, name):
                 delattr(self, name)
         gc.collect()
@@ -374,7 +360,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     # warm-up: the steps the window will run, then back to set-up's state
     for k in range(tr["warm_steps"]):
         cell.step(k)
-    cell.reseed()
+    cell.prog.reseed()
     sync(device)
     setup_s = time.perf_counter() - t0
 
@@ -452,7 +438,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     kind = torch.cuda.get_device_name(0) if is_cuda else "cpu"
     ctx = dict(folded=folded, build_ms=counted_build_ms, rays=counted_rays, live=live,
                counted_steps=len(live_steps), images_per_step=images_per_step,
-               num_triangles=int(cell.triangles_np.shape[0]))
+               **cell.inputs["counts"])
     setting = cell.setting()
     forbidden = forbidden_loaded()
     cell.free()

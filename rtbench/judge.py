@@ -26,7 +26,9 @@ The numbers compared:
 
 The reference casts every ray against every triangle of the frame's
 geometry (moved by the animation where the cell animates it), so it also
-judges the tree built from that geometry.
+judges the tree built from that geometry. The geometry of a capture, and
+the normals of its hit ids, come from the scene kind's reference side
+(``setting["reference"]``, see ``harness.py``).
 """
 
 from __future__ import annotations
@@ -41,11 +43,6 @@ from rtbench import reference as ref
 T_REL = 1e-5
 T_ABS = 1e-4
 PIXEL_LEVELS = 2
-
-
-def _scene_for(capture: dict, rest_tris: torch.Tensor) -> torch.Tensor:
-    t = capture.get("time")
-    return rest_tris if t is None else ref.wobble(rest_tris, float(t))
 
 
 def judge_hits(calls: List[dict], caster: ref.Caster, answer=None) -> Dict[str, list]:
@@ -106,24 +103,23 @@ def share(flags: list) -> float:
 
 
 def judge(captures: List[dict], setting: dict, device, dtype=None) -> Dict[str, float]:
-    """The compared numbers over every capture. ``setting`` holds the
-    inputs both sides were handed (rest triangles, scene constants, image
-    size, bounces, the pixel samples). ``dtype`` set: the control, the
+    """The compared numbers over every capture. ``setting`` holds what
+    both sides were handed (the scene kind's reference side, the scene
+    constants, image size, bounces). ``dtype`` set: the control, the
     reference in that precision in the program's place."""
-    rest = torch.as_tensor(setting["triangles"], device=device)
-    normals = ref.flat_normals(rest)
+    scene = setting["reference"](device)
     flags = {"closest": [], "any": []}
     pix: Dict[object, list] = {}
     breaks = 0
     cached = {}
     for cap in captures:
-        tris = _scene_for(cap, rest)
         key = cap.get("time")
         if key not in cached:
             cached.clear()
-            cached[key] = (ref.Caster(tris),
-                           None if dtype is None else ref.Caster(tris, dtype))
-        caster, answer = cached[key]
+            caster, normals = scene.geometry(key)
+            cached[key] = (caster, normals,
+                           None if dtype is None else scene.geometry(key, dtype)[0])
+        caster, normals, answer = cached[key]
         h = judge_hits(cap["calls"], caster, answer)
         flags["closest"] += h["closest"]
         flags["any"] += h["any"]

@@ -1,13 +1,16 @@
-"""The benchmark's plain reference: the scene, the camera, brute-force ray
-casting, the path tracer and the render modes' colours, in plain PyTorch
-and NumPy.
+"""The benchmark's plain reference: the animation, the camera model,
+brute-force ray casting (flat, and two-level over instances), the path
+tracer and the render modes' colours, in plain PyTorch and NumPy. A
+scene's inputs are its kind's (``scenes/<kind>.py``), a camera's path its
+own file's (``cameras/<name>.py``).
 
 It imports nothing of the program under test (``tpu_raytracing_torch``)
 and nothing of the JAX package. It works every answer out again from the
 triangles, cameras and random streams that the harness hands both sides,
 with no acceleration structure: every ray is tested against every
-triangle. ``dtype`` selects the precision of the ray casts (float32 for
-the reference, bfloat16 for the control).
+triangle (of every instance whose box its interval meets). ``dtype``
+selects the precision of the ray casts (float32 for the reference,
+bfloat16 for the control).
 
 The formulas follow the program's documented semantics (the reference
 renderer's ``src/Tracer.cu`` as the port describes it): Moller-Trumbore
@@ -33,36 +36,28 @@ LIGHT_COLOUR = (1.0, 0.9, 0.8)
 DET_EPS = 1e-9
 # rays cast against every triangle at once; [RAY_BLOCK, T] per temporary
 RAY_BLOCK = 32
+# the two-level caster: (ray, instance) pairs cast against every object
+# triangle at once, PAIR_ELEMS // T of them ([rows, T] per temporary);
+# rays whose interval is slab-tested against every instance's box at once
+PAIR_ELEMS = 1 << 24
+INSTANCED_RAY_BLOCK = 256
+# each instance's box is widened by this share of the scene's largest
+# coordinate, for the rounding of the object-space tests and the slabs
+BOX_PAD = 1e-5
 
 
 # ---------------------------------------------------------------------------
-# Scene and camera: the inputs the harness makes from the seed
+# Scene and camera
 # ---------------------------------------------------------------------------
 
 
 def terrain_triangles(num_triangles: int, extent: float, height: float,
                       seed: int) -> np.ndarray:
-    """[T, 3, 3] float32: a tessellated heightfield of about
-    ``num_triangles`` triangles, two to a grid quad sharing its diagonal
-    (2t, 2t+1), its height noise drawn from ``seed``. The heights are
-    ``procedural.terrain``'s; each triangle is wound so that its flat
-    normal, cross(v1 - v0, v2 - v1), faces up (+y), toward the light above
-    the scene (``procedural.terrain`` winds them facing down)."""
-    n = max(int(np.sqrt(num_triangles / 2)), 2)
-    xs = np.linspace(-extent / 2, extent / 2, n + 1, dtype=np.float32)
-    gx, gz = np.meshgrid(xs, xs)
-    rng = np.random.default_rng(seed)
-    gy = (height * np.sin(gx * 0.11) * np.cos(gz * 0.13)
-          + 0.3 * height * np.sin(gx * 0.71 + 1.3) * np.sin(gz * 0.53)
-          + rng.normal(0, 0.05 * height, gx.shape)).astype(np.float32)
-    verts = np.stack([gx, gy, gz], axis=-1)
-    v00 = verts[:-1, :-1].reshape(-1, 3)
-    v01 = verts[:-1, 1:].reshape(-1, 3)
-    v10 = verts[1:, :-1].reshape(-1, 3)
-    v11 = verts[1:, 1:].reshape(-1, 3)
-    upper = np.stack([v00, v11, v01], axis=1)
-    lower = np.stack([v00, v10, v11], axis=1)
-    return np.stack([upper, lower], axis=1).reshape(-1, 3, 3).astype(np.float32)
+    """The terrain kind's triangles (``scenes/terrain.py``), for the port's
+    tests that build the benchmark's scene."""
+    from rtbench.scenes import terrain
+
+    return terrain.terrain_triangles(num_triangles, extent, height, seed)
 
 
 def wobble(triangles: torch.Tensor, time: float, amplitude: float = 0.05) -> torch.Tensor:
@@ -101,19 +96,15 @@ def camera(position, yaw: float, pitch: float, max_depth: float) -> dict:
                 max_depth=np.float32(max_depth))
 
 
-def aerial_orbit(aabb_min, aabb_max, step: int, period: int) -> dict:
-    """The aerial view of the 1M terrain runs: above the scene at
-    1.5 x its top + 20, back at 0.7 x its near edge, pitched 0.7 rad down,
-    orbited about the vertical axis by 2 pi / period a step and facing the
-    vertical axis."""
-    theta = 2.0 * math.pi * step / period
-    y = float(aabb_max[1]) * 1.5 + 20.0
-    z0 = float(aabb_min[2]) * 0.7
-    pos = (z0 * math.sin(theta), y, z0 * math.cos(theta))
-    return camera(pos, -theta, 0.7, 1.5 * float(np.max(np.asarray(aabb_max) - aabb_min)))
+def _aerial_orbit(aabb_min, aabb_max, step: int, period: int) -> dict:
+    from rtbench.cameras import aerial_orbit
+
+    return aerial_orbit.pose(aabb_min, aabb_max, step, period)
 
 
-CAMERAS = {"aerial_orbit": aerial_orbit}
+# the cameras that the port's tests read by name; the harness finds a
+# traffic's camera in ``cameras/<name>.py``
+CAMERAS = {"aerial_orbit": _aerial_orbit}
 
 
 def primary_rays(cam: dict, width: int, height: int, pixels: torch.Tensor, device):
@@ -147,7 +138,7 @@ class Caster:
         self.e1 = (tri[:, 1] - tri[:, 0]).T.contiguous()
         self.e2 = (tri[:, 2] - tri[:, 0]).T.contiguous()
 
-    def _block(self, o, d, tmin, tmax, any_hit: bool):
+    def _block(self, o, d, tmin, tmax, any_hit: bool, det_eps=DET_EPS):
         dt = self.dtype
         o, d = o.to(dt), d.to(dt)
         (e1x, e1y, e1z), (e2x, e2y, e2z) = self.e1, self.e2
@@ -169,7 +160,7 @@ class Caster:
         v = f * (dx * qx + dy * qy + dz * qz)
         t = f * (e2x * qx + e2y * qy + e2z * qz)
         del qx, qy, qz
-        ok = ((det.abs() >= DET_EPS) & (u >= 0) & (v >= 0) & (u + v <= 1)
+        ok = ((det.abs() >= det_eps) & (u >= 0) & (v >= 0) & (u + v <= 1)
               & (t >= tmin[:, None].to(dt)) & (t <= tmax[:, None].to(dt)))
         if any_hit:
             return ok.any(dim=1)
@@ -196,6 +187,166 @@ class Caster:
         return torch.cat([self._block(o[i:i + RAY_BLOCK], d[i:i + RAY_BLOCK],
                                       tmin[i:i + RAY_BLOCK], tmax[i:i + RAY_BLOCK], True)
                           for i in range(0, o.shape[0], RAY_BLOCK)])
+
+
+def instance_boxes(triangles: torch.Tensor, transforms: torch.Tensor):
+    """(lo, hi) [I, 3]: each instance's world box, the least and greatest
+    of its own transformed vertices (world <- object, [I, 3, 4]), taken a
+    block of instances at a time."""
+    verts = triangles.reshape(-1, 3).float()
+    x = transforms.float()
+    step = max(1, PAIR_ELEMS // verts.shape[0])
+    lo, hi = [], []
+    for i in range(0, x.shape[0], step):
+        w = torch.einsum("bij,vj->bvi", x[i:i + step, :, :3], verts) + x[i:i + step, None, :, 3]
+        lo.append(w.amin(dim=1))
+        hi.append(w.amax(dim=1))
+    return torch.cat(lo), torch.cat(hi)
+
+
+class InstanceNormals:
+    """The flat normal of a two-level hit id (instance x T + triangle): the
+    object triangle's normal through its instance's inverse transpose,
+    turned with the sign of the transform's determinant (as the normal of
+    the transformed triangle turns), and normalised."""
+
+    def __init__(self, object_normals: torch.Tensor, normal_maps: torch.Tensor):
+        self.object_normals = object_normals
+        self.maps = normal_maps  # [I, 3, 3]
+        self.num_tris = object_normals.shape[0]
+
+    def __getitem__(self, ids: torch.Tensor) -> torch.Tensor:
+        n = torch.einsum("nij,nj->ni", self.maps[ids // self.num_tris],
+                         self.object_normals[ids % self.num_tris])
+        length = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+        return n / torch.where(length == 0, 1.0, length)
+
+
+class InstancedCaster:
+    """Rays against instances of one object-space triangle set: every ray
+    mapped into each instance's object space by the inverse of its
+    transform (world <- object, [I, 3, 4]) and tested against every
+    triangle there with ``Caster``'s Moller-Trumbore. The direction is not
+    normalised, so t stays a distance along the world ray, and u, v are
+    the world triangle's. The determinant bound is the world test's:
+    ``DET_EPS`` over |det A| (the world determinant is det A times the
+    object one). A hit id is instance x T + triangle; ``normals`` maps ids
+    to normals. No world triangle is made.
+
+    With ``skip``, an instance is left out of a ray's tests only where the
+    ray's interval misses the instance's box (``instance_boxes``, widened
+    by ``BOX_PAD``); a closest-hit ray takes its instances in the order it
+    enters their boxes, and leaves out those it enters beyond its nearest
+    hit so far."""
+
+    def __init__(self, triangles: torch.Tensor, transforms: torch.Tensor,
+                 dtype=torch.float32, skip: bool = True):
+        self.object = Caster(triangles, dtype)
+        self.num_tris = triangles.shape[0]
+        x = transforms.to(torch.float64)
+        inv = torch.linalg.inv(x[:, :, :3])
+        det = torch.linalg.det(x[:, :, :3])
+        self.inv = inv.float()
+        self.offset = x[:, :, 3].float()
+        self.det_eps = (DET_EPS / det.abs()).to(dtype)
+        self.normals = InstanceNormals(flat_normals(triangles.float()),
+                                       (inv.transpose(1, 2) * det.sign()[:, None, None]).float())
+        self.rows = max(1, PAIR_ELEMS // max(self.num_tris, 1))
+        self.skip = skip
+        if skip:
+            self.lo, self.hi = instance_boxes(triangles, transforms)
+            pad = BOX_PAD * max(float(self.lo.abs().max()), float(self.hi.abs().max()), 1.0)
+            self.lo, self.hi = self.lo - pad, self.hi + pad
+
+    def _pairs(self, o, d, tmin, tmax):
+        """(ray, instance, entry) of the pairs to test: with ``skip`` those
+        whose box the ray's interval meets, in the order of entry; else
+        every pair, entry None."""
+        n, num = o.shape[0], self.offset.shape[0]
+        dev = o.device
+        if not self.skip:
+            return (torch.arange(n, device=dev).repeat_interleave(num),
+                    torch.arange(num, device=dev).repeat(n), None)
+        inv_d = 1.0 / d
+        t0 = (self.lo[None] - o[:, None]) * inv_d[:, None]
+        t1 = (self.hi[None] - o[:, None]) * inv_d[:, None]
+        near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        # a direction parallel to a slab: inside it for all t, or never
+        flat = (d == 0)[:, None, :]
+        inside = (o[:, None] >= self.lo[None]) & (o[:, None] <= self.hi[None])
+        inf = torch.full_like(near, torch.inf)
+        near = torch.where(flat, torch.where(inside, -inf, inf), near)
+        far = torch.where(flat, torch.where(inside, inf, -inf), far)
+        enter = torch.maximum(near.amax(dim=-1), tmin[:, None])
+        leave = torch.minimum(far.amin(dim=-1), tmax[:, None])
+        ray, inst = (enter <= leave).nonzero(as_tuple=True)
+        entry = enter[ray, inst]
+        order = torch.argsort(entry, stable=True)
+        return ray[order], inst[order], entry[order]
+
+    def _test(self, o, d, tmin, tmax, ray, inst, any_hit: bool):
+        a, b = self.inv[inst], self.offset[inst]
+        oo = torch.einsum("nij,nj->ni", a, o[ray] - b)
+        dd = torch.einsum("nij,nj->ni", a, d[ray])
+        return self.object._block(oo, dd, tmin[ray], tmax[ray], any_hit,
+                                  self.det_eps[inst, None])
+
+    def _closest_block(self, o, d, tmin, tmax):
+        n, num_t = o.shape[0], self.num_tris
+        dev = o.device
+        none = self.offset.shape[0] * num_t
+        best_t = torch.full((n,), torch.inf, device=dev)
+        best_id = torch.full((n,), none, dtype=torch.int64, device=dev)
+        best_u = torch.zeros(n, device=dev)
+        best_v = torch.zeros(n, device=dev)
+        ray, inst, entry = self._pairs(o, d, tmin, tmax)
+        for c in range(0, ray.shape[0], self.rows):
+            r, i = ray[c:c + self.rows], inst[c:c + self.rows]
+            if entry is not None:
+                keep = entry[c:c + self.rows] <= best_t[r]
+                r, i = r[keep], i[keep]
+                if r.shape[0] == 0:
+                    continue
+            hit, t, tri, u, v = self._test(o, d, tmin, tmax, r, i, False)
+            t = torch.where(hit, t, torch.inf)
+            new_t = best_t.scatter_reduce(0, r, t, "amin")
+            # of the hits at the ray's nearest t, the least id
+            ids = torch.where(hit & (t == new_t[r]), i * num_t + tri, none)
+            new_id = torch.where(best_t == new_t, best_id, none).scatter_reduce(
+                0, r, ids, "amin")
+            won = (ids == new_id[r]) & (ids < none)
+            best_u[r[won]] = u[won]
+            best_v[r[won]] = v[won]
+            best_t, best_id = new_t, new_id
+        hit = torch.isfinite(best_t)
+        return hit, best_t, torch.where(hit, best_id, 0), best_u, best_v
+
+    def closest(self, o, d, tmin, tmax):
+        """(hit, t, id, u, v) per ray."""
+        parts = [self._closest_block(o[i:i + INSTANCED_RAY_BLOCK], d[i:i + INSTANCED_RAY_BLOCK],
+                                     tmin[i:i + INSTANCED_RAY_BLOCK],
+                                     tmax[i:i + INSTANCED_RAY_BLOCK])
+                 for i in range(0, o.shape[0], INSTANCED_RAY_BLOCK)]
+        if not parts:
+            z = torch.zeros(0, device=o.device)
+            return z.bool(), z, z.long(), z, z
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    def occluded(self, o, d, tmin, tmax):
+        """Whether any instance's triangle lies within [tmin, tmax] on each
+        ray."""
+        occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        for s in range(0, o.shape[0], INSTANCED_RAY_BLOCK):
+            sl = slice(s, s + INSTANCED_RAY_BLOCK)
+            ray, inst, _ = self._pairs(o[sl], d[sl], tmin[sl], tmax[sl])
+            ray = ray + s
+            for c in range(0, ray.shape[0], self.rows):
+                r, i = ray[c:c + self.rows], inst[c:c + self.rows]
+                keep = ~occ[r]
+                r, i = r[keep], i[keep]
+                if r.shape[0]:
+                    occ[r[self._test(o, d, tmin, tmax, r, i, True)]] = True
+        return occ
 
 
 # ---------------------------------------------------------------------------
