@@ -12,6 +12,7 @@
     python3 chip_smoke.py --builds-only    # phases 1, 2 and 17
     python3 chip_smoke.py --multi-only     # phases 1, 2 and 18
     python3 chip_smoke.py --lbvh-wide-only # phases 1, 2 and 20
+    python3 chip_smoke.py --instanced-only # phases 1, 2 and 22
     python3 chip_smoke.py --k5-baseline OLD/tpu_raytracing_torch/csrc/lane_trace.cu
                                        # every phase; phase 7 also times an
                                        # earlier K5 source beside K5
@@ -353,6 +354,35 @@ exits non-zero if any phase fails:
    around the wrapper's call and around the plain version. Their entries in
    the ``kernels`` line count the launches of phase 3's frames and of this
    phase's captured frame.
+22. BASELINE config 4 on the app's path (the benchmark's ``instanced1k-split``
+   configuration's sizes with the app's own scene and scatter; last, or
+   ``--instanced-only`` for phases 1, 2 and 22): the app's ``--instances``
+   run (1,000 instances of ``sphere_scene(6)``, ``--tracer split --type
+   bottom-up --pairs --bounces 8 --animate``, 1024x1024) must launch the
+   sweep kernel (``csrc/instanced_sweep.cu``) once an instanced call; an
+   8-bounce frame on its last instance level must match, image and ray
+   count bit for bit, the frame with the plain sweep, items, resolve and
+   record in their places; on every call's captured inputs the sweep kernel
+   must give its plain version's counts, statistics and every ray's run of
+   overlaps (lowest instance first, from the ray's first slot), the item,
+   resolve and record kernels their plain versions' outputs bit for bit,
+   K1 its plain version's on up to ``SLICE`` live items of the primary pass
+   and its shadows, and the
+   bounce-shade kernel with the instances' normal matrices its plain
+   version's on every call. Each of the four kernels is timed on each
+   call as the frame made it from ``torch.profiler``'s trace against its
+   bound (the sweep: the larger of its slab tests' operations and its
+   bytes; the item, resolve and record kernels: their bytes), with its
+   plain version's time on the primary pass and its registers; each has
+   its own launch count (``instanced_split.launch_count``,
+   ``items_launch_count``, ``resolve_launch_count``,
+   ``record_launch_count``), and its entry in the ``kernels`` line counts
+   the launches of the app's frames and the captured frame, read before
+   the checks launch it again. Phase 19 takes
+   ``--shade-baseline SOURCE``: an earlier ``csrc/bounce_shade.cu`` built
+   beside the current one, which must match it bit for bit on every call of
+   its frames (the one-level frames hand the kernel no instance data) and
+   is timed beside it.
 
 For every kernel the script computes a bound: the larger of the float32
 operations of its slab and triangle tests over 67 TFLOP/s and the bytes it
@@ -478,7 +508,8 @@ TIE_LEAF_WIDTHS = (8, 40, split_trace.LEAFW, 128)
 TIE_LANE_WIDTHS = (24, 40, lane_trace.MAX_LEAFW)
 F32_MAX = float(torch.finfo(torch.float32).max)
 LIBRARIES = ["split_trace", "lane_trace", "fat_traverse", "micro_probe", "lane_probe",
-             "bounce_shade", "lbvh_hierarchy", "wide_collapse", "split_front"]
+             "bounce_shade", "lbvh_hierarchy", "wide_collapse", "split_front",
+             "instanced_sweep"]
 PROBE_MODULES = (micro_pallas, micro_control, probe_lane_machine, probe_lane_machine2,
                  probe_lane_machine3)
 PROBE_N_CHECK = 4096
@@ -586,6 +617,17 @@ COLLAPSE_REPS = 10
 CATERPILLARS = (30, 70, 5000)
 COLLAPSE_APP_FRAMES = 3
 COLLAPSE_APP_RES = 256
+# Phase 22: BASELINE config 4 on the app's path, at the benchmark's
+# instanced cell's sizes (rtbench/configs/instanced1k-split.json) with the
+# app's own scene and scatter: 1,000 instances of sphere_scene(6) (81,922
+# triangles), 1024x1024, 8 bounces, animated.
+INST_APP_COUNT = 1000
+INST_APP_SUBDIV = 6
+INST_APP_BOUNCES = 8
+INST_APP_FRAMES = 3
+# the calls (the primary pass and its shadows) on whose items K1 is held to
+# its plain version
+INST_K1_CALLS = 2
 INTERACTIVE_FIRST_S = 180.0
 INTERACTIVE_READ_S = 30.0
 
@@ -822,9 +864,9 @@ class ShadeCapture:
     def __exit__(self, *exc):
         pathtrace.bounce_shade = self.real
 
-    def __call__(self, *args, sample_next=True):
+    def __call__(self, *args, sample_next=True, **kw):
         self.calls.append(args)
-        return self.real(*args, sample_next=sample_next)
+        return self.real(*args, sample_next=sample_next, **kw)
 
 
 def shade_outputs(out) -> tuple:
@@ -870,28 +912,89 @@ def kernel_device_ms(calls, kernel: str) -> list:
     """A kernel's device time in ms, from torch.profiler's trace: each of
     ``calls`` (functions that each launch the kernel named ``kernel`` once)
     is called once to warm and then SHADE_REPS times; returns the mean
-    device time of each call's kernels, in order."""
+    device time of each call's kernels, in order. Each call has a session
+    of its own, with a tensor update before and after its launches, and up
+    to three tries: a full smoke run's session over every call once saw 75
+    of 90 sweep launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn in calls:
-            for _ in range(SHADE_REPS):
-                fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and kernel in e.name)
-    require(len(spans) == SHADE_REPS * len(calls),
-            f"the profiler saw {len(spans)} {kernel} launches, not {SHADE_REPS * len(calls)}")
-    us = [us for _, us in spans]
-    return [sum(us[k:k + SHADE_REPS]) / SHADE_REPS / 1000.0
-            for k in range(0, len(us), SHADE_REPS)]
+    pad = torch.zeros(1, device="cuda")
+    out = []
+    for c, fn in enumerate(calls):
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                pad.add_(1.0)
+                torch.cuda.synchronize()
+                for _ in range(SHADE_REPS):
+                    fn()
+                torch.cuda.synchronize()
+                pad.add_(1.0)
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and kernel in e.name]
+            if len(us) == SHADE_REPS:
+                break
+            print(f"    the profiler saw {len(us)} {kernel} launches of call {c}'s "
+                  f"{SHADE_REPS} (try {attempt + 1})")
+        require(len(us) == SHADE_REPS,
+                f"the profiler saw {len(us)} {kernel} launches of call {c}, not {SHADE_REPS}")
+        out.append(sum(us) / SHADE_REPS / 1000.0)
+    return out
 
 
-def shade_checks(device, card: str, split: dict, dev_scene, camera) -> dict:
+class BaselineShade:
+    """An earlier ``csrc/bounce_shade.cu`` with the one-level launch (no
+    instance arguments: 27 pointers, the constants, 6 ints, the stream),
+    built beside the current one and called like ``pathtrace.bounce_shade``
+    on a one-level record."""
+
+    NAME = "bounce_shade_baseline"
+    ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_float)]
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+    def __init__(self, source: Path):
+        self.source = source
+
+    def __call__(self, scene, pairs, rays, rec, srec_hit, throughput, radiance, alive, pixel,
+                 u_frame, max_t, sample_next=True, normal_maps=None):
+        require(normal_maps is None, "the baseline bounce-shade kernel shades one level only")
+        dev = rays.origin.device
+        max_t = torch.as_tensor(max_t, dtype=torch.float32, device=dev).reshape(-1)
+        fn = _cuda_build.load_library(self.NAME, self.source).bounce_shade_launch
+        fn.argtypes = self.ARGTYPES
+        fn.restype = ctypes.c_int
+        num = pixel.shape[0]
+        rad_out, alive_out = torch.empty_like(radiance), torch.empty_like(alive)
+        thr_out, new = throughput, rays
+        outs = (None,) * 5
+        if sample_next:
+            thr_out = torch.empty_like(throughput)
+            new = Rays(origin=torch.empty_like(rays.origin),
+                       direction=torch.empty_like(rays.direction),
+                       tmin=torch.empty((num,), dtype=torch.float32, device=dev),
+                       tmax=torch.empty((num,), dtype=torch.float32, device=dev))
+            outs = (thr_out.data_ptr(), new.origin.data_ptr(), new.direction.data_ptr(),
+                    new.tmin.data_ptr(), new.tmax.data_ptr())
+        err = fn(rays.origin.data_ptr(), rays.direction.data_ptr(), rec.hit.data_ptr(),
+                 rec.t.data_ptr(), rec.prim_id.data_ptr(), rec.tri_id.data_ptr(),
+                 rec.bary_u.data_ptr(), rec.bary_v.data_ptr(), srec_hit.data_ptr(),
+                 throughput.data_ptr(), radiance.data_ptr(), alive.data_ptr(),
+                 pixel.data_ptr(), u_frame.data_ptr(), max_t.data_ptr(), pairs.rows.data_ptr(),
+                 scene.normals.data_ptr(), scene.material_ids.data_ptr(),
+                 scene.materials.diffuse.data_ptr(), scene.light.data_ptr(),
+                 rad_out.data_ptr(), alive_out.data_ptr(), *outs, pathtrace._SHADE_CONSTS,
+                 num, u_frame.shape[0], pairs.rows.shape[0], scene.normals.shape[0],
+                 scene.materials.diffuse.shape[0], int(sample_next),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        require(err == 0, f"the baseline bounce-shade kernel's launch failed: cudaError {err}")
+        return rad_out, thr_out, alive_out, new
+
+
+def shade_checks(device, card: str, split: dict, dev_scene, camera, baseline=None) -> dict:
     """Phase 19: the bounce-shade kernel on phase 3's scene, tree, tracers
     and tid sort, at SHADE_BOUNCES. A frame must launch it once a bounce
     and once more, and match the frame with the plain version in its place
@@ -900,7 +1003,9 @@ def shade_checks(device, card: str, split: dict, dev_scene, camera) -> dict:
     match the plain version bit for bit. Each launch, as the frame made
     it, is timed on the device by the profiler (kernel_device_ms) against
     its bytes bound; the wrapper's call and the plain version by CUDA
-    events (5 after a warm one; the plain version 3). Returns the
+    events (5 after a warm one; the plain version 3). With ``baseline`` (a
+    ``BaselineShade``), the earlier kernel must match the current one bit
+    for bit on every call, and is timed beside it. Returns the
     benchmark's frame (the first count) for the kernels line, with the
     launches of phase 3's frames and of this phase's captured frames."""
     print("phase 19: the bounce-shade kernel against its plain version on phase 3's frame")
@@ -945,9 +1050,21 @@ def shade_checks(device, card: str, split: dict, dev_scene, camera) -> dict:
                 require(not bad, f"{bounces}-bounce frame, bounce {b}, sample_next="
                                  f"{int(sample_next)}: kernel and plain differ "
                                  f"(elements, largest ulp): {bad}")
+                if baseline is not None:
+                    bad = shade_mismatches(kout, baseline(*args, sample_next=sample_next))
+                    require(not bad, f"{bounces}-bounce frame, bounce {b}, sample_next="
+                                     f"{int(sample_next)}: kernel and {baseline.source} "
+                                     f"differ (elements, largest ulp): {bad}")
             as_launched.append(functools.partial(pathtrace.bounce_shade, *args,
                                                  sample_next=b < bounces))
         device_ms = kernel_device_ms(as_launched, "bounce_shade_kernel")
+        if baseline is not None:
+            base_ms = kernel_device_ms(
+                [functools.partial(baseline, *args, sample_next=b < bounces)
+                 for b, args in enumerate(cap.calls)], "bounce_shade_kernel")
+            print(f"  {bounces}-bounce frame: kernel {sum(device_ms)!r} ms a frame on the "
+                  f"device, {baseline.source} {sum(base_ms)!r} ms; bit-equal on every call "
+                  f"and both sample_next values  [{card}]")
         k_ms = call_ms = p_ms = nbytes = 0.0
         for b, (args, fn, ms) in enumerate(zip(cap.calls, as_launched, device_ms)):
             num, alive_in, sample_next = args[8].shape[0], int(args[7].sum()), b < bounces
@@ -4833,6 +4950,340 @@ def lbvh_wide_phase(device, card: str, baselines=()) -> dict:
     return dict(res, launches=launches[2], hierarchy=hierarchy, collapse=collapse)
 
 
+class InstancedCapture:
+    """Stands in for ``instanced_split``'s sweep, items, resolve and record
+    while entered: keeps each call's arguments (and, for the resolve, a copy
+    of the sweep's per-ray state, which the kernel updates in place) and
+    passes the call on."""
+
+    NAMES = ("sweep", "items", "resolve", "record")
+
+    def __init__(self):
+        self.real = {n: getattr(instanced_split, n) for n in self.NAMES}
+        self.calls = {n: [] for n in self.NAMES}
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(instanced_split, n, functools.partial(self.take, n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(instanced_split, n, fn)
+
+    def take(self, name, *args):
+        if name == "resolve":
+            args = (sweep_copy(args[0]),) + args[1:]
+            self.calls[name].append(args)
+            return self.real[name](sweep_copy(args[0]), *args[1:])
+        self.calls[name].append(args)
+        return self.real[name](*args)
+
+
+def items_plain_stage(inv, rays, sw):
+    """``instanced_split.items`` with the plain item mapping."""
+    s_key, order = torch.sort(sw.item_key, stable=True)
+    ops, s_ray = instanced_split.items_plain(inv, rays, s_key, order, sw.item_ray)
+    return ops, s_ray, s_key
+
+
+def sweep_copy(sw):
+    """A copy of a ``Sweep`` whose tensors the resolve may update."""
+    return dataclasses.replace(sw, **{f.name: getattr(sw, f.name).clone()
+                                      for f in dataclasses.fields(sw)
+                                      if getattr(sw, f.name) is not None})
+
+
+def sweep_runs(sw, num: int):
+    """(ray, key) of a sweep's filled slots, in the order of (ray, slot):
+    each ray's overlaps as its run of slots holds them."""
+    n = min(int(sw.stats[0]), sw.item_key.shape[0])
+    ray = sw.item_ray[:n].to(torch.int64)
+    order = torch.argsort(ray * (n + 1) + torch.arange(n, device=ray.device))
+    return ray[order], sw.item_key[:n][order]
+
+
+def sweep_mismatches(kern, plain, num: int) -> dict:
+    """What differs between the sweep kernel's output and its plain
+    version's: counts, statistics, and each ray's run of (ray, key)."""
+    bad = {}
+    if not torch.equal(kern.nov, plain.nov):
+        bad["nov"] = int((kern.nov != plain.nov).sum())
+    if not torch.equal(kern.stats[:3], plain.stats[:3]):
+        bad["stats"] = (kern.stats.tolist(), plain.stats.tolist())
+    kr, kk = sweep_runs(kern, num)
+    pr, pk = sweep_runs(plain, num)
+    if not (torch.equal(kr, pr) and torch.equal(kk, pk)):
+        bad["runs"] = int((kk != pk).sum()) if kk.shape == pk.shape else (kk.shape, pk.shape)
+    # every run starts at its ray's first slot
+    n = min(int(kern.stats[0]), kern.item_key.shape[0])
+    slots = torch.arange(n, device=kern.nov.device)
+    ray = kern.item_ray[:n].to(torch.int64)
+    off = slots - kern.first[ray]
+    if bool(((off < 0) | (off >= kern.nov[ray])).any()):
+        bad["first"] = int(((off < 0) | (off >= kern.nov[ray])).sum())
+    return bad
+
+
+def bits_differ(a, b) -> int:
+    """Elements of two equal-shaped tensors whose bits differ."""
+    if a.dtype == torch.bool:
+        return int((a != b).sum())
+    width = {1: torch.int8, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return int((a.contiguous().view(width) != b.contiguous().view(width)).sum())
+
+
+def sweep_bytes(live: int, overlaps: int, num_inst: int) -> int:
+    """The sweep's least bytes (rtbench/instanced_roofline.py): the live
+    rays in (32 B), each overlap out (4 B), the boxes and inverse
+    transforms once (72 B an instance)."""
+    return live * 32 + overlaps * 4 + num_inst * 72
+
+
+def instanced_launches() -> dict:
+    """The instanced kernels' launch counts, by kernel."""
+    return dict(sweep=instanced_split.launch_count, items=instanced_split.items_launch_count,
+                resolve=instanced_split.resolve_launch_count,
+                record=instanced_split.record_launch_count)
+
+
+def zero_instanced_launches() -> None:
+    instanced_split.launch_count = instanced_split.items_launch_count = 0
+    instanced_split.resolve_launch_count = instanced_split.record_launch_count = 0
+
+
+def items_bytes(args) -> int:
+    """The item kernel's least bytes on a call's (inv, rays, sweep): each
+    slot's sorted key in (4 B) and its K1 operands and ray out (36 B); each
+    filled slot's sort position and ray id (12 B); each live ray once (32
+    B); each inverse transform once (48 B)."""
+    inv, _, sw = args
+    slots = sw.item_key.shape[0]
+    filled, live = min(int(sw.stats[0]), slots), int(sw.stats[1])
+    return slots * 40 + filled * 12 + live * 32 + inv.shape[0] * 48
+
+
+def resolve_bytes(args) -> int:
+    """The resolve kernel's least bytes on a call's arguments: each slot's
+    ray (4 B); each filled slot's t, triangle and two pop counts (16 B) and
+    closest-hit its key (4 B); each live ray's two statistics read and
+    written (16 B) and its best key (16 B) or occlusion flag (1 B)."""
+    sw, s_ray, any_hit = args[0], args[1], args[8]
+    filled, live = int((s_ray >= 0).sum()), int(sw.stats[1])
+    return (s_ray.shape[0] * 4 + filled * (16 if any_hit else 20)
+            + live * (16 + (1 if any_hit else 16)))
+
+
+def record_bytes_inst(args) -> int:
+    """The record kernel's least bytes on a call's arguments: each ray's
+    best key (8 B) and record out (25 B); each miss its tmax (4 B); each
+    hit its world ray (24 B); each pair row and instance a hit names, once
+    (64 B, 48 B)."""
+    best, tri_range = args[3], args[4]
+    num = best.shape[0]
+    hit = best != torch.iinfo(torch.int64).max
+    low = best[hit] & 0xFFFFFFFF
+    hits = int(hit.sum())
+    rows = int(torch.unique((low % tri_range) >> 1).numel())
+    insts = int(torch.unique(low // tri_range).numel())
+    return num * (8 + 25) + (num - hits) * 4 + hits * 24 + rows * 64 + insts * 48
+
+
+def instanced_app_phase(device, card: str) -> dict:
+    """Phase 22: BASELINE config 4 on the app's path. Returns the kernels
+    line's figures of the sweep, item, resolve and record kernels over a
+    frame, each with its launches in the app's frames and the captured
+    one."""
+    print("phase 22: the app's --instances path (config 4 at "
+          f"{INST_APP_COUNT} instances of sphere_scene({INST_APP_SUBDIV}), "
+          f"{RES}x{RES}, {INST_APP_BOUNCES} bounces)")
+    zero_instanced_launches()
+    res, _, wall, _ = run_app(
+        ["--scene", f"sphere:{INST_APP_SUBDIV}", "--type", "bottom-up", "--pairs",
+         "--tracer", "split", "--bounces", str(INST_APP_BOUNCES), "--instances",
+         str(INST_APP_COUNT), "--width", str(RES), "--height", str(RES), "--animate",
+         "--frames", str(INST_APP_FRAMES), "--output", str(OUT_DIR / "instanced_app")])
+    # each pass of a frame sweeps, maps and resolves; the closest-hit ones
+    # (the primary pass and each bounce) also record
+    calls = 2 * (INST_APP_BOUNCES + 1)
+    per_frame = dict(sweep=calls, items=calls, resolve=calls, record=INST_APP_BOUNCES + 1)
+    app_launches = instanced_launches()
+    print(f"  the app, --animate --frames {INST_APP_FRAMES}: launches {app_launches}; frames "
+          f"{[round(f[2], 2) for f in res['frames']]} ms; app wall {wall!r} s  [{card}]")
+    require(app_launches == {k: INST_APP_FRAMES * n for k, n in per_frame.items()},
+            f"{app_launches} instanced launches in {INST_APP_FRAMES} frames of {per_frame}")
+    ias, packed, dev_scene, camera = res["trav"], res["packed"], res["scene"], res["camera"]
+    num_inst = ias.wmin.shape[0]
+    blas_tris = int(packed.rows.shape[0])
+    sizes = {f.name: tuple(getattr(ias, f.name).shape) for f in dataclasses.fields(ias)
+             if isinstance(getattr(ias, f.name), torch.Tensor)}
+    print(f"  instance level {sizes}, BLAS pair rows {blas_tris}, inner rows "
+          f"{tuple(ias.views[0].shape)}: no world triangles")
+    tracers = app_main.make_instanced_tracers()
+
+    def frame(seed):
+        return path_trace(ias, packed, dev_scene, camera, RES, RES,
+                          num_bounces=INST_APP_BOUNCES,
+                          generator=torch.Generator(device=device).manual_seed(seed), **tracers)
+
+    frame(ITERS + 7)  # warm
+    zero_instanced_launches()
+    with InstancedCapture() as cap, ShadeCapture() as shade:
+        t0 = time.perf_counter()
+        img, rays_traced = frame(ITERS + 8)
+        frame_ms = sync_ms(t0)
+    # the main path's launches (the app's frames and this one), before the
+    # checks below launch each kernel again
+    frame_launches = instanced_launches()
+    require(frame_launches == per_frame and len(cap.calls["sweep"]) == calls,
+            f"{frame_launches} instanced launches in a frame of {per_frame}")
+    launches = {k: app_launches[k] + n for k, n in frame_launches.items()}
+    real = {n: getattr(instanced_split, n) for n in InstancedCapture.NAMES}
+    plain = dict(sweep=instanced_split.sweep_plain, items=items_plain_stage,
+                 resolve=instanced_split.resolve_plain, record=instanced_split.record_plain)
+    t0 = time.perf_counter()
+    try:
+        for n in InstancedCapture.NAMES:
+            setattr(instanced_split, n, plain[n])
+        plain_img, plain_rays = frame(ITERS + 8)
+        plain_ms = sync_ms(t0)
+    finally:
+        for n, fn in real.items():
+            setattr(instanced_split, n, fn)
+    differ = bits_differ(img, plain_img)
+    require(differ == 0 and int(rays_traced) == int(plain_rays),
+            f"instanced frame: {differ} image words differ from the plain stages' frame, "
+            f"rays {int(rays_traced)} against {int(plain_rays)}")
+    print(f"  frame {frame_ms:.2f} ms, {int(rays_traced)} rays; image and rays bit-equal to "
+          f"the frame with the plain sweep, items, resolve and record ({plain_ms:.0f} ms)  "
+          f"[{card}]")
+
+    # each stage against its plain version on every call's captured inputs
+    totals = dict(items=0, live=0, top=0)
+    for c, (wmin, wmax, rays, active, capacity, any_hit) in enumerate(cap.calls["sweep"]):
+        kern = instanced_split.sweep(wmin, wmax, rays, active, capacity, any_hit, True)
+        pl = instanced_split.sweep_plain(wmin, wmax, rays, active, capacity, any_hit, True)
+        bad = sweep_mismatches(kern, pl, rays.origin.shape[0])
+        require(not bad, f"call {c}: the sweep kernel and its plain version differ: {bad}")
+        st = kern.stats.tolist()
+        totals["items"] += st[0]
+        totals["live"] += st[1]
+        totals["top"] = max(totals["top"], st[2])
+        require(st[0] <= capacity, f"call {c}: {st[0]} overlaps in {capacity} slots")
+        print(f"    call {c} ({'any' if any_hit else 'closest'}): {st[1]} live rays, {st[0]} "
+              f"overlaps ({st[0] / max(st[1], 1):.3f} a live ray, {st[0] / capacity:.3f} of "
+              f"the slots), largest {st[2]}; sweep bit-equal to plain")
+    for c, (inv, rays, sw) in enumerate(cap.calls["items"]):
+        ops, s_ray, s_key = real["items"](inv, rays, sw)
+        pops, ps_ray = instanced_split.items_plain(inv, rays, s_key,
+                                                   torch.sort(sw.item_key, stable=True)[1],
+                                                   sw.item_ray)
+        bad = {name: bits_differ(a, b) for name, a, b in
+               zip(("origin", "direction", "tmin", "tmax", "ray"), (*ops, s_ray),
+                   (*pops, ps_ray))}
+        require(not any(bad.values()), f"call {c}: the item kernel and plain differ: {bad}")
+        if c >= INST_K1_CALLS:
+            continue
+        live = (s_ray >= 0).nonzero().reshape(-1)
+        idx = live[torch.randperm(live.shape[0], device=device)[:SLICE]]
+        inner, pairs, stack_cap = ias.views
+        any_hit = cap.calls["sweep"][c][5]
+        kout = split_trace.split_traverse(inner, pairs, *(o[idx] for o in ops),
+                                          leafw=split_trace.LEAFW, any_hit=any_hit,
+                                          stack_cap=stack_cap)
+        pout = split_trace.trace_split_plain(inner, pairs, *(o[idx] for o in ops),
+                                             leafw=split_trace.LEAFW, any_hit=any_hit,
+                                             stack_cap=stack_cap)
+        kbad = sum(bits_differ(a, b) for a, b in zip(kout[:4], pout[:4]))
+        require(kbad == 0, f"call {c}: K1 and plain differ on {kbad} of {idx.shape[0]} items")
+    for c, args in enumerate(cap.calls["resolve"]):
+        sw = args[0]
+        kwon, kstats = real["resolve"](sweep_copy(sw), *args[1:])
+        pwon, pstats = instanced_split.resolve_plain(sweep_copy(sw), *args[1:])
+        bad = {name: bits_differ(a, b) for name, a, b in
+               (("won", kwon, pwon), ("box_tests", kstats.box_tests, pstats.box_tests),
+                ("tri_tests", kstats.tri_tests, pstats.tri_tests),
+                ("overflow", kstats.overflow, pstats.overflow))}
+        require(not any(bad.values()), f"call {c}: the resolve kernel and plain differ: {bad}")
+    for c, args in enumerate(cap.calls["record"]):
+        krec, prec = real["record"](*args), instanced_split.record_plain(*args)
+        bad = {f.name: bits_differ(getattr(krec, f.name), getattr(prec, f.name))
+               for f in dataclasses.fields(krec)}
+        require(not any(bad.values()), f"call {c}: the record kernel and plain differ: {bad}")
+    print(f"  every call's items ({len(cap.calls['items'])}), resolve "
+          f"({len(cap.calls['resolve'])}) and record ({len(cap.calls['record'])}) bit-equal "
+          f"to plain; K1 bit-equal to plain on up to {SLICE} live items of calls "
+          f"0-{INST_K1_CALLS - 1}")
+    for b, args in enumerate(shade.calls):
+        for sample_next in (True, False):
+            kout = pathtrace.bounce_shade(*args, sample_next=sample_next,
+                                          normal_maps=ias.normal_maps)
+            pout = pathtrace.bounce_shade_plain(*args, sample_next=sample_next,
+                                                normal_maps=ias.normal_maps)
+            bad = shade_mismatches(kout, pout)
+            require(not bad, f"bounce {b}: the bounce-shade kernel with instance normals "
+                             f"and plain differ: {bad}")
+    print(f"  the bounce-shade kernel with instance normals bit-equal to plain on "
+          f"{len(shade.calls)} calls, both sample_next values")
+
+    # the sweep's device time on each call as the frame made it
+    as_made = [functools.partial(real["sweep"], *args) for args in cap.calls["sweep"]]
+    dev_ms = kernel_device_ms(as_made, "inst_sweep_kernel")
+    k_ms, nbytes, n_ops = sum(dev_ms), 0, 0.0
+    for c, (args, ms) in enumerate(zip(cap.calls["sweep"], dev_ms)):
+        sw = instanced_split.sweep(*args)
+        live, overlaps = int(sw.stats[1]), int(sw.stats[0])
+        nb = sweep_bytes(live, overlaps, num_inst)
+        nbytes += nb
+        n_ops += float(live) * num_inst * SLAB_OPS
+        if c < 4:
+            b = bound(float(live) * num_inst * SLAB_OPS, nb)
+            print(f"    call {c}: sweep {ms!r} ms on the device, bound {b['bound_ms']!r} ms "
+                  f"({b['bound_by']}; bytes alone {bound(0.0, nb)['bound_ms']!r} ms)  [{card}]")
+    p_ms, _ = event_ms(functools.partial(instanced_split.sweep_plain, *cap.calls["sweep"][0]), 1)
+    b = bound(n_ops, nbytes)
+    regs = {name.split("(")[0]: n for name, n in
+            kernel_registers(_cuda_build.BUILD_INFO["instanced_sweep"][1]).items()
+            if "inst_sweep_kernel" in name}
+    print(f"  sweep kernel: {k_ms!r} ms a frame on the device ({dev_ms[0]!r} on the primary "
+          f"pass), bound {b['bound_ms']!r} ms ({b['bound_by']}; bytes alone "
+          f"{bound(0.0, nbytes)['bound_ms']!r} ms, {100 * bound(0.0, nbytes)['bound_ms'] / k_ms:.3f}%"
+          f" of its roofline), plain {p_ms!r} ms on the primary pass; registers {regs}; "
+          f"{totals['items']} overlaps of {totals['live']} live rays a frame, largest "
+          f"{totals['top']}  [{card}]")
+    out = dict(sweep=dict(ms=k_ms, primary_ms=dev_ms[0], plain_ms=p_ms, max_abs_err=0.0,
+                          launches=launches["sweep"], **b))
+
+    # the item, resolve and record kernels: each launch as the frame made it,
+    # against its bytes bound (a few dozen operations an item or a ray)
+    glue = (
+        ("items", "inst_items_kernel", lambda a: functools.partial(real["items"], *a),
+         lambda a: functools.partial(items_plain_stage, *a), items_bytes),
+        ("resolve", "inst_resolve_kernel",
+         lambda a: lambda: real["resolve"](sweep_copy(a[0]), *a[1:]),
+         lambda a: lambda: instanced_split.resolve_plain(sweep_copy(a[0]), *a[1:]),
+         resolve_bytes),
+        ("record", "inst_record_kernel", lambda a: functools.partial(real["record"], *a),
+         lambda a: functools.partial(instanced_split.record_plain, *a), record_bytes_inst),
+    )
+    for label, name, launch, plain, size in glue:
+        args = cap.calls[label]
+        dev_ms = kernel_device_ms([launch(a) for a in args], name)
+        nbytes = sum(size(a) for a in args)
+        p_ms, _ = event_ms(plain(args[0]), 1)
+        b = bound(0.0, nbytes)
+        regs = {n.split("(")[0]: r for n, r in
+                kernel_registers(_cuda_build.BUILD_INFO["instanced_sweep"][1]).items()
+                if name in n}
+        print(f"  {label} kernel: {sum(dev_ms)!r} ms a frame on the device over {len(args)} "
+              f"calls ({dev_ms[0]!r} on the primary pass), bound {b['bound_ms']!r} ms "
+              f"({b['bound_by']}), plain {p_ms!r} ms on the primary pass; registers {regs}; "
+              f"{launches[label]} launches in the main-path frames  [{card}]")
+        out[label] = dict(ms=sum(dev_ms), primary_ms=dev_ms[0], plain_ms=p_ms,
+                          max_abs_err=0.0, launches=launches[label], **b)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     parser.add_argument("--k1-only", action="store_true",
@@ -4871,6 +5322,14 @@ def main(argv=None) -> int:
                         help="run phases 1, 2 and 20 only (BASELINE config 5 as written: the "
                              "Karras rebuild, the fat collapse and K6's any-hit shadows); "
                              "prints no summary lines")
+    parser.add_argument("--instanced-only", action="store_true",
+                        help="run phases 1, 2 and 22 only (BASELINE config 4 on the app's "
+                             "--instances path: the sweep, item, resolve and record kernels "
+                             "and the instanced shading); prints no summary lines")
+    parser.add_argument("--shade-baseline", type=Path, metavar="SOURCE",
+                        help="an earlier csrc/bounce_shade.cu (the one-level launch) to build, "
+                             "hold bit-equal to the bounce-shade kernel and time beside it in "
+                             "phase 19")
     # one rank of phase 18's world of 2 (the phase starts these itself)
     parser.add_argument("--multi-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--multi-world", type=int, help=argparse.SUPPRESS)
@@ -4956,6 +5415,10 @@ def main(argv=None) -> int:
         lbvh_wide_phase(device, card, baselines6)
         print("chip_smoke: stopped after phase 20 (--lbvh-wide-only)")
         return 0
+    if args.instanced_only:
+        instanced_app_phase(device, card)
+        print("chip_smoke: stopped after phase 22 (--instanced-only)")
+        return 0
     scene = procedural.terrain(NUM_TRIS)
     dev_scene = scene_to_device(scene, device)
     camera = aerial_camera(scene, device)
@@ -4965,7 +5428,9 @@ def main(argv=None) -> int:
         front_checks(device, card, split, dev_scene, camera)
         print("chip_smoke: stopped after phase 21 (--front-only)")
         return 0
-    shade = shade_checks(device, card, split, dev_scene, camera)
+    shade = shade_checks(device, card, split, dev_scene, camera,
+                         None if args.shade_baseline is None
+                         else BaselineShade(args.shade_baseline.resolve()))
     if args.shade_only:
         print("chip_smoke: stopped after phase 19 (--shade-only)")
         return 0
@@ -5004,6 +5469,7 @@ def main(argv=None) -> int:
                         split_packed)
     del split_views, split_packed
     any_hit = lbvh_wide_phase(device, card, baselines6)
+    inst = instanced_app_phase(device, card)
 
     def entry(name, source, replaces, launches, res):
         # no single PyTorch call traces rays through a BVH: library_ms is null
@@ -5049,6 +5515,22 @@ def main(argv=None) -> int:
               "none (the JAX package rebuilds the hit record with XLA operations, "
               "tpu_raytracing/trace/wide_fat.py:_reconstruct)", front["record"]["launches"],
               front["record"]),
+        entry("instanced_sweep", "instanced_sweep.cu",
+              "none (the JAX package sweeps the instances with XLA operations, "
+              "tpu_raytracing/trace/instanced_split.py:candidate_masks)",
+              inst["sweep"]["launches"], inst["sweep"]),
+        entry("instanced_items", "instanced_sweep.cu",
+              "none (the JAX package maps the items into object space with XLA operations, "
+              "tpu_raytracing/trace/instanced_split.py:trace_rays_instanced_split)",
+              inst["items"]["launches"], inst["items"]),
+        entry("instanced_resolve", "instanced_sweep.cu",
+              "none (the JAX package takes each ray's winner with XLA operations, "
+              "tpu_raytracing/trace/instanced_split.py:trace_rays_instanced_split)",
+              inst["resolve"]["launches"], inst["resolve"]),
+        entry("instanced_record", "instanced_sweep.cu",
+              "none (the JAX package rebuilds the hit record with XLA operations, "
+              "tpu_raytracing/trace/instanced_split.py:trace_rays_instanced_split)",
+              inst["record"]["launches"], inst["record"]),
     ] + probes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

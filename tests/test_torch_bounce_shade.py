@@ -191,12 +191,12 @@ def test_every_path_tracer_hands_the_kernel_its_operands(tmp_path, monkeypatch, 
 
     real, calls = tpt.bounce_shade, []
 
-    def checking(*args, sample_next=True):
+    def checking(*args, sample_next=True, normal_maps=None):
         s = dict(zip(("scene", "pairs", "rays", "rec", "srec_hit", "throughput", "radiance",
                       "alive", "pixel", "u_frame", "max_t"), args))
         _checked(s)
         calls.append(sample_next)
-        return real(*args, sample_next=sample_next)
+        return real(*args, sample_next=sample_next, normal_maps=normal_maps)
 
     monkeypatch.setattr(tpt, "bounce_shade", checking)
     app.main(["--scene", "cornell", "--type", "bottom-up", "--pairs", "--tracer", tracer,

@@ -49,6 +49,12 @@ def parse_cmd(argv=None) -> argparse.Namespace:
                    help="with --refit: rebuild at least every N frames (0: no cap)")
     p.add_argument("--bounces", type=int, default=0,
                    help="path-trace with N bounces instead of the render modes")
+    p.add_argument("--instances", type=int, default=0,
+                   help="with --tracer split and --bounces N: path-trace N instances of the "
+                        "scene, each under its own affine transform (the app's scatter, "
+                        "app/main.py:scatter_transforms), over one split tree built once; "
+                        "with --animate the instances move and only the instance level is "
+                        "rebuilt each frame")
     p.add_argument("--output", default="out", help="PNG output directory")
     p.add_argument("--tracer", default="wide",
                    choices=["scalar", "packet", "wide", "split", "grid", "lane"],

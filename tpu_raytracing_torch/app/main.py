@@ -70,6 +70,17 @@ runs when the entry-area monitor (``--refit-bound``) or
 (``_profile_build_stages``) and, for the split tracer's bucket build, its
 six stages (``_profile_split_stages``). ``--interactive`` renders frames
 live in the terminal (``app/interactive.py``) on the app's device.
+
+``--instances N`` (with ``--tracer split`` and ``--bounces N``) path-traces
+N instances of the scene, each under its own affine transform
+(``scatter_transforms``: a grid with a random turn and scale a copy),
+without ever making the instances' world triangles: the scene's split tree
+and pair rows are built once (``instance_blas``), the instance level (the
+instances' world boxes, inverse transforms and normal matrices,
+``instance_level``) on frame 0 and, with ``--animate``, on every frame from
+the moved transforms, and every pass runs the instanced tracers
+(``make_instanced_tracers``: the candidate sweep over the instances' boxes
+and one object-space K1 pass, ``trace/instanced_split.py``).
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ import math
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -92,6 +104,8 @@ from tpu_raytracing_torch.scene import camera as cam
 from tpu_raytracing_torch.scene import procedural
 from tpu_raytracing_torch.scene.objio import load_obj
 from tpu_raytracing_torch.scene.types import scene_to_device
+from tpu_raytracing_torch.trace import instanced_split
+from tpu_raytracing_torch.trace.instanced_split import make_instanced_tracers
 from tpu_raytracing_torch.trace.grid_trace import make_grid_tracer
 from tpu_raytracing_torch.trace.lane_trace import make_lane_tracer
 from tpu_raytracing_torch.trace.modes import BuildType, RenderType
@@ -99,7 +113,14 @@ from tpu_raytracing_torch.trace.packet import make_tiled_packet_tracer
 from tpu_raytracing_torch.trace.pathtrace import path_trace
 from tpu_raytracing_torch.trace.render import render_frame
 from tpu_raytracing_torch.trace.split_trace import LEAFW, make_frame_tracers
-from tpu_raytracing_torch.trace.traverse import f2i, i2f, pack_bvh, pack_pairs, trace_rays
+from tpu_raytracing_torch.trace.traverse import (
+    PackedPairs,
+    f2i,
+    i2f,
+    pack_bvh,
+    pack_pairs,
+    trace_rays,
+)
 from tpu_raytracing_torch.trace.wide_fat import make_fat_frame_tracers, make_tiled_fat_tracer
 from tpu_raytracing_torch.utils import timing
 from tpu_raytracing_torch.utils.png import write_png
@@ -114,6 +135,14 @@ REBUILD_STAGES = {"split": "SplitBuild          ", "lane": "TreeletBuild        
                   "grid": "GridBuild           "}
 # Seconds of animation a frame (the reference's frame * 0.1).
 ANIMATE_DT = 0.1
+# --instances: the scatter's spacing in object extents, its scale range, its
+# bob in object extents and its turn in rad per second of animation
+INSTANCE_SPACING = 1.6
+INSTANCE_SCALE = (0.75, 1.25)
+INSTANCE_BOB = 0.5
+INSTANCE_TURN = 0.2
+# --instances: the camera's pitch down over the instances (instances_camera)
+INSTANCE_PITCH = 0.6
 
 
 def load_scene(args):
@@ -365,6 +394,80 @@ def grid_trav(args, triangles, pairs, timer: StageTimer, say=print):
     return ugrid, packed, dict(tracer=make_grid_tracer())
 
 
+class InstanceBLAS(NamedTuple):
+    """What every instance shares: the object's split-tree views (K1's),
+    its pair rows and its box."""
+
+    views: tuple
+    packed: PackedPairs
+    lo: torch.Tensor  # [3]
+    hi: torch.Tensor  # [3]
+
+
+def instance_blas(args, triangles, timer: StageTimer = None) -> InstanceBLAS:
+    """The shared object of ``--instances``: the split tracer's tree over
+    ``triangles`` (object space, [T, 3, 3]) and its pair rows, built once
+    (timed as ``SplitBuild``), and the triangles' box."""
+    timer = timer or StageTimer()
+    split, packed = timer.run(REBUILD_STAGES["split"], split_tree, args, triangles)
+    flat = triangles.reshape(-1, 3)
+    return InstanceBLAS(split_tree_views(args, split, packed), packed, flat.amin(dim=0),
+                        flat.amax(dim=0))
+
+
+def instance_level(blas: InstanceBLAS, transforms: torch.Tensor):
+    """A frame's instance level from its transforms ([I, 3, 4] float32,
+    world <- object, on the device): the instances' world boxes, inverse
+    transforms and normal matrices over the shared ``blas``
+    (``instanced_split.build_instanced_split``), what the instanced tracers
+    and ``path_trace`` take as ``trav``."""
+    return instanced_split.build_instanced_split(blas.views, blas.packed, blas.lo, blas.hi,
+                                                 transforms)
+
+
+def instances_camera(lo, hi) -> cam.Camera:
+    """The ``--instances`` camera over the instances' world box (``lo``,
+    ``hi``): ``initialise_camera``'s depth and step, from above the box's
+    near edge, looking along +z and ``INSTANCE_PITCH`` down (the box's
+    centre, where ``initialise_camera`` puts it, would look along a row of
+    instances)."""
+    camera = cam.initialise_camera(lo, hi)
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    camera.position = np.array([(lo[0] + hi[0]) / 2, hi[1] + 0.35 * (hi[2] - lo[2]), lo[2]],
+                               np.float32)
+    camera.yaw, camera.pitch = 0.0, INSTANCE_PITCH
+    return cam.update_camera(camera)
+
+
+def scatter_transforms(count: int, lo, hi, t: float, seed: int = 0) -> np.ndarray:
+    """[count, 3, 4] float32 (world <- object): the app's ``--instances``
+    scatter of an object with box (``lo``, ``hi``) at animation time ``t``.
+    Copies sit on a square grid in x and z, ``INSTANCE_SPACING`` object
+    extents apart, each turned about y by a random angle and scaled by a
+    random factor in ``INSTANCE_SCALE`` (drawn from ``seed``); with time
+    each bobs by ``INSTANCE_BOB`` extents at its own phase and turns by
+    ``INSTANCE_TURN`` rad a second."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    extent = float(np.max(hi - lo)) or 1.0
+    side = max(int(math.ceil(math.sqrt(count))), 1)
+    k = np.arange(count)
+    grid = (np.stack([k % side, k // side], 1) - (side - 1) / 2.0) * INSTANCE_SPACING * extent
+    yaw = rng.uniform(0.0, 2.0 * math.pi, count) + INSTANCE_TURN * t
+    scale = rng.uniform(*INSTANCE_SCALE, count)
+    phase = rng.uniform(0.0, 2.0 * math.pi, count)
+    c, s = np.cos(yaw) * scale, np.sin(yaw) * scale
+    out = np.zeros((count, 3, 4), np.float64)
+    out[:, 0, 0], out[:, 0, 2], out[:, 2, 0], out[:, 2, 2] = c, s, -s, c
+    out[:, 1, 1] = scale
+    centre = (lo + hi) / 2.0
+    out[:, :, 3] = -np.einsum("iab,b->ia", out[:, :, :3], centre)
+    out[:, 0, 3] += grid[:, 0]
+    out[:, 1, 3] += INSTANCE_BOB * extent * np.sin(t + phase)
+    out[:, 2, 3] += grid[:, 1]
+    return out.astype(np.float32)
+
+
 def animated_trees(args, triangles0, t: float, views, sched: GuardedRefit, rest: dict):
     """The structures an animated frame traces at time ``t``: the geometry
     ``triangles0`` moved by ``procedural.animate_triangles``, then the
@@ -432,12 +535,14 @@ def main(argv=None) -> dict:
     ms) list of frame 0's builds), ``frames`` ((frame, mode or None, ms,
     file) for every image: the render or path trace and its read-back to
     the host, the PNG write excluded) and ``animated`` (for each animated
-    frame, ``animated_trees``' record and its ``frame``), and what it
-    rendered with: ``bvh`` (the last ``--type`` tree built), ``trav``,
-    ``packed``, ``scene`` (the device scene), ``camera`` (the last frame's),
-    ``tracer`` (the closest-hit tracer) and ``sched`` (``--refit``'s
-    schedule, or None)."""
+    frame, ``animated_trees``' record, or with ``--instances`` the instance
+    level's, and its ``frame``), and what it rendered with: ``bvh`` (the
+    last ``--type`` tree built), ``trav``, ``packed``, ``scene`` (the device
+    scene), ``camera`` (the last frame's), ``tracer`` (the closest-hit
+    tracer) and ``sched`` (``--refit``'s schedule, or None)."""
     args = parse_cmd(argv)
+    if args.instances and (args.tracer != "split" or args.bounces < 1):
+        raise SystemExit("--instances needs --tracer split and --bounces N >= 1")
     device = torch.device(args.device)
     scene = load_scene(args)
     # the grid's resolution, from the scene's box on frame 0 (animated
@@ -474,7 +579,20 @@ def main(argv=None) -> dict:
     if args.refit and args.tracer == "split":
         sched = GuardedRefit(rebuild=lambda tris: split_tree(args, tris),
                              quality_bound=args.refit_bound, max_interval=args.refit_interval)
-    trav, packed, tracers = build_trav(args, triangles, bvh, pairs, timer, sched)
+    if args.instances:
+        blas = instance_blas(args, triangles, timer)
+
+        def instances_at(t):
+            tf = scatter_transforms(args.instances, scene.aabb_min, scene.aabb_max, t)
+            return timer.run("InstanceLevel       ", instance_level, blas,
+                             torch.as_tensor(tf, device=device))
+
+        trav, packed, tracers = instances_at(0.0), blas.packed, make_instanced_tracers()
+        print(f"Instances: {args.instances} of {scene.num_triangles} triangles")
+        camera = instances_camera(trav.wmin.amin(dim=0).cpu().numpy(),
+                                  trav.wmax.amax(dim=0).cpu().numpy())
+    else:
+        trav, packed, tracers = build_trav(args, triangles, bvh, pairs, timer, sched)
     result = dict(stages=list(timer.stages), frames=[], animated=[], bvh=bvh, trav=trav,
                   packed=packed, scene=dev_scene, camera=None,
                   tracer=tracers["tracer"], sched=sched)
@@ -489,7 +607,14 @@ def main(argv=None) -> dict:
         if args.orbit:
             camera = orbit_camera(camera, scene, frame, args.frames)
         built = ""
-        if args.animate and frame > 0:
+        if args.animate and frame > 0 and args.instances:
+            n_stages = len(timer.stages)
+            trav = instances_at(frame * ANIMATE_DT)
+            record = dict(t=frame * ANIMATE_DT, kind="instances",
+                          stages=timer.stages[n_stages:])
+            result["animated"].append(dict(frame=frame, **record))
+            built = f", instance level {record['stages'][0][1]:.1f} ms"
+        elif args.animate and frame > 0:
             trav, packed, new_bvh, record = animated_trees(
                 args, triangles, frame * ANIMATE_DT, trav, sched, rest)
             bvh = new_bvh if new_bvh is not None else bvh

@@ -52,6 +52,21 @@ def invert_affine(transforms: torch.Tensor) -> torch.Tensor:
     return torch.cat([r_inv, t_inv], dim=2)
 
 
+def instance_normal_maps(inv_transforms: torch.Tensor) -> torch.Tensor:
+    """[I, 3, 3] float32, contiguous: each instance's normal matrix, the
+    transpose of its inverse linear part (``inv_transforms`` [I, 3, 4],
+    object <- world) turned by the sign of its determinant, so that an
+    object-space face normal maps to the world face normal of the
+    transformed triangle (a mirror flips the winding). The determinant is
+    the cofactor expansion along the first row."""
+    m = inv_transforms[:, :, :3]
+    det = (m[:, 0, 0] * (m[:, 1, 1] * m[:, 2, 2] - m[:, 1, 2] * m[:, 2, 1])
+           - m[:, 0, 1] * (m[:, 1, 0] * m[:, 2, 2] - m[:, 1, 2] * m[:, 2, 0])
+           + m[:, 0, 2] * (m[:, 1, 0] * m[:, 2, 1] - m[:, 1, 1] * m[:, 2, 0]))
+    sign = torch.where(det < 0, -1.0, 1.0).to(m.dtype)
+    return (m.transpose(1, 2) * sign[:, None, None]).contiguous()
+
+
 def build_instanced(blas: BVH, transforms: torch.Tensor) -> InstancedAS:
     """The TLAS over ``transforms`` ([I, 3, 4]) instances of one BLAS, both
     levels packed. The BLAS root group is the slot pair (root, root + 1) of

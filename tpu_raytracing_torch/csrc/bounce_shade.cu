@@ -15,9 +15,12 @@
 //     alive &= hit;
 //   * the hit pair's rotation (pair row word 14, or 15 for the pair's second
 //     triangle) and the hit primitive's three corner normals rotated by it,
-//     interpolated at (bary_u, bary_v), normalised (length clamped to
-//     1e-20), flipped to face the ray; the material's diffuse albedo (the
-//     default slot for material id -1);
+//     interpolated at (bary_u, bary_v); where instance ids are given (a
+//     two-level frame, trace/instanced_split.py) and the ray's is not -1,
+//     mapped by that instance's 3x3 normal matrix (row c: (m[c][0] n.x +
+//     m[c][1] n.y) + m[c][2] n.z); normalised (length clamped to 1e-20),
+//     flipped to face the ray; the material's diffuse albedo (the default
+//     slot for material id -1);
 //   * hit = origin + direction * t; the shadow direction toward the light
 //     (length clamped to 1e-30); radiance += (alive & !srec_hit) ?
 //     throughput * albedo * max(n . l, 0) * light colour : 0;
@@ -39,7 +42,9 @@
 // keeps the gathers in flight: one thread per ray, 256-thread blocks, no
 // shared memory, few registers, every per-ray array read at the thread's
 // own index so a warp's loads coalesce; the material table is a few
-// entries and stays in L1.
+// entries and stays in L1. A two-level frame adds a 4-byte instance id a ray
+// and a 36-byte normal matrix a hit, from a table of a few thousand rows
+// that stays in L2.
 
 #include <cuda_runtime.h>
 
@@ -72,6 +77,8 @@ struct Args {
   const int* material_ids;  // [num_prims]
   const float* diffuse;     // [num_mats, 3]
   const float* light;       // [3]
+  const int* inst;          // [R] or null (one-level)
+  const float* normal_maps; // [num_inst, 3, 3] or null
   float* radiance_out;      // [R, 3]
   bool* alive_out;          // [R]
   float* throughput_out;    // [R, 3]   (SampleNext only)
@@ -83,7 +90,7 @@ struct Args {
   // and SKY_ZENITH, trace/shade.py LIGHT_COLOUR_RGB, trace/render.py
   // SHADOW_TMIN
   float horizon[3], zenith[3], light_colour[3], shadow_tmin;
-  int num_rays, num_u, num_pairs, num_prims, num_mats;
+  int num_rays, num_u, num_pairs, num_prims, num_mats, num_inst;
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
@@ -160,6 +167,16 @@ __global__ void __launch_bounds__(kThreads) bounce_shade_kernel(const Args a) {
 #pragma unroll
   for (int c = 0; c < 3; ++c)
     n[c] = nrow[3 * k0 + c] * w0 + nrow[3 * k1 + c] * bu + nrow[3 * k2 + c] * bv;
+  if (a.inst != nullptr) {
+    const int k = a.inst[i];
+    if (k >= a.num_inst) __trap();  // torch's index check
+    if (k >= 0) {
+      const float* m = a.normal_maps + 9 * static_cast<int64_t>(k);
+      const float o0 = n[0], o1 = n[1], o2 = n[2];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) n[c] = m[3 * c] * o0 + m[3 * c + 1] * o1 + m[3 * c + 2] * o2;
+    }
+  }
   const float len = clamp_min(norm3(n), 1e-20f);
 #pragma unroll
   for (int c = 0; c < 3; ++c) n[c] = n[c] / len;
@@ -213,9 +230,10 @@ __global__ void __launch_bounds__(kThreads) bounce_shade_kernel(const Args a) {
 
 }  // namespace
 
-// One bounce's shading. Pointers as in Args, in that order; the last five
-// outputs may be null when sample_next is 0. ``consts`` is a host array of
-// Args' ten shading constants, in their order. ``stream`` is a
+// One bounce's shading. Pointers as in Args, in that order; inst and
+// normal_maps are both null (a one-level frame) or both given; the last
+// five outputs may be null when sample_next is 0. ``consts`` is a host array
+// of Args' ten shading constants, in their order. ``stream`` is a
 // cudaStream_t.
 // Returns the cudaError_t of the launch.
 extern "C" int bounce_shade_launch(
@@ -224,11 +242,14 @@ extern "C" int bounce_shade_launch(
     const void* srec_hit, const void* throughput, const void* radiance, const void* alive,
     const void* pixel, const void* u_frame, const void* max_t, const void* pair_rows,
     const void* normals, const void* material_ids, const void* diffuse, const void* light,
-    void* radiance_out, void* alive_out, void* throughput_out, void* origin_out,
-    void* direction_out, void* tmin_out, void* tmax_out, const float* consts, int num_rays,
-    int num_u, int num_pairs, int num_prims, int num_mats, int sample_next, void* stream) {
+    const void* inst, const void* normal_maps, void* radiance_out, void* alive_out,
+    void* throughput_out, void* origin_out, void* direction_out, void* tmin_out,
+    void* tmax_out, const float* consts, int num_rays, int num_u, int num_pairs,
+    int num_prims, int num_mats, int num_inst, int sample_next, void* stream) {
   if (num_rays <= 0) return 0;
   if (consts == nullptr || num_u <= 0 || num_pairs <= 0 || num_prims <= 0 || num_mats <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((inst == nullptr) != (normal_maps == nullptr) || (inst != nullptr && num_inst <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (sample_next && (throughput_out == nullptr || origin_out == nullptr ||
                       direction_out == nullptr || tmin_out == nullptr || tmax_out == nullptr))
@@ -253,6 +274,8 @@ extern "C" int bounce_shade_launch(
            static_cast<const int*>(material_ids),
            static_cast<const float*>(diffuse),
            static_cast<const float*>(light),
+           static_cast<const int*>(inst),
+           static_cast<const float*>(normal_maps),
            static_cast<float*>(radiance_out),
            static_cast<bool*>(alive_out),
            static_cast<float*>(throughput_out),
@@ -268,7 +291,8 @@ extern "C" int bounce_shade_launch(
            num_u,
            num_pairs,
            num_prims,
-           num_mats};
+           num_mats,
+           num_inst};
   for (int c = 0; c < 3; ++c) {
     a.horizon[c] = consts[c];
     a.zenith[c] = consts[3 + c];

@@ -29,6 +29,15 @@ class HitRecord:
     bary_v: torch.Tensor  # [R] float32
 
 
+@dataclasses.dataclass
+class InstancedHitRecord(HitRecord):
+    """A two-level closest hit (``trace/instanced_split.py``): ``tri_id``,
+    ``prim_id`` and the barycentrics name the hit instance's object-space
+    triangle, ``t`` is a distance along the world ray."""
+
+    inst: torch.Tensor  # [R] int32: the hit instance, -1 for none
+
+
 def make_brute_tracer(triangles: torch.Tensor, chunk: int = 1024):
     """Tracer with the BVH tracers' ``(trav, pairs, rays)`` signature over no
     structure at all, so the render pipeline can swap in the oracle (with

@@ -31,6 +31,10 @@ Differences from the reference, all deliberate:
   context, NEE, the next rays) is one CUDA kernel, ``csrc/bounce_shade.cu``,
   bit-equal to ``bounce_shade_plain``, which the CPU runs; the reference
   leaves these operations to XLA, which fuses them.
+* A two-level frame (``trav`` an ``InstancedSplitAS`` with its
+  ``normal_maps``, traced by ``trace/instanced_split.py``'s tracers) shades
+  a hit with its object triangle's normal mapped by the hit instance's
+  normal matrix; the reference path tracer has no instances.
 """
 
 from __future__ import annotations
@@ -112,11 +116,25 @@ def _check_sort_kind(sort_kind: str, pair_loc) -> None:
                          "(bvh/treelet.py:build_pair_tid)")
 
 
+def _instances(rec, normal_maps):
+    """The hit instances a bounce shades with: ``rec.inst`` of an instanced
+    record (``InstancedHitRecord``), which needs ``normal_maps``; None for
+    a one-level record, whatever ``normal_maps`` is."""
+    inst = getattr(rec, "inst", None)
+    if inst is not None and normal_maps is None:
+        raise ValueError("bounce_shade: an instanced hit record needs the instances' "
+                         "normal_maps")
+    return inst
+
+
 def bounce_shade_plain(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput,
-                       radiance, alive, pixel, u_frame, max_t, sample_next: bool = True):
+                       radiance, alive, pixel, u_frame, max_t, sample_next: bool = True,
+                       normal_maps=None):
     """The bounce-shade kernel's plain version: one bounce's sky, hit
     context, normal, next-event estimation and, with ``sample_next``, the
-    next rays, for every ray (dead ones too).
+    next rays, for every ray (dead ones too). An instanced record's normal
+    is mapped by its instance's row of ``normal_maps`` ([I, 3, 3]) before
+    it is normalised.
 
     Returns (radiance, throughput, alive, rays): with ``sample_next`` the
     throughput times the albedo and the next rays (from the hit point off
@@ -131,6 +149,12 @@ def bounce_shade_plain(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, thr
     ctx = _gather_hit_context(scene, pairs, rec)
     albedo = ctx["mat_diffuse"]
     normal = shade.interpolate(ctx["normals3"], rec.bary_u, rec.bary_v)
+    inst = _instances(rec, normal_maps)
+    if inst is not None:
+        m = normal_maps[inst.clamp(min=0).to(torch.int64)]
+        mapped = (m[:, :, 0] * normal[:, 0:1] + m[:, :, 1] * normal[:, 1:2]
+                  + m[:, :, 2] * normal[:, 2:3])
+        normal = torch.where((inst >= 0)[:, None], mapped, normal)
     normal = normal / torch.clamp(
         torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-20)
     normal = torch.where((dot(normal, rays.direction) > 0.0)[:, None], -normal, normal)
@@ -158,7 +182,8 @@ def bounce_shade_plain(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, thr
 
 
 def _check_shade_operands(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput,
-                          radiance, alive, pixel, u_frame, max_t) -> torch.Tensor:
+                          radiance, alive, pixel, u_frame, max_t, inst=None,
+                          normal_maps=None) -> torch.Tensor:
     """Raises unless the operands are what the kernel takes; returns
     ``max_t`` as a [1] float32 tensor on the rays' device."""
     dev = rays.origin.device
@@ -187,6 +212,10 @@ def _check_shade_operands(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, 
              ("scene.materials.diffuse", scene.materials.diffuse, torch.float32,
               (max(scene.materials.diffuse.shape[0], 1), 3)),
              ("scene.light", scene.light, torch.float32, (3,))]
+    if inst is not None:
+        specs += [("rec.inst", inst, torch.int32, (num,)),
+                  ("normal_maps", normal_maps, torch.float32,
+                   (max(normal_maps.shape[0], 1), 3, 3))]
     for name, x, dtype, shape in specs:
         if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous():
@@ -197,29 +226,33 @@ def _check_shade_operands(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, 
     return max_t
 
 
-_SHADE_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_float)]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_SHADE_ARGTYPES = ([ctypes.c_void_p] * 29 + [ctypes.POINTER(ctypes.c_float)]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 # the kernel's shading constants, in bounce_shade_launch's order
 _SHADE_CONSTS = (ctypes.c_float * 10)(*SKY_HORIZON, *SKY_ZENITH, *shade.LIGHT_COLOUR_RGB,
                                       SHADOW_TMIN)
 
 
 def bounce_shade(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput, radiance,
-                 alive, pixel, u_frame, max_t, sample_next: bool = True):
+                 alive, pixel, u_frame, max_t, sample_next: bool = True, normal_maps=None):
     """One bounce's shading (``bounce_shade_plain``'s arguments and
-    results). CPU tensors run ``bounce_shade_plain``; CUDA tensors launch
-    the bounce-shade kernel (``csrc/bounce_shade.cu``), one launch a call,
+    results; a one-level record hands the kernel no instance data). CPU
+    tensors run ``bounce_shade_plain``; CUDA tensors launch the
+    bounce-shade kernel (``csrc/bounce_shade.cu``), one launch a call,
     or raise. ``pixel`` indexes the rows of ``u_frame``; a pixel out of
     range stops the kernel, as it fails PyTorch's index check."""
     global launch_count
     dev = rays.origin.device
     if dev.type == "cpu":
         return bounce_shade_plain(scene, pairs, rays, rec, srec_hit, throughput, radiance,
-                                  alive, pixel, u_frame, max_t, sample_next=sample_next)
+                                  alive, pixel, u_frame, max_t, sample_next=sample_next,
+                                  normal_maps=normal_maps)
     if dev.type != "cuda":
         raise ValueError(f"bounce_shade: unsupported device {dev}")
+    inst = _instances(rec, normal_maps)
+    maps = None if inst is None else normal_maps
     max_t = _check_shade_operands(scene, pairs, rays, rec, srec_hit, throughput, radiance,
-                                  alive, pixel, u_frame, max_t)
+                                  alive, pixel, u_frame, max_t, inst, maps)
     fn = _cuda_build.load_library("bounce_shade").bounce_shade_launch
     fn.argtypes = _SHADE_ARGTYPES
     fn.restype = ctypes.c_int
@@ -246,9 +279,12 @@ def bounce_shade(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughpu
              u_frame.data_ptr(), max_t.data_ptr(), pairs.rows.data_ptr(),
              scene.normals.data_ptr(), scene.material_ids.data_ptr(),
              scene.materials.diffuse.data_ptr(), scene.light.data_ptr(),
+             None if inst is None else inst.data_ptr(),
+             None if maps is None else maps.data_ptr(),
              rad_out.data_ptr(), alive_out.data_ptr(), *outs, _SHADE_CONSTS,
              num, u_frame.shape[0], pairs.rows.shape[0], scene.normals.shape[0],
-             scene.materials.diffuse.shape[0], int(sample_next), stream)
+             scene.materials.diffuse.shape[0], 0 if maps is None else maps.shape[0],
+             int(sample_next), stream)
     if err != 0:
         raise RuntimeError(f"bounce_shade kernel launch failed: cudaError {err}")
     launch_count += 1
@@ -264,7 +300,7 @@ _LEAF_SHIFT = 6
 
 def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughput,
                   radiance, alive, pixel, u_frame, max_t, pair_loc=None,
-                  sample_next: bool = True, sort_kind: str = "cell"):
+                  sample_next: bool = True, sort_kind: str = "cell", normal_maps=None):
     """Shading + NEE + next-ray sampling (``bounce_shade``) + compaction
     for one bounce: a stable sort of the next rays by ``sort_kind``'s key,
     dead rays last.
@@ -272,13 +308,13 @@ def _bounce_stage(scene: DeviceScene, pairs, rays: Rays, rec, srec_hit, throughp
     Returns (radiance, throughput, alive, pixel, rays). With
     ``sample_next=False`` (the final bounce) sampling and compaction are
     skipped. The spans ``path_trace.shade`` and ``path_trace.compact``
-    cover the two parts.
+    cover the two parts. ``normal_maps``: as ``bounce_shade``'s.
     """
     _check_sort_kind(sort_kind, pair_loc)
     with timing.span("path_trace.shade"):
         radiance, throughput, alive, new_rays = bounce_shade(
             scene, pairs, rays, rec, srec_hit, throughput, radiance, alive, pixel, u_frame,
-            max_t, sample_next=sample_next)
+            max_t, sample_next=sample_next, normal_maps=normal_maps)
     if not sample_next:
         return radiance, throughput, alive, pixel, rays
     with timing.span("path_trace.compact"):
@@ -366,6 +402,9 @@ def path_trace(
     (``.primary``, ``.primary_shadow``, ``.bounce``, ``.bounce_shadow``),
     and so are the bounce shadows' sort and restore (``.shadow_sort``) and
     ``_bounce_stage``'s parts (``.shade``, ``.compact``).
+
+    Where ``trav`` carries ``normal_maps`` (an ``InstancedSplitAS``), an
+    instanced tracer's hits are shaded with them.
     """
     if tracer is None:
         tracer = trace_rays
@@ -388,6 +427,7 @@ def path_trace(
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
     max_t = camera["max_depth"]
+    normal_maps = getattr(trav, "normal_maps", None)
 
     for bounce in range(num_bounces + 1):
         ct = tracer if bounce == 0 else traced_b
@@ -415,7 +455,7 @@ def path_trace(
         radiance, throughput, alive, pixel, rays = _bounce_stage(
             scene, pairs, rays, rec, srec_hit, throughput, radiance, alive, pixel,
             u_frame, max_t, pair_loc=pair_loc, sample_next=bounce < num_bounces,
-            sort_kind=sort_kind)
+            sort_kind=sort_kind, normal_maps=normal_maps)
 
     check_overflow(overflow)
     img = _finalize(radiance, pixel)

@@ -397,10 +397,25 @@ def split_traverse_cycles(inner, pairs, origin, direction, tmin, tmax, *, leafw:
     return (*out, cycles)
 
 
+# Added to an instanced call's TraceStats.overflow where its overlaps
+# outnumbered its item slots (trace/instanced_split.py:trace_instanced); a
+# frame's sum of stack overflow flags stays below it.
+CANDIDATE_OVERFLOW = 1 << 16
+
+
 def check_overflow(overflow: torch.Tensor) -> None:
     """Host check of a traversal overflow flag (``TraceStats.overflow``, or
-    a sum of them); raises if set."""
-    if int(overflow.sum()) != 0:
+    a sum of them); raises if set: ``InstancedCandidateOverflow`` where an
+    instanced call's overlaps outnumbered its item slots."""
+    flags = int(overflow.sum())
+    if flags >= CANDIDATE_OVERFLOW:
+        from tpu_raytracing_torch.trace.instanced_split import InstancedCandidateOverflow
+
+        raise InstancedCandidateOverflow(
+            f"{flags // CANDIDATE_OVERFLOW} instanced call(s) of the frame had more instance "
+            "overlaps than item slots (trace/instanced_split.py:trace_instanced, "
+            "ITEMS_PER_RAY): their rays' hits past the slots were not traced")
+    if flags != 0:
         raise RuntimeError(
             "traversal stack overflow: a split-BVH ray needed more than the stack "
             "bound its views carry (bvh/bucket.py:stack_cap, "

@@ -7,7 +7,8 @@ Port of ``tpu_raytracing/utils/timing.py`` (``StageTimer``,
 a stage here synchronises the CUDA device of its result's tensors; on the
 CPU, where PyTorch runs synchronously, there is nothing to wait for.
 
-Spans and counters (``span``, ``count``, ``recorded``, ``clear``) record
+Spans and counters (``span``, ``count``, ``count_max``, ``recorded``,
+``clear``) record
 exactly while a ``torch.profiler`` session records; otherwise a span
 costs one flag read. A span opens a host range in the profiler's trace
 (``_RecordFunctionFast``: a ``cpu_op`` with no annotation on the device,
@@ -55,6 +56,8 @@ class _Record:
         self.open: list = []
         # name -> [Python sum, device scalars]
         self.counters: Dict[str, list] = {}
+        # name -> [Python maximum, device scalars]
+        self.maxima: Dict[str, list] = {}
         self.dropped = 0
         self.result: Optional[dict] = None
 
@@ -153,12 +156,30 @@ def count(name: str, value) -> None:
         c[0] += value
 
 
+def count_max(name: str, value) -> None:
+    """Keeps the largest ``value`` (a Python number or a device scalar)
+    given to the counter ``name`` while ``tracing()``; read as one number
+    beside the summed counters."""
+    if not _profiler._is_profiler_enabled:
+        return
+    rec = _RECORD
+    rec.result = None
+    c = rec.maxima.setdefault(name, [None, []])
+    if isinstance(value, torch.Tensor):
+        c[1].append(value.reshape(()))
+        if len(c[1]) >= _COUNTER_FOLD:
+            c[1] = [torch.stack(c[1]).max()]
+    else:
+        c[0] = value if c[0] is None else max(c[0], value)
+
+
 def recorded() -> dict:
     """The record since the last ``clear()``, after one synchronise:
     ``spans``, a list of dicts (``name``, ``parent``: the parent's index in
     the list or None, ``host_ms``, ``device_ms``: the CUDA-event time from
     the stream reaching the span to its finishing it, None without CUDA or
-    while the span is open), ``counters`` (name -> Python number) and
+    while the span is open), ``counters`` (name -> Python number: the sum
+    of a ``count`` counter, the largest value of a ``count_max`` one) and
     ``dropped`` (spans past ``MAX_SPANS``)."""
     rec = _RECORD
     if rec.result is not None:
@@ -174,6 +195,9 @@ def recorded() -> dict:
                                      if closed and start is not None else None)))
     counters = {name: total + (torch.stack(dev).sum().item() if dev else 0)
                 for name, (total, dev) in rec.counters.items()}
+    for name, (top, dev) in rec.maxima.items():
+        values = ([] if top is None else [top]) + ([torch.stack(dev).max().item()] if dev else [])
+        counters[name] = max(values)
     rec.result = dict(spans=spans, counters=counters, dropped=rec.dropped)
     return rec.result
 
